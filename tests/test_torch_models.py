@@ -1,0 +1,193 @@
+"""The torch port's models against the JAX package's, on the CPU.
+
+Both sides build the headline structure at toy width from one config dict,
+and the port loads the JAX variables through ``state_dict_from_flax``. The
+variables are drawn from a numpy seed so that LoRA B, the BatchNorm
+statistics and every other leaf are non-trivial. fp32; the JAX
+side takes its plain paths on the CPU (xla_attention, _ln_reference).
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vfmseg_tpu.models.build import build_segmentor as jax_build_segmentor
+from vfmseg_tpu.models.segmentors.ms_vfm import MsVFMSegmentor as JaxMsVFM
+from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
+from vfmseg_tpu_torch.models.build import build_segmentor
+from vfmseg_tpu_torch.models.presets import headline_config
+from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
+
+ATOL = 1e-4
+
+
+def toy_config(embed=64, depth=4, heads=4, rank=4, channels=32):
+    """The headline config with its widths cut: same structure, same
+    types."""
+    cfg = copy.deepcopy(headline_config())
+    m = cfg["model"]
+    bb = m["backbone"]
+    bb["backbone"].update(embed_dim=embed, depth=depth, num_heads=heads,
+                          img_size=64, out_indices=list(range(depth))[-4:])
+    bb["Lora_config"].update(r=rank, lora_alpha=2 * rank)
+    m["decode_head"].update(in_channels=[embed] * 4, channels=channels)
+    m["aux_head"].update(in_channels=[embed] * 4, channels=channels)
+    m["aux_head"]["transformer"].update(query_dim=channels, n_heads=2,
+                                        d_head=16)
+    m["hr_crop_size"] = (64, 64)
+    return cfg
+
+
+def _leaf(path, shape, rng):
+    """A seeded value for one JAX leaf, scaled by its role."""
+    name = path[-1]
+    n = rng.standard_normal(shape).astype(np.float32)
+    if name == "kernel":
+        return n * np.float32(np.prod(shape[:-1]) ** -0.5)
+    if name == "scale":
+        return 1.0 + 0.1 * n
+    if name == "var":
+        return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    if name == "lora_a":
+        bound = shape[0] ** -0.5
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+    if name == "gamma":
+        return 0.1 + 0.02 * n
+    if name in ("cls_token", "pos_embed"):
+        return 0.02 * n
+    if name == "mask_token":
+        return n
+    return 0.1 * n  # bias, BN mean, lora_b
+
+
+def _fill(tree, rng, path=()):
+    if isinstance(tree, dict):
+        return {k: _fill(v, rng, path + (k,)) for k, v in tree.items()}
+    return _leaf(path, tree.shape, rng)
+
+
+def jax_model_and_variables(cfg, seed=0):
+    """The JAX segmentor and seeded variables of its shapes: LoRA B, the
+    BatchNorm statistics and LayerScale are all non-trivial."""
+    model = jax_build_segmentor(cfg["model"], dtype=jnp.float32)
+    img = jnp.zeros((1, 128, 128, 3), jnp.float32)
+    lab = jnp.zeros((1, 128, 128), jnp.int32)
+    rngs = {name: jax.random.PRNGKey(i) for i, name in
+            enumerate(("params", "crop", "mask", "dropout"))}
+    shapes = jax.eval_shape(lambda: model.init(rngs, img, lab))
+    rng = np.random.RandomState(seed)
+    return model, {col: _fill(dict(shapes[col]), rng)
+                   for col in ("params", "batch_stats")}
+
+
+def port_model(cfg, variables):
+    model = build_segmentor(cfg["model"], dtype=torch.float32)
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return model
+
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg = toy_config()
+    jmodel, variables = jax_model_and_variables(cfg)
+    return cfg, jmodel, variables, port_model(cfg, variables)
+
+
+def _img(seed, shape):
+    return np.random.RandomState(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (64, 128)])
+def test_vit_features(pair, hw):
+    """Backbone features at the pos-embed's own grid and at an
+    interpolated one (bicubic with the +0.1 trick)."""
+    _cfg, jmodel, variables, model = pair
+    x = _img(1, (2,) + hw + (3,))
+    want = jax.jit(lambda v, x: jmodel.apply(
+        v, x, method=lambda m, x: m.backbone(x, deterministic=True)))(
+            variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = model.backbone(torch.from_numpy(x))
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0)
+
+
+def test_lr_forward(pair):
+    _cfg, jmodel, variables, model = pair
+    x = _img(2, (1, 64, 128, 3))
+    want = jax.jit(lambda v, x: jmodel.apply(
+        v, x, method=JaxMsVFM.lr_forward))(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got = model.lr_forward(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_hr_forward(pair):
+    """Refine path with the decoder mask off, as stage 2 runs it."""
+    _cfg, jmodel, variables, model = pair
+    x = _img(3, (3, 64, 64, 3))
+    ctx = _img(4, (3, 64, 64, 19)) * 2.0
+    want = jax.jit(lambda v, x, c: jmodel.apply(
+        v, x, c, False, False, method=JaxMsVFM.hr_forward))(
+            variables, jnp.asarray(x), jnp.asarray(ctx))
+    with torch.no_grad():
+        got = model.hr_forward(torch.from_numpy(x), torch.from_numpy(ctx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+
+
+def test_state_dict_covers_every_leaf(pair):
+    """Every JAX leaf lands on a port tensor of the same size, and every
+    port tensor comes from one."""
+    _cfg, _jmodel, variables, model = pair
+    sd = state_dict_from_flax(variables)
+    own = model.state_dict()
+    assert set(sd) == set(own)
+    n_leaves = len(jax.tree_util.tree_leaves(variables))
+    n_bn = len(variables["batch_stats"])
+    assert len(sd) == n_leaves + n_bn  # + num_batches_tracked per BN
+    for k, v in sd.items():
+        assert v.shape == own[k].shape, k
+
+
+def test_lora_fold_tracks_parameter_writes():
+    """The folded LoRA weight is W + (alpha / r) B A, and a parameter
+    written in place (as load_state_dict does) refreshes it."""
+    lin = LoRALinear(8, 6, rank=2, alpha=4.0)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in lin.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    x = torch.randn(3, 8, generator=gen)
+
+    def want():
+        w = lin.weight + 2.0 * lin.lora_b @ lin.lora_a
+        return x @ w.T + lin.bias
+
+    with torch.no_grad():
+        torch.testing.assert_close(lin(x), want())
+        lin.lora_b.mul_(-3.0)
+        torch.testing.assert_close(lin(x), want())
+
+
+def test_init_params_is_seeded_and_nontrivial():
+    cfg = toy_config()
+    a = init_params(build_segmentor(cfg["model"]), 7).state_dict()
+    b = init_params(build_segmentor(cfg["model"]), 7).state_dict()
+    c = init_params(build_segmentor(cfg["model"]), 8).state_dict()
+    for k in a:
+        torch.testing.assert_close(a[k], b[k])
+    assert any(not torch.equal(a[k], c[k]) for k in a if k.endswith("weight"))
+    lora_b = [v for k, v in a.items() if k.endswith("lora_b")]
+    assert lora_b and all(v.abs().sum() > 0 for v in lora_b)
+    assert all(v.abs().sum() > 0 for k, v in a.items()
+               if k.endswith("running_mean"))

@@ -1,0 +1,43 @@
+"""Hand-written CUDA kernels of the port and their launch counters.
+
+Each kernel is a :class:`~vfmseg_tpu_torch.kernels.build.Kernel`: a C entry of
+the library built from ``vfmseg_tpu_torch/csrc`` plus a count of its launches.
+The wrappers that check tensors and launch them live beside their plain
+PyTorch versions in ``vfmseg_tpu_torch/ops``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+from vfmseg_tpu_torch.kernels.build import (  # noqa: F401
+    Kernel,
+    KernelBuildError,
+    KernelLaunchError,
+    build_log,
+    library,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# csrc/layer_norm.cu: x, weight, bias, y, rows, c, eps, dtype, stream
+LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
+                    [_P, _P, _P, _P, _I, _I, _F, _I, _P])
+# csrc/attention_qkv.cu: q, k, v, out, batch, n, heads, stride_b, stride_n,
+# scale, stream
+ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+
+KERNELS = (LAYER_NORM, ATTENTION_QKV)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.reset()

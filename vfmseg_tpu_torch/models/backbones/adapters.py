@@ -1,0 +1,81 @@
+"""LoRA linear layers, eval only.
+
+Port of the LoRA half of vfmseg_tpu/models/backbones/adapters.py:30-120.
+``y = x (W + (alpha / r) A B) + b``: the low-rank update is folded into the
+base weight in fp32 and cast once to the compute dtype, as the JAX
+``LoRADense`` does on its dropout-free path (adapters.py:69-94). The
+sequential form with LoRA dropout is the training path and waits for the
+training slice.
+
+Parameters follow the torch (peft) orientation: ``weight`` [out, in],
+``lora_a`` [r, in], ``lora_b`` [out, r].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vfmseg_tpu_torch.models.common import Dense
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRASpec:
+    """Which linears get LoRA and with what shape (reference Lora_config)."""
+
+    rank: int = 0
+    alpha: float = 1.0
+    dropout: float = 0.0
+    targets: Tuple[str, ...] = ()  # linear module names, e.g. ("qkv",)
+
+    def applies_to(self, name: str) -> bool:
+        return self.rank > 0 and name in self.targets
+
+
+class LoRALinear(Dense):
+    """Dense layer plus a folded low-rank update (eval only)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 rank: int = 1, alpha: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype)
+        self.rank = rank
+        self.scaling = alpha / rank
+        self.lora_a = nn.Parameter(torch.zeros(rank, in_features))
+        self.lora_b = nn.Parameter(torch.zeros(out_features, rank))
+        self._folded: Optional[torch.Tensor] = None
+        self._folded_key = None
+
+    def folded_weight(self) -> torch.Tensor:
+        """``W + (alpha / r) B A`` in fp32, cast once to the compute dtype.
+
+        Cached until a parameter is written in place (loading a state dict),
+        moved, or the compute dtype changes."""
+        params = (self.weight, self.lora_a, self.lora_b)
+        key = (self.dtype,) + tuple((p.device, p.data_ptr(), p._version)
+                                    for p in params)
+        if key != self._folded_key:
+            with torch.no_grad():
+                w = (self.weight.float()
+                     + (self.lora_b.float() @ self.lora_a.float())
+                     * self.scaling)
+                self._folded = w.to(self.dtype)
+            self._folded_key = key
+        return self._folded
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.folded_weight(), bias)
+
+
+def make_dense(in_features: int, out_features: int, bias: bool, name: str,
+               lora: Optional[LoRASpec], dtype: torch.dtype) -> Dense:
+    """A Dense, or a LoRALinear where ``lora`` targets ``name``."""
+    if lora is not None and lora.applies_to(name):
+        return LoRALinear(in_features, out_features, bias=bias,
+                          rank=lora.rank, alpha=lora.alpha, dtype=dtype)
+    return Dense(in_features, out_features, bias=bias, dtype=dtype)

@@ -1,0 +1,79 @@
+"""DINOv2 ViT backbone builders.
+
+Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
+config surface (configs/_base_/models/lora_dinov2_ms_masked.py) and build the
+ViT core of ``vit.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
+from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
+
+
+def build_dinov2(
+    patch_size: int = 16,
+    embed_dim: int = 1024,
+    depth: int = 24,
+    num_heads: int = 16,
+    mlp_ratio: float = 4.0,
+    img_size: int = 512,
+    ffn_layer: str = "mlp",
+    init_values: Optional[float] = 1e-5,
+    qkv_bias: bool = True,
+    proj_bias: bool = True,
+    ffn_bias: bool = True,
+    out_indices: Sequence[int] = (7, 11, 15, 23),
+    lora: Optional[LoRASpec] = None,
+    dtype: torch.dtype = torch.float32,
+    **_unused,
+) -> VisionTransformer:
+    if ffn_layer != "mlp":
+        raise NotImplementedError(f"ffn_layer={ffn_layer!r} is not ported")
+    cfg = ViTConfig(
+        patch_size=patch_size, embed_dim=embed_dim, depth=depth,
+        num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
+        out_indices=tuple(out_indices), qkv_bias=qkv_bias,
+        proj_bias=proj_bias, ffn_bias=ffn_bias, init_values=init_values,
+        ln_eps=1e-6, dtype=dtype)
+    return VisionTransformer(cfg, lora=lora)
+
+
+_BACKBONES = {"DinoVisionTransformer": build_dinov2}
+
+
+def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
+                   dtype: torch.dtype = torch.float32) -> VisionTransformer:
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind == "LoRABackbone":
+        if lora is not None:
+            raise ValueError("nested LoRABackbone")
+        return build_lora_backbone(dtype=dtype, **cfg)
+    if kind not in _BACKBONES:
+        raise NotImplementedError(f"backbone type {kind!r} is not ported")
+    return _BACKBONES[kind](lora=lora, dtype=dtype, **cfg)
+
+
+def build_lora_backbone(backbone: dict, Lora_config: dict, checkpoint: str = "",
+                        dtype: torch.dtype = torch.float32,
+                        **extra) -> VisionTransformer:
+    """Reference LoRABackbone (lora_backbone.py:12-24): the inner backbone
+    with LoRA on its target linears. ``checkpoint`` is the converted
+    backbone file, loaded by the weight tooling and not at build time."""
+    del checkpoint
+    lora = LoRASpec(
+        rank=Lora_config.get("r", 0),
+        alpha=Lora_config.get("lora_alpha", 1.0),
+        dropout=Lora_config.get("lora_dropout", 0.0),
+        targets=tuple(Lora_config.get("target_modules", ())),
+    )
+    unknown = set(lora.targets) - {"qkv", "proj", "fc1", "fc2"}
+    if unknown:
+        raise NotImplementedError(f"LoRA targets {sorted(unknown)} are not "
+                                  "linears of the ported ViT")
+    return build_backbone(dict(backbone, **extra), lora=lora, dtype=dtype)

@@ -1,0 +1,119 @@
+"""Cross-attention decoder blocks, eval only.
+
+Port of vfmseg_tpu/models/heads/transformer.py: BasicTransformerBlock is
+pre-LN self-attention, then cross-attention over a context stream, then a
+GEGLU feed-forward; TransformerDecoder GroupNorms the spatial query, flattens
+it to tokens and runs ``depth`` blocks. Inference runs with the mask off
+(``mask_enable=False``, vfmseg_tpu/eval/evaluator.py:55-56), so the mask-token
+swap of MaskTransformerDecoder and dropout wait for the training slice; the
+``mask_token`` parameter is kept so the weight trees match.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vfmseg_tpu_torch.models.common import Dense, GroupNorm, gn_groups
+from vfmseg_tpu_torch.ops.attention import multi_head_attention
+from vfmseg_tpu_torch.ops.norm import LayerNorm
+
+
+class CrossAttention(nn.Module):
+    """q from x, k/v from context (self-attention if context is None)."""
+
+    def __init__(self, query_dim: int, context_dim: Optional[int] = None,
+                 heads: int = 8, dim_head: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        inner = heads * dim_head
+        context_dim = context_dim or query_dim
+        self.heads = heads
+        self.dim_head = dim_head
+        self.to_q = Dense(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Dense(context_dim, inner, bias=False, dtype=dtype)
+        self.to_out = Dense(inner, query_dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, _ = x.shape
+        context = x if context is None else context
+        nk = context.shape[1]
+        q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
+        k = self.to_k(context).reshape(b, nk, self.heads, self.dim_head)
+        v = self.to_v(context).reshape(b, nk, self.heads, self.dim_head)
+        out = multi_head_attention(q, k, v)
+        return self.to_out(out.reshape(b, n, self.heads * self.dim_head))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, dim_out: int, dtype: torch.dtype):
+        super().__init__()
+        self.proj = Dense(dim, dim_out * 2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, gate = self.proj(x).chunk(2, dim=-1)
+        return x * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.geglu = GEGLU(dim, dim * mult, dtype)
+        self.out = Dense(dim * mult, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(self.geglu(x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, query_dim: int, n_heads: int, d_head: int,
+                 context_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = LayerNorm(query_dim, 1e-5, dtype)
+        self.attn1 = CrossAttention(query_dim, None, n_heads, d_head, dtype)
+        self.norm2 = LayerNorm(query_dim, 1e-5, dtype)
+        self.attn2 = CrossAttention(query_dim, context_dim, n_heads, d_head,
+                                    dtype)
+        self.norm3 = LayerNorm(query_dim, 1e-5, dtype)
+        self.ff = FeedForward(query_dim, 4, dtype)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class TransformerDecoder(nn.Module):
+    """Decode a spatial NHWC query stream against a spatial NHWC context
+    stream; returns NHWC at the context's spatial size."""
+
+    def __init__(self, query_dim: int, img_feat_dim: int, n_heads: int = 8,
+                 d_head: int = 64, depth: int = 1, mask_ratio: float = 0.0,
+                 dtype: torch.dtype = torch.float32, **_unused):
+        super().__init__()
+        if mask_ratio > 0:
+            self.mask_token = nn.Parameter(torch.zeros(1, 1, 1, query_dim))
+        self.norm = GroupNorm(gn_groups(query_dim), query_dim, eps=1e-6,
+                              dtype=dtype)
+        self.block = nn.ModuleList(
+            BasicTransformerBlock(query_dim, n_heads, d_head, img_feat_dim,
+                                  dtype) for _ in range(depth))
+
+    def forward(self, query: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        b, qh, qw, c = query.shape
+        ch, cw = context.shape[1], context.shape[2]
+        x = self.norm(query).reshape(b, qh * qw, c)
+        context = context.reshape(b, ch * cw, context.shape[-1])
+        for blk in self.block:
+            x = blk(x, context)
+        # the reference reshapes with the *context* spatial dims
+        # (Transformer.py:251); query and context are co-spatial here
+        return x.reshape(b, ch, cw, c)

@@ -1,0 +1,87 @@
+"""Model and test config presets, and the headline config as data.
+
+Port of the DINOv2 and MsVFM parts of vfmseg_tpu/models/presets.py. The
+repo's config files import the JAX package, so the port carries the headline
+config (configs/dg/gta2citys/dg_lora_dinov2_ms_masked.py over
+configs/_base_/models/lora_dinov2_ms_masked.py) as data in
+:func:`headline_config`; a test holds it equal to the JAX ``load_config``.
+"""
+
+from __future__ import annotations
+
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+PREPROCESSOR = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, pad_val=0,
+                    seg_pad_val=255)
+
+DINOV2_CHECKPOINT = "checkpoints/dinov2_converted.npz"
+DINOV2_DIM = 1024
+
+
+def dinov2_l(img_size: int = 512) -> dict:
+    return dict(
+        type="DinoVisionTransformer", patch_size=16, embed_dim=1024, depth=24,
+        num_heads=16, mlp_ratio=4, img_size=img_size, ffn_layer="mlp",
+        init_values=1e-05, qkv_bias=True, proj_bias=True, ffn_bias=True)
+
+
+def lora_dinov2(img_size: int = 512, r: int = 32) -> dict:
+    """LoRABackbone wrapper dict (reference Lora_config values)."""
+    return dict(
+        type="LoRABackbone",
+        backbone=dinov2_l(img_size),
+        checkpoint=DINOV2_CHECKPOINT,
+        Lora_config=dict(r=r, lora_alpha=r, target_modules=["qkv"],
+                         lora_dropout=0.1),
+    )
+
+
+def linear_head(in_dim: int = 1024, channels: int = 256,
+                num_classes: int = 19) -> dict:
+    return dict(type="LinearHead", in_channels=[in_dim] * 4, channels=channels,
+                dropout_ratio=0.1, num_classes=num_classes,
+                align_corners=False)
+
+
+def vfm_aux_head(in_dim: int = 1024, channels: int = 256,
+                 num_classes: int = 19) -> dict:
+    """VFMHead + MaskTransformerDecoder (lora_dinov2_ms_masked.py)."""
+    transformer = dict(
+        type="MaskTransformerDecoder", query_dim=channels, n_heads=8,
+        d_head=64, depth=3, dropout=0.1, mask_ratio=0.2)
+    return dict(type="VFMHead", transformer=transformer,
+                in_channels=[in_dim] * 4, channels=channels, dropout_ratio=0.1,
+                num_classes=num_classes, align_corners=False)
+
+
+def ms_test_cfg() -> dict:
+    """MsVFM two-stage test cfg (the reference's 0.968 / 0.8 gate)."""
+    return dict(
+        mode="ms_slide_inference", threshold=0.968, conf=0.8,
+        lr_img_size=(512, 1024), stride=(320, 320), crop_size=(512, 512))
+
+
+def headline_config() -> dict:
+    """The headline model, test and compute settings
+    (dg_lora_dinov2_ms_masked)."""
+    d = DINOV2_DIM
+    return dict(
+        name="dg_lora_dinov2_ms_masked",
+        crop_size=(1024, 1024),
+        num_classes=19,
+        preprocessor=dict(PREPROCESSOR),
+        model=dict(
+            type="MsVFMEncoderDecoder",
+            backbone=lora_dinov2(img_size=512),
+            decode_head=linear_head(d, channels=256),
+            aux_head=vfm_aux_head(d, channels=256),
+            detail_loss=1.0,
+            scales=[1, 0.5],
+            hr_crop_size=(512, 512),
+            crop_coord_divisible=32,
+            feature_scale=0.5,
+        ),
+        test_cfg=ms_test_cfg(),
+        compute=dict(dtype="bfloat16", attn_impl="auto"),
+    )

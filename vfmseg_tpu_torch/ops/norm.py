@@ -1,0 +1,92 @@
+"""LayerNorm with fp32 statistics, on a hand-written CUDA kernel.
+
+Port of vfmseg_tpu/ops/norm.py:28-180. The numerics are those of
+``_ln_reference`` there: fp32 mean, then the mean of the centred squares,
+``rsqrt(var + eps)``, an fp32 affine, and the result in the input's dtype.
+
+* :func:`layer_norm_plain` is the plain PyTorch version.
+* :func:`layer_norm_cuda` launches ``csrc/layer_norm.cu``.
+* :func:`layer_norm` picks by the tensor's device: CPU tensors take the plain
+  version, CUDA tensors the kernel, and nothing falls back from one to the
+  other.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vfmseg_tpu_torch.kernels import LAYER_NORM
+
+# csrc/layer_norm.cu keeps a row in registers: at most 256 16-byte vectors
+_MAX_C = {torch.bfloat16: 2048, torch.float32: 1024}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(var + eps)
+    y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Launch the LayerNorm kernel on contiguous bf16/fp32 CUDA ``x``
+    (last axis C, a multiple of 8) with fp32 ``weight``/``bias`` [C]."""
+    if not x.is_cuda:
+        raise ValueError(f"layer_norm_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"layer_norm_cuda takes bf16 or fp32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("layer_norm_cuda needs a contiguous x")
+    c = x.shape[-1]
+    if c % 8 or c > _MAX_C[x.dtype]:
+        raise ValueError(f"layer_norm_cuda needs C % 8 == 0 and C <= "
+                         f"{_MAX_C[x.dtype]} for {x.dtype}, got C={c}")
+    for name, p in (("weight", weight), ("bias", bias)):
+        if (p.dtype != torch.float32 or p.shape != (c,) or p.device != x.device
+                or not p.is_contiguous()):
+            raise ValueError(f"layer_norm_cuda needs a contiguous fp32 {name} "
+                             f"of shape ({c},) on {x.device}")
+    y = torch.empty_like(x)
+    rows = x.numel() // c
+    if rows == 0:
+        return y
+    LAYER_NORM(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+               rows, c, float(eps), _DTYPE_CODE[x.dtype],
+               torch.cuda.current_stream(x.device).cuda_stream)
+    return y
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """fp32-stat LayerNorm over the last axis; returns x.dtype."""
+    if x.device.type == "cuda":
+        return layer_norm_cuda(x, weight, bias, eps)
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, weight, bias, eps)
+    raise NotImplementedError(f"layer_norm on {x.device}")
+
+
+class LayerNorm(nn.Module):
+    """Last-axis affine LayerNorm (flax ``LayerNorm`` of the JAX package).
+
+    ``weight``/``bias`` stay fp32; the input is cast to ``dtype`` first, as
+    the JAX module casts to its compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x.to(self.dtype).contiguous(), self.weight,
+                          self.bias, self.eps)

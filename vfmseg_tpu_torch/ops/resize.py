@@ -1,0 +1,39 @@
+"""Resize of NHWC tensors with PyTorch ``F.interpolate`` semantics.
+
+Port of vfmseg_tpu/ops/resize.py:127-155. The JAX package builds separable
+interpolation matrices to reproduce ``F.interpolate``; here the semantics are
+the function itself: bilinear or bicubic (Keys, a = -0.75), no antialias, and
+with ``scale_factor`` the output size is ``floor(in * s)`` while source
+coordinates use the given scale (``recompute_scale_factor=False``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def resize(x: torch.Tensor, size: Optional[Sequence[int]] = None,
+           scale_factor: Optional[float] = None, method: str = "bilinear",
+           align_corners: bool = False) -> torch.Tensor:
+    """Resize [..., H, W, C]; exactly one of size / scale_factor."""
+    if method not in ("bilinear", "bicubic"):
+        raise ValueError(f"unsupported method {method!r}")
+    h, w = x.shape[-3], x.shape[-2]
+    if size is not None:
+        oh, ow = int(size[0]), int(size[1])
+        kwargs = dict(size=(oh, ow))
+    elif scale_factor is not None:
+        oh, ow = int(h * scale_factor), int(w * scale_factor)
+        kwargs = dict(scale_factor=(float(scale_factor),) * 2,
+                      recompute_scale_factor=False)
+    else:
+        raise ValueError("resize needs size or scale_factor")
+    if (oh, ow) == (h, w):
+        return x
+    lead = x.shape[:-3]
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
+    y = F.interpolate(x4, mode=method, align_corners=align_corners, **kwargs)
+    return y.permute(0, 2, 3, 1).reshape(tuple(lead) + (oh, ow, x.shape[-1]))

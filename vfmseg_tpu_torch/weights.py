@@ -1,0 +1,127 @@
+"""Weights for the port: from a JAX parameter tree, or seeded.
+
+* :func:`state_dict_from_flax` maps the JAX package's variables
+  ``{"params": ..., "batch_stats": ...}`` (nested dicts of numpy arrays) onto
+  the port's ``state_dict``: Dense ``[in, out]`` -> ``[out, in]``, Conv HWIO
+  -> OIHW, ConvTranspose ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]`` with
+  the kh/kw flip (PARITY.md, "Transcription note"), LayerNorm/GroupNorm/
+  BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean``/``var`` -> running
+  statistics, LoRA ``lora_a [in, r]``/``lora_b [r, out]`` -> ``[r, in]``/
+  ``[out, r]``, and ``blocks_<i>`` -> ``blocks.<i>``.
+* :func:`init_params` fills a model from a seed through ``torch.Generator``,
+  with LoRA B and the BatchNorm statistics non-zero and LayerScale well
+  above its 1e-5 init, so that no branch is trivially zero.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
+from vfmseg_tpu_torch.models.backbones.vit import LayerScale, VisionTransformer
+from vfmseg_tpu_torch.models.heads.transformer import TransformerDecoder
+from vfmseg_tpu_torch.ops.norm import LayerNorm
+
+# flax modules whose 4-D kernel is a ConvTranspose (LinearHead's upsamplers)
+_CONV_TRANSPOSE = {"up1", "up2"}
+_INDEXED = re.compile(r"^(blocks|block)_(\d+)$")
+
+
+def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, path + (key,))
+        else:
+            yield path + (key,), np.asarray(val)
+
+
+def _module_path(path: Tuple[str, ...]) -> str:
+    return ".".join(_INDEXED.sub(r"\1.\2", p) for p in path)
+
+
+def _param(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
+    *mods, name = path
+    if name == "kernel":
+        if leaf.ndim == 2:
+            return "weight", leaf.T
+        if leaf.ndim == 4 and mods and mods[-1] in _CONV_TRANSPOSE:
+            return "weight", leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+        if leaf.ndim == 4:
+            return "weight", leaf.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {leaf.ndim} at {'/'.join(path)}")
+    if name in ("lora_a", "lora_b"):
+        return name, leaf.T
+    if name == "scale":
+        return "weight", leaf
+    return name, leaf
+
+
+def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a JAX variables tree (see module doc)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(tree.get("params", {})):
+        name, value = _param(path, leaf)
+        out[f"{_module_path(path[:-1])}.{name}"] = torch.from_numpy(
+            np.ascontiguousarray(value, dtype=np.float32))
+    for path, leaf in _leaves(tree.get("batch_stats", {})):
+        mod = _module_path(path[:-1])
+        stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        out[f"{mod}.{stat}"] = torch.from_numpy(
+            np.ascontiguousarray(leaf, dtype=np.float32))
+        out[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter and BatchNorm statistic of ``model`` from
+    ``seed``; the same seed gives the same weights on any device."""
+    gen = torch.Generator().manual_seed(seed)
+    done = set()
+
+    def normal(p, std, mean=0.0):
+        p.copy_(torch.randn(p.shape, generator=gen) * std + mean)
+        done.add(id(p))
+
+    def uniform(p, lo, hi):
+        p.copy_(torch.rand(p.shape, generator=gen) * (hi - lo) + lo)
+        done.add(id(p))
+
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            normal(mod.weight, mod.in_features ** -0.5)
+        elif isinstance(mod, nn.Conv2d):
+            normal(mod.weight, math.prod(mod.weight.shape[1:]) ** -0.5)
+        elif isinstance(mod, nn.ConvTranspose2d):
+            normal(mod.weight, mod.in_channels ** -0.5)
+        elif isinstance(mod, (LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
+            normal(mod.weight, 0.1, mean=1.0)
+        if isinstance(mod, LoRALinear):
+            bound = mod.in_features ** -0.5
+            uniform(mod.lora_a, -bound, bound)
+            normal(mod.lora_b, 0.1 * math.sqrt(3.0 / mod.rank))
+        if isinstance(mod, nn.BatchNorm2d):
+            normal(mod.running_mean, 0.1)
+            uniform(mod.running_var, 0.5, 1.5)
+        if isinstance(mod, LayerScale):
+            normal(mod.gamma, 0.02, mean=0.1)
+        if isinstance(mod, VisionTransformer):
+            normal(mod.cls_token, 0.02)
+            normal(mod.pos_embed, 0.02)
+        if isinstance(mod, TransformerDecoder) and hasattr(mod, "mask_token"):
+            normal(mod.mask_token, 1.0)
+        bias = getattr(mod, "bias", None)
+        if isinstance(bias, nn.Parameter):
+            normal(bias, 0.1 if isinstance(
+                mod, (LayerNorm, nn.GroupNorm, nn.BatchNorm2d)) else 0.02)
+    missed = [n for n, p in model.named_parameters() if id(p) not in done]
+    if missed:
+        raise ValueError(f"init_params does not cover {missed}")
+    return model
