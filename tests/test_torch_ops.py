@@ -23,6 +23,9 @@ from vfmseg_tpu.ops.resize import resize as jax_resize
 from vfmseg_tpu_torch import kernels
 from vfmseg_tpu_torch.kernels import build as kbuild
 from vfmseg_tpu_torch.ops.attention import (
+    attention_bwd_dkv_tm,
+    attention_bwd_dq_tm,
+    attention_fwd_lse_tm,
     attention_plain,
     attention_qkv_tm,
     multi_head_attention,
@@ -171,6 +174,13 @@ class TestKernelPath:
         q = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="CUDA"):
             attention_qkv_tm(q, q, q, 1, 0.125)
+        with pytest.raises(ValueError, match="CUDA"):
+            attention_fwd_lse_tm(q, q, q, 1, 0.125)
+        lse = torch.zeros(1, 1, 8)
+        with pytest.raises(ValueError, match="CUDA"):
+            attention_bwd_dq_tm(q, q, q, q, lse, lse, 1, 0.125, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            attention_bwd_dkv_tm(q, q, q, q, lse, lse, 1, 0.125, q, q)
 
     def test_cpu_path_launches_nothing(self):
         counts = kernels.launch_counts()

@@ -141,5 +141,6 @@ def test_headline_config_equals_jax_load_config():
     jcfg = load_config("dg_lora_dinov2_ms_masked")
     ours = headline_config()
     for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
-                "preprocessor"):
+                "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
+    assert ours["batch_size"] == jcfg["data"]["batch_size"]

@@ -1,10 +1,18 @@
-// Inference attention read straight from q/k/v projections, for Hopper
-// (sm_90a).
+// Attention read straight from q/k/v projections, for Hopper (sm_90a): the
+// inference forward and the training forward with its log-sum-exp.
 //
-// Replaces the TPU kernel vfmseg_tpu/ops/flash_attention.py::
-// _fwd_kernel_qkv_tav (launched by _flash_forward_qkv_tav_main, entry
-// flash_attention_qkv_tm), without its RoPE variant. For every batch item b
-// and head h:
+// Replaces two TPU kernels of vfmseg_tpu/ops/flash_attention.py:
+//
+// * vfmseg_attention_qkv: _fwd_kernel_qkv_tav (launched by
+//   _flash_forward_qkv_tav_main, entry flash_attention_qkv_tm), the inference
+//   primal, without its RoPE variant;
+// * vfmseg_attention_qkv_fwd_lse: _fwd_kernel_qkv (launched by
+//   _flash_forward_qkv with with_lse=True, reached through
+//   _flash_qkv_tm_fwd_rule), the training forward. It also writes, per batch
+//   item, head and query row, lse = log(sum_k exp(q.k * scale)) in fp32 and
+//   natural log, which the backward kernels (attention_qkv_bwd.cu) read.
+//
+// For every batch item b and head h:
 //
 //   out[b, :, h*64:(h+1)*64] = softmax(q_h k_h^T * scale) v_h
 //
@@ -12,17 +20,21 @@
 // views that share one (batch, token) stride pair. The three thirds of one
 // fused qkv tensor (token stride 3*H*64) and three separate tensors (token
 // stride H*64) both qualify, so neither caller concatenates. The output is
-// token-major [B, N, H*64] bf16, the layout the proj matmul reads.
+// token-major [B, N, H*64] bf16, the layout the proj matmul reads; the LSE is
+// [B, H, N] fp32. (The TPU training forward stores head-major and transposes
+// after; that answered a TPU store-layout limit and is not copied.)
 //
 // Numerics follow xla_attention (vfmseg_tpu/ops/attention.py:31-57): fp32
 // logits, an exact softmax with a running max (online softmax), probabilities
 // cast to bf16 before the P.V product with fp32 accumulation, and the division
-// by the row sum at the end. None of the TPU kernel's schedule (no-max exp2
-// softmax, transposed AV, head pairs, batch packing, the aligned-tail cls
-// side-chain) is carried over: each answered a TPU lane or VMEM limit.
+// by the row sum at the end. The running max and sum live in the log2 domain
+// (x = logit * scale * log2 e), so lse = (m + log2 l) * ln 2. None of the TPU
+// kernels' schedule (no-max exp2 softmax, transposed AV, head pairs, batch
+// packing, the aligned-tail cls side-chain) is carried over: each answered a
+// TPU lane or VMEM limit.
 //
 // What bounds it: the tensor cores. Per head it does 4*N^2*64 flops on
-// 4*N*64*2 bytes, ~N/2 flops per byte (N = 1025 or 2049 on the main path),
+// 4*N*64*2 bytes, ~N/2 flops per byte (N = 1025 or 2049 on the main paths),
 // well above the card's ~295 flop/byte ridge, while the N x N scores and
 // probabilities, which would dominate the bytes if they were stored, never
 // leave the SM.
@@ -41,80 +53,30 @@
 // Left for later: wgmma, TMA and asynchronous copies to overlap the K/V
 // loads with the products, warp specialisation and persistent blocks.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kBlockQ = 64;             // queries per block, 16 per warp
-constexpr int kBlockK = 64;             // keys per shared-memory tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRow = kHeadDim + 8;      // padded shared-memory row, in elements
-constexpr int kNTiles = kBlockK / 8;    // n=8 column tiles of S per key tile
-constexpr int kDTiles = kHeadDim / 8;   // n=8 column tiles of O
-constexpr int kDChunks = kHeadDim / 16; // k=16 chunks of the q.k contraction
-constexpr int kKChunks = kBlockK / 16;  // k=16 chunks of the P.V contraction
+using namespace vfmseg_attn;
 
-using bf16 = __nv_bfloat16;
-
-// D += A.B for one m16n8k16 tile, bf16 inputs and fp32 accumulators.
-__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two bf16 from shared memory -> one register, the first in the low half.
-__device__ __forceinline__ uint32_t pack_pair(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy rows [0, valid) of a 64 x 64 head tile into padded shared memory with
-// 16-byte loads; rows past `valid` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t row_stride,
-                                          int valid, int tid) {
-#pragma unroll
-  for (int i = tid; i < 64 * (kHeadDim / 8); i += kThreads) {
-    const int r = i / (kHeadDim / 8);
-    const int c = (i % (kHeadDim / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kRow + c) = v;
-  }
-}
-
+template <bool kWithLse>
 __global__ void __launch_bounds__(kThreads)
 attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int n,
-                     int heads, int stride_b, int stride_n, float scale_log2) {
-  __shared__ __align__(16) bf16 sq[kBlockQ * kRow];
-  __shared__ __align__(16) bf16 sk[kBlockK * kRow];
-  __shared__ __align__(16) bf16 sv[kBlockK * kRow];
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int n, int heads, int stride_b, int stride_n,
+                     float scale_log2) {
+  __shared__ __align__(16) bf16 sq[kBlock * kRow];
+  __shared__ __align__(16) bf16 sk[kBlock * kRow];
+  __shared__ __align__(16) bf16 sv[kBlock * kRow];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kBlock;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int64_t head = static_cast<int64_t>(b) * stride_b + static_cast<int64_t>(h) * kHeadDim;
@@ -123,16 +85,8 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // A fragments of this warp's 16 query rows, one per 16-wide d chunk.
-  const int r0 = warp * 16 + g;
   uint32_t qa[kDChunks][4];
-#pragma unroll
-  for (int kc = 0; kc < kDChunks; ++kc) {
-    const bf16* p = sq + kc * 16 + 2 * t;
-    qa[kc][0] = load_u32(p + r0 * kRow);
-    qa[kc][1] = load_u32(p + (r0 + 8) * kRow);
-    qa[kc][2] = load_u32(p + r0 * kRow + 8);
-    qa[kc][3] = load_u32(p + (r0 + 8) * kRow + 8);
-  }
+  load_a_rows(qa, sq, warp, g, t);
 
   // Each thread holds rows r0 (index 0) and r0 + 8 (index 1).
   float o[kDTiles][4];
@@ -141,7 +95,7 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
 
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
+  for (int k0 = 0; k0 < n; k0 += kBlock) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile(sk, k + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
     load_tile(sv, v + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
@@ -149,15 +103,7 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // S = Q.K^T for 16 rows x 64 keys.
     float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kr = sk + (nt * 8 + g) * kRow + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < kDChunks; ++kc) {
-        mma_m16n8k16(s[nt], qa[kc], load_u32(kr + kc * 16), load_u32(kr + kc * 16 + 8));
-      }
-    }
+    mma_rows_t(s, qa, sk, g, t);
 
     // Online softmax in the log2 domain: x = logit * scale * log2(e).
     const int valid = n - k0;
@@ -199,45 +145,38 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P.V, with P taken from the S accumulators as bf16 A fragments.
-#pragma unroll
-    for (int kc = 0; kc < kKChunks; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const bf16* vr = sv + (kc * 16 + 2 * t) * kRow + g;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; ++dt) {
-        const bf16* p = vr + dt * 8;
-        mma_m16n8k16(o[dt], pa, pack_pair(p, p + kRow),
-                     pack_pair(p + 8 * kRow, p + 9 * kRow));
-      }
-    }
+    mma_acc_p(o, s, sv, g, t);
   }
 
   // The row sums so far are per thread; the quad of a row holds the rest.
+  // The running max is already the same across the quad.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const float inv0 = 1.f / l[0];
-  const float inv1 = 1.f / l[1];
-  const int row0 = q0 + r0;
+  const int row0 = q0 + warp * 16 + g;
   const int64_t out_row = static_cast<int64_t>(heads) * kHeadDim;
-  bf16* base = out + static_cast<int64_t>(b) * n * out_row + h * kHeadDim + 2 * t;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    if (row0 < n) {
-      *reinterpret_cast<uint32_t*>(base + row0 * out_row + dt * 8) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    }
-    if (row0 + 8 < n) {
-      *reinterpret_cast<uint32_t*>(base + (row0 + 8) * out_row + dt * 8) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
+  store_rows(out + static_cast<int64_t>(b) * n * out_row + h * kHeadDim, out_row, row0, n, o,
+             1.f / l[0], 1.f / l[1], t);
+  if constexpr (kWithLse) {
+    if (t == 0) {
+      float* lrow = lse + (static_cast<int64_t>(b) * heads + h) * n;
+      if (row0 < n) lrow[row0] = (m[0] + log2f(l[0])) * kLn2;
+      if (row0 + 8 < n) lrow[row0 + 8] = (m[1] + log2f(l[1])) * kLn2;
     }
   }
+}
+
+template <bool kWithLse>
+int launch_forward(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int batch, int n, int heads, int stride_b, int stride_n, float scale,
+                   void* stream) {
+  const dim3 grid((n + kBlock - 1) / kBlock, heads, batch);
+  attention_qkv_kernel<kWithLse><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), lse, n, heads, stride_b, stride_n, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -248,12 +187,18 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int vfmseg_attention_qkv(const void* q, const void* k, const void* v, void* out,
                                     int batch, int n, int heads, int stride_b, int stride_n,
                                     float scale, void* stream) {
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  attention_qkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), n, heads, stride_b, stride_n,
-      scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
+  return launch_forward<false>(q, k, v, out, nullptr, batch, n, heads, stride_b, stride_n,
+                               scale, stream);
+}
+
+// As vfmseg_attention_qkv, and lse: contiguous fp32 [batch, heads, n], the
+// natural-log log-sum-exp of each row of scaled logits.
+extern "C" int vfmseg_attention_qkv_fwd_lse(const void* q, const void* k, const void* v,
+                                            void* out, void* lse, int batch, int n, int heads,
+                                            int stride_b, int stride_n, float scale,
+                                            void* stream) {
+  return launch_forward<true>(q, k, v, out, static_cast<float*>(lse), batch, n, heads,
+                              stride_b, stride_n, scale, stream);
 }
 
 // Text of a status code returned by any entry of this library.

@@ -31,7 +31,22 @@ LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
 ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
 
-KERNELS = (LAYER_NORM, ATTENTION_QKV)
+# csrc/attention_qkv.cu: q, k, v, out, lse, batch, n, heads, stride_b,
+# stride_n, scale, stream
+ATTENTION_FWD_LSE = Kernel("attention_fwd_lse", "vfmseg_attention_qkv_fwd_lse",
+                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_qkv_bwd.cu: q, k, v, dout, lse, delta, dq, batch, n, heads,
+# stride_b, stride_n, gstride_b, gstride_n, scale, stream
+ATTENTION_BWD_DQ = Kernel("attention_bwd_dq", "vfmseg_attention_bwd_dq",
+                          [_P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_qkv_bwd.cu: as above with dk, dv in place of dq
+ATTENTION_BWD_DKV = Kernel("attention_bwd_dkv", "vfmseg_attention_bwd_dkv",
+                           [_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _P])
+
+KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_FWD_LSE, ATTENTION_BWD_DQ,
+           ATTENTION_BWD_DKV)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``vfmseg_tpu_torch/csrc`` and bind them by ctypes.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call for ``sm_90a`` into one
-shared library with a plain C interface. The build happens at first use and is
+Each ``csrc/*.cu`` file compiles for ``sm_90a`` in its own ``nvcc`` process,
+all started together, and one more ``nvcc`` links the objects into one shared
+library with a plain C interface. The build happens at first use and is
 cached under ``vfmseg_tpu_torch/_build/<hash>/``, keyed by a hash of the
 sources and flags, so a fresh checkout builds itself and an unchanged tree
 loads the cached library.
@@ -27,7 +28,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 LIB_NAME = "libvfmseg_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-shared",)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -61,7 +63,7 @@ def sources() -> list:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -81,15 +83,36 @@ def build() -> str:
             "nvcc not found (PATH, CUDA_HOME): the CUDA kernels cannot be "
             "built, and the CUDA path has no fallback")
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[p for p in sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    tag = f"{os.getpid()}.tmp"
+    srcs = [p for p in sources() if p.endswith(".cu")]
+    objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+            for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, failed = "", []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log += f"$ {' '.join(cmd)}\n{out}"
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = f"{lib_path}.{tag}"
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log += f"$ {' '.join(cmd)}\n{proc.stdout}"
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
         f.write(log)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    if failed:
+        raise KernelBuildError(f"nvcc failed (exit {failed}):\n{log}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -1,11 +1,15 @@
-"""LoRA linear layers, eval only.
+"""LoRA linear layers.
 
 Port of the LoRA half of vfmseg_tpu/models/backbones/adapters.py:30-120.
-``y = x (W + (alpha / r) A B) + b``: the low-rank update is folded into the
-base weight in fp32 and cast once to the compute dtype, as the JAX
-``LoRADense`` does on its dropout-free path (adapters.py:69-94). The
-sequential form with LoRA dropout is the training path and waits for the
-training slice.
+Two forms of ``y = x W + b + dropout(x) A B * (alpha / r)``:
+
+* folded, for inference: the low-rank update is folded into the base weight
+  in fp32 and cast once to the compute dtype, as the JAX ``LoRADense`` does
+  on its dropout-free path (adapters.py:69-94);
+* sequential, in training mode or whenever autograd may differentiate the
+  LoRA factors (adapters.py:95-108): the fold is cached outside autograd, so
+  trained through it ``lora_a``/``lora_b`` would get no gradient. LoRA
+  dropout acts on x before A, in training mode only.
 
 Parameters follow the torch (peft) orientation: ``weight`` [out, in],
 ``lora_a`` [r, in], ``lora_b`` [out, r].
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.common import Dense
 
 
@@ -37,14 +42,15 @@ class LoRASpec:
 
 
 class LoRALinear(Dense):
-    """Dense layer plus a folded low-rank update (eval only)."""
+    """Dense layer plus a low-rank update, folded or sequential."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 rank: int = 1, alpha: float = 1.0,
+                 rank: int = 1, alpha: float = 1.0, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias, dtype=dtype)
         self.rank = rank
         self.scaling = alpha / rank
+        self.dropout = dropout
         self.lora_a = nn.Parameter(torch.zeros(rank, in_features))
         self.lora_b = nn.Parameter(torch.zeros(out_features, rank))
         self._folded: Optional[torch.Tensor] = None
@@ -68,8 +74,17 @@ class LoRALinear(Dense):
         return self._folded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.folded_weight(), bias)
+        x = x.to(self.dtype)
+        lora_grad = torch.is_grad_enabled() and (self.lora_a.requires_grad
+                                                 or self.lora_b.requires_grad)
+        if not (self.training or lora_grad):
+            bias = None if self.bias is None else self.bias.to(self.dtype)
+            return F.linear(x, self.folded_weight(), bias)
+        y = super().forward(x)
+        xd = rng.dropout(x, self.dropout, self.training)
+        low = F.linear(F.linear(xd, self.lora_a.to(self.dtype)),
+                       self.lora_b.to(self.dtype))
+        return y + low * self.scaling
 
 
 def make_dense(in_features: int, out_features: int, bias: bool, name: str,
@@ -77,5 +92,6 @@ def make_dense(in_features: int, out_features: int, bias: bool, name: str,
     """A Dense, or a LoRALinear where ``lora`` targets ``name``."""
     if lora is not None and lora.applies_to(name):
         return LoRALinear(in_features, out_features, bias=bias,
-                          rank=lora.rank, alpha=lora.alpha, dtype=dtype)
+                          rank=lora.rank, alpha=lora.alpha,
+                          dropout=lora.dropout, dtype=dtype)
     return Dense(in_features, out_features, bias=bias, dtype=dtype)

@@ -36,15 +36,21 @@ def build_ms_vfm_encoder_decoder(
     backbone: Dict[str, Any],
     decode_head: Dict[str, Any],
     aux_head: Dict[str, Any],
+    hr_crop_size=(512, 512),
+    crop_coord_divisible: int = 32,
+    detail_loss: float = 1.0,
     dtype: torch.dtype = torch.float32,
-    **_train_only,
+    **_unused,
 ) -> MsVFMSegmentor:
-    """``_train_only``: hr_crop_size, crop_coord_divisible, detail_loss,
-    scales, feature_scale, which the training slice reads."""
+    """``_unused``: ``scales`` and ``feature_scale``, which the JAX builder
+    does not read either (the two scales are fixed at 1 and 0.5)."""
     return MsVFMSegmentor(
         backbone=build_backbone(backbone, dtype=dtype),
         decode_head=_build_head(decode_head, dtype),
         aux_head=_build_head(aux_head, dtype),
+        hr_crop_size=tuple(hr_crop_size),
+        crop_coord_divisible=crop_coord_divisible,
+        detail_loss=detail_loss,
     )
 
 
@@ -53,8 +59,9 @@ _SEGMENTORS = {"MsVFMEncoderDecoder": build_ms_vfm_encoder_decoder}
 
 def build_segmentor(model_cfg: Dict[str, Any],
                     dtype: torch.dtype = torch.float32) -> MsVFMSegmentor:
-    """Build the segmentor of a config's ``model`` section, in eval mode,
-    with parameters in fp32 on the CPU and compute in ``dtype``."""
+    """Build the segmentor of a config's ``model`` section, in eval mode
+    (``.train()`` for the training forward), with parameters in fp32 on the
+    CPU and compute in ``dtype``."""
     cfg = dict(model_cfg)
     kind = cfg.pop("type")
     if kind not in _SEGMENTORS:

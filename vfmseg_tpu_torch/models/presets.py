@@ -63,8 +63,9 @@ def ms_test_cfg() -> dict:
 
 
 def headline_config() -> dict:
-    """The headline model, test and compute settings
-    (dg_lora_dinov2_ms_masked)."""
+    """The headline model, test, training and compute settings
+    (dg_lora_dinov2_ms_masked); the datasets and the training pipeline are
+    not carried: the port trains on synthetic batches of ``crop_size``."""
     d = DINOV2_DIM
     return dict(
         name="dg_lora_dinov2_ms_masked",
@@ -83,5 +84,12 @@ def headline_config() -> dict:
             feature_scale=0.5,
         ),
         test_cfg=ms_test_cfg(),
+        optimizer=dict(lr=1e-4, weight_decay=0.05, betas=(0.9, 0.999),
+                       eps=1e-8, poly_power=0.9, warmup_steps=0),
+        schedule=dict(max_iters=40000, val_interval=8000,
+                      checkpoint_interval=4000, max_keep_ckpts=3,
+                      log_interval=50, seed=0),
+        peft=dict(enabled=True, adapter_keywords=["lora"]),
+        batch_size=2,
         compute=dict(dtype="bfloat16", attn_impl="auto"),
     )

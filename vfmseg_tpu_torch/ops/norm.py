@@ -8,7 +8,9 @@ Port of vfmseg_tpu/ops/norm.py:28-180. The numerics are those of
 * :func:`layer_norm_cuda` launches ``csrc/layer_norm.cu``.
 * :func:`layer_norm` picks by the tensor's device: CPU tensors take the plain
   version, CUDA tensors the kernel, and nothing falls back from one to the
-  other.
+  other. Under autograd it goes through :class:`LayerNormFunction`, whose
+  backward ports ``_ln_bwd_rule`` (norm.py:135-150) as plain torch on either
+  device: the JAX package's backward is a jnp formula, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -63,14 +65,59 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float) -> torch.Tensor:
-    """fp32-stat LayerNorm over the last axis; returns x.dtype."""
+def _layer_norm_forward(x, weight, bias, eps):
     if x.device.type == "cuda":
         return layer_norm_cuda(x, weight, bias, eps)
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     raise NotImplementedError(f"layer_norm on {x.device}")
+
+
+def layer_norm_backward(x: torch.Tensor, weight: torch.Tensor,
+                        dy: torch.Tensor, eps: float):
+    """``_ln_bwd_rule``: fp32 statistics recomputed from x; returns dx in
+    x's dtype and fp32 dweight, dbias."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gf = dy.float()
+    dyf = gf * weight.float()
+    dx = rstd * (dyf - dyf.mean(dim=-1, keepdim=True)
+                 - xhat * (dyf * xhat).mean(dim=-1, keepdim=True))
+    red = tuple(range(x.dim() - 1))
+    return (dx.to(x.dtype), (gf * xhat).sum(dim=red).to(weight.dtype),
+            gf.sum(dim=red).to(weight.dtype))
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm with the JAX package's custom VJP (``_ln``): the forward is
+    the kernel (CUDA) or the plain version (CPU), the backward
+    :func:`layer_norm_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _layer_norm_forward(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = layer_norm_backward(x, weight, dy, ctx.eps)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dw if need[1] else None,
+                db if need[2] else None, None)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """fp32-stat LayerNorm over the last axis; returns x.dtype."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return LayerNormFunction.apply(x, weight, bias, eps)
+    return _layer_norm_forward(x, weight, bias, eps)
 
 
 class LayerNorm(nn.Module):

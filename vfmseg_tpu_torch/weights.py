@@ -7,7 +7,11 @@
   the kh/kw flip (PARITY.md, "Transcription note"), LayerNorm/GroupNorm/
   BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean``/``var`` -> running
   statistics, LoRA ``lora_a [in, r]``/``lora_b [r, out]`` -> ``[r, in]``/
-  ``[out, r]``, and ``blocks_<i>`` -> ``blocks.<i>``.
+  ``[out, r]``, and ``blocks_<i>`` -> ``blocks.<i>``. It takes the training
+  init's tree too (with the decoder's ``mask_token``).
+* :func:`flax_from_state_dict` is its inverse for any subset of the
+  parameters and BatchNorm statistics (checkpoints, gradients);
+  :func:`flax_name` gives one port name's flax path.
 * :func:`init_params` fills a model from a seed through ``torch.Generator``,
   with LoRA B and the BatchNorm statistics non-zero and LayerScale well
   above its 1e-5 init, so that no branch is trivially zero.
@@ -31,6 +35,8 @@ from vfmseg_tpu_torch.ops.norm import LayerNorm
 # flax modules whose 4-D kernel is a ConvTranspose (LinearHead's upsamplers)
 _CONV_TRANSPOSE = {"up1", "up2"}
 _INDEXED = re.compile(r"^(blocks|block)_(\d+)$")
+_PORT_INDEXED = re.compile(r"(^|\.)(blocks|block)\.(\d+)(?=\.)")
+_STATS = {"running_mean": "mean", "running_var": "var"}
 
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
@@ -42,8 +48,8 @@ def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             yield path + (key,), np.asarray(val)
 
 
-def _module_path(path: Tuple[str, ...]) -> str:
-    return ".".join(_INDEXED.sub(r"\1.\2", p) for p in path)
+def _join(mods: Tuple[str, ...], name: str) -> str:
+    return ".".join([_INDEXED.sub(r"\1.\2", p) for p in mods] + [name])
 
 
 def _param(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -68,15 +74,67 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree.get("params", {})):
         name, value = _param(path, leaf)
-        out[f"{_module_path(path[:-1])}.{name}"] = torch.from_numpy(
-            np.ascontiguousarray(value, dtype=np.float32))
+        out[_join(path[:-1], name)] = torch.from_numpy(
+            np.array(value, dtype=np.float32))
     for path, leaf in _leaves(tree.get("batch_stats", {})):
-        mod = _module_path(path[:-1])
         stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
-        out[f"{mod}.{stat}"] = torch.from_numpy(
-            np.ascontiguousarray(leaf, dtype=np.float32))
-        out[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+        out[_join(path[:-1], stat)] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32))
+        out[_join(path[:-1], "num_batches_tracked")] = torch.tensor(0)
     return out
+
+
+def flax_name(name: str, ndim: int) -> str:
+    """The flax path (``/``-joined) of the port parameter or BatchNorm
+    buffer ``name`` of rank ``ndim``: ``backbone.blocks.0.attn.qkv.weight``
+    -> ``backbone/blocks_0/attn/qkv/kernel``."""
+    mods, _, leaf = _PORT_INDEXED.sub(r"\1\2_\3", name).rpartition(".")
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    leaf = _STATS.get(leaf, leaf)
+    return "/".join(mods.split(".") + [leaf] if mods else [leaf])
+
+
+def _flax_value(path: str, value: np.ndarray) -> np.ndarray:
+    """Undo :func:`_param`'s re-orientation for the leaf at ``path``."""
+    *mods, leaf = path.split("/")
+    if leaf == "kernel" and value.ndim == 2:
+        return value.T
+    if (leaf == "kernel" and value.ndim == 4 and mods
+            and mods[-1] in _CONV_TRANSPOSE):
+        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if leaf == "kernel" and value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    if leaf in ("lora_a", "lora_b"):
+        return value.T
+    return value
+
+
+def _nest(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        *mods, leaf = path.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = value
+    return tree
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """``{"params": ..., "batch_stats": ...}`` nested dicts of fp32 numpy
+    arrays in the flax layout, for the entries of ``sd`` (any subset of a
+    port ``state_dict``; ``num_batches_tracked`` is dropped). The inverse of
+    :func:`state_dict_from_flax`."""
+    params, stats = {}, {}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        value = t.detach().float().cpu().numpy()
+        path = flax_name(name, value.ndim)
+        dst = stats if name.rsplit(".", 1)[-1] in _STATS else params
+        dst[path] = np.ascontiguousarray(_flax_value(path, value))
+    return {"params": _nest(params), "batch_stats": _nest(stats)}
 
 
 @torch.no_grad()
