@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two main paths once on one CUDA card and check
-them: the headline gated inference and the headline two-scale train step.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them:
+the gated inference and the two-scale train step of the headline model
+(LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -11,38 +12,53 @@ Phases, each printing one JSON line:
    are fp32.
 2. build: the CUDA kernels of ``vfmseg_tpu_torch/csrc`` built by nvcc, one
    process per source started together (or loaded from the build cache),
-   with the build seconds.
-3. kernels: each inference kernel against its plain PyTorch version on the
-   card, at the shapes the inference path gives it, from seeded bf16 inputs
-   (the plain version runs in fp32), plus one fp32 LayerNorm and one
-   odd-head attention case off the path; and each one's time beside the
-   plain one's (CUDA events around 10 back-to-back calls, median of 10 such
-   windows, after warm-up).
-4. kernels_train: the training attention kernels at the train path's shapes
-   plus one ragged odd-head case: the forward with LSE (B3) against
-   ``attention_fwd_lse_plain``, and dq, dk, dv of the two backward kernels
-   (B4) against autograd through the fp32 plain attention, with a random
-   dO; times as in phase 3.
-5. main_path: the headline model (LoRA DINOv2-L, LinearHead, VFMHead with a
-   3-block decoder) at full width with seeded weights in bf16, through
-   ``predict`` on 3 synthetic 1024x2048 images; launch counts per kernel
-   (no training kernel may launch), latency, images/s and peak memory.
-6. card_vs_cpu: one 512x1024 image through the gated slide logits on the
-   card (bf16) and on the CPU (fp32, plain path), same seeded weights.
-7. train_path: the headline model at full width in training mode (bf16
-   compute, fp32 master weights, LoRA on qkv, both heads), batch 2 of
-   synthetic 1024x1024 crops through ``InfiniteLoader`` and ``train_loop``
-   for 8 steps with checkpoints at steps 4 and 8, then a fresh state
-   restored from step 8; launch counts per step, per-step latency, steady
-   steps/s and peak memory.
-8. train_breakdown: one more step split by CUDA events into forward,
-   backward and optimizer, and a ``torch.profiler`` pass over one step for
-   the kernels' device time.
-9. train_card_vs_cpu: one train step of the full-width model at 256x256
-   (HR crop 128) on the card in bf16 and on the CPU in fp32, same seeded
-   weights and crop box, dropout and mask ratio 0: loss entries, the cosine
-   of the flattened LoRA gradients, and the LoRA gradient norm and
-   ``grad_norm``.
+   with the build seconds and ptxas' register counts.
+3. kernels: the DINOv2 inference kernels (LayerNorm, fused-qkv attention)
+   against their plain PyTorch versions on the card, at the shapes the
+   inference path gives them, from seeded bf16 inputs (the plain version
+   runs in fp32), plus one fp32 LayerNorm and one odd-head attention case
+   off the path.
+4. kernels_train: the training attention kernels (B3 forward with LSE, B4
+   dq and dk/dv) at the DINOv2 train path's shapes plus a ragged odd-head
+   case, against ``attention_fwd_lse_plain`` and autograd through the fp32
+   plain attention with a random dO.
+5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (and an odd
+   width off the path), the RoPE variant of the inference attention (B2) at
+   the EVA02 path's shapes with its tables, and the head-major attention
+   (B5: forward with LSE, dq, dk/dv) at the EVA02 train path's shape over
+   token-major strided views and at a ragged Nq != Nk case, which
+   ``multi_head_attention`` must route to B5.
+6. main_path / eva02_main_path: each model at full width with seeded
+   weights in bf16, through ``predict`` on 3 synthetic 1024x2048 images;
+   launch counts per kernel, asserted per image (no training kernel may
+   launch), latency, images/s and peak memory.
+7. card_vs_cpu / eva02_card_vs_cpu: one 512x1024 image through the gated
+   slide logits on the card (bf16) and on the CPU (fp32, plain path), same
+   seeded weights; then main_breakdown / eva02_main_breakdown: one more
+   image through ``predict`` under ``torch.profiler`` for the kernels'
+   device time, against the synchronised wall time of unprofiled images.
+8. train_path / eva02_train_path: each model at full width in training mode
+   (bf16 compute, fp32 master weights, LoRA, both heads; EVA02 with
+   drop-path 0.1 and LoRA dropout 0.1), batch 2 of synthetic 1024x1024
+   crops through ``InfiniteLoader`` and ``train_loop`` for 8 steps (DINOv2:
+   checkpoints at steps 4 and 8, then a fresh state restored from step 8);
+   launch counts asserted per step, per-step latency, steady steps/s and
+   peak memory.
+9. train_breakdown / eva02_train_breakdown: one more step split by CUDA
+   events into forward, backward and optimizer, and a ``torch.profiler``
+   pass over one step for the kernels' device time and the idle share.
+10. train_card_vs_cpu / eva02_train_card_vs_cpu: one train step of the
+   full-width model at 256x256 (HR crop 128) on the card in bf16 and on the
+   CPU in fp32, same seeded weights and crop box, dropout, drop-path and
+   mask ratio 0: loss entries, the cosine of the flattened LoRA gradients,
+   and the LoRA gradient norm and ``grad_norm``.
+
+Every kernel's time is CUDA events around 10 back-to-back calls, the median
+of 10 such windows after warm-up, beside its plain version's, the time of
+one PyTorch library call that computes the same function (a yardstick the
+port never calls) and its bound: the larger of the bytes it must move over
+the card's memory rate and its operations over the card's peak rate for
+their type (``bound``).
 
 Then the nvidia-smi line, one JSON line of per-kernel results, and as the
 last line ``{"ok": true, "device": {...}}``, printed only when every phase
@@ -78,7 +94,11 @@ from vfmseg_tpu_torch.eval.slide import (
 )
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.build import build_segmentor, compute_dtype
-from vfmseg_tpu_torch.models.presets import PREPROCESSOR, headline_config
+from vfmseg_tpu_torch.models.presets import (
+    PREPROCESSOR,
+    eva02_config,
+    headline_config,
+)
 from vfmseg_tpu_torch.ops.attention import (
     attention_bwd_dkv_tm,
     attention_bwd_dq_tm,
@@ -86,11 +106,22 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_delta,
     attention_fwd_lse_plain,
     attention_fwd_lse_tm,
+    attention_hm_dkv,
+    attention_hm_dq,
+    attention_hm_fwd,
     attention_plain,
+    attention_qkv_rope_plain,
+    attention_qkv_rope_tm,
     attention_qkv_tm,
+    multi_head_attention,
 )
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda, layer_norm_plain
 from vfmseg_tpu_torch.ops.resize import resize
+from vfmseg_tpu_torch.ops.rope import (
+    apply_rope_permuted,
+    permuted_rope_tables,
+    vit_rope_tables,
+)
 from vfmseg_tpu_torch.train.checkpoint import CheckpointManager
 from vfmseg_tpu_torch.train.loop import train_loop
 from vfmseg_tpu_torch.train.state import create_train_state
@@ -112,36 +143,81 @@ TRAIN_CKPT_EVERY = 4
 TRAIN_CHECK_HW = (256, 256)
 TRAIN_CHECK_CROP = (128, 128)
 
-# the main path's calls per 1024x2048 image: stage-1 ViT (24 blocks), refine
-# ViT over all 18 crops in one batch (24 blocks), VFMHead decoder (3 blocks)
-LN_PER_IMAGE = 48 + 48 + 9
-ATTN_PER_IMAGE = 24 + 24 + 6
-# the train path's calls per step: one ViT pass over the 2B batch of both
-# scale views (24 blocks), the VFMHead decoder (3 blocks); every attention
-# has a backward, every LayerNorm backward is plain torch
-LN_PER_STEP = 48 + 9
-ATTN_PER_STEP = 24 + 6
+KERNEL_NAMES = [k.name for k in kernels.KERNELS]
+# (group, substring of the device kernel's name) for the profiler
+# breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope)
+KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
+                 ("attention_bwd_dq", "attention_bwd_dq_kernel"),
+                 ("attention_hm_fwd", "attention_hm_fwd_kernel"),
+                 ("attention_hm_dq", "attention_hm_dq_kernel"),
+                 ("attention_hm_dkv", "attention_hm_dkv_kernel"),
+                 ("attention_qkv", "attention_qkv_kernel<false, false>"),
+                 ("attention_qkv_rope", "attention_qkv_kernel<false, true>"),
+                 ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
+                 ("layer_norm", "layer_norm")]
 
-# (shape, eps, dtype) of every LayerNorm on the path, then the fp32 input
-# the kernel also takes
+
+def _counts(**nonzero) -> dict:
+    return {name: nonzero.get(name, 0) for name in KERNEL_NAMES}
+
+
+# Each path's launches per 1024x2048 image: stage-1 ViT (24 blocks), refine
+# ViT over all 18 crops in one batch (24 blocks), VFMHead decoder (3 blocks,
+# self- and cross-attention); DINOv2 blocks run 2 LayerNorms, EVA02 blocks 3
+# (norm1, norm2 and the SwiGLU's sub-LN).
+PER_IMAGE = {
+    "dinov2": _counts(layer_norm=48 + 48 + 9, attention_qkv=24 + 24 + 6),
+    "eva02": _counts(layer_norm=72 + 72 + 9, attention_qkv_rope=24 + 24,
+                     attention_qkv=6),
+}
+# Each path's launches per train step: one ViT pass over the 2B batch of
+# both scale views (24 blocks), the VFMHead decoder (3 blocks); every
+# attention has a backward, every LayerNorm backward is plain torch.
+PER_STEP = {
+    "dinov2": _counts(layer_norm=48 + 9, attention_fwd_lse=24 + 6,
+                      attention_bwd_dq=24 + 6, attention_bwd_dkv=24 + 6),
+    "eva02": _counts(layer_norm=72 + 9, attention_fwd_lse=6,
+                     attention_bwd_dq=6, attention_bwd_dkv=6,
+                     attention_hm_fwd=24, attention_hm_dq=24,
+                     attention_hm_dkv=24),
+}
+
+# (shape, eps, dtype) of every LayerNorm on the DINOv2 path, then the fp32
+# input the kernel also takes
 LN_CASES = [((1, 2049, 1024), 1e-6, torch.bfloat16),
             ((18, 1025, 1024), 1e-6, torch.bfloat16),
             ((18, 1024, 256), 1e-5, torch.bfloat16),
             ((18, 1025, 1024), 1e-6, torch.float32)]
-# (B, N, H, fused qkv?) of every attention on the path, then an odd head
-# count with both tiles ragged; head dim 64
+# EVA02's SwiGLU sub-LN at the refine batch and the train batch (rows only
+# 4-byte aligned: the block-per-row path), then an odd width (scalar loads)
+# and fp32 at 2730, both off the path
+LN_EVA02_CASES = [((18 * 1025, 2730), 1e-6, torch.bfloat16),
+                  ((4 * 1025, 2730), 1e-6, torch.bfloat16),
+                  ((3, 77, 341), 1e-6, torch.bfloat16),
+                  ((4 * 1025, 2730), 1e-6, torch.float32)]
+# (B, N, H, fused qkv?) of every attention on the DINOv2 inference path,
+# then an odd head count with both tiles ragged; head dim 64
 ATTN_SHAPES = [(1, 2049, 16, True), (18, 1025, 16, True),
                (18, 1024, 8, False), (2, 77, 3, True)]
+# (B, N, H, (gh, gw)) of the RoPE attention: EVA02's stage 1 (32x64 grid)
+# and refine batch (32x32), then a ragged odd-head case (4x19 grid); each
+# with the cls token's identity row
+ROPE_SHAPES = [(1, 2049, 16, (32, 64)), (18, 1025, 16, (32, 32)),
+               (2, 77, 3, (4, 19))]
 # (atol, rtol): bf16 output rounding and another summation order; in fp32
 # only the summation order
 LN_TOL = {torch.bfloat16: (3e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
-# P rounds to bf16 before P.V, and the accumulation order differs
+# P rounds to bf16 before P.V, and the accumulation order differs; with RoPE
+# the rotated q and k also round to bf16 in both versions, in another order
 ATTN_ATOL = 1e-2
-# (B, N, H, fused qkv?) of the training attention: the ViT over both scale
-# views, the decoder, and one ragged odd-head case off the path
+# (B, N, H, fused qkv?) of the DINOv2 training attention: the ViT over both
+# scale views, the decoder, and one ragged odd-head case off the path
 TRAIN_ATTN_SHAPES = [(4, 1025, 16, True), (2, 1024, 8, False),
                      (3, 77, 3, True)]
-# LSE: fp32 sums in another order, exp2f/log2f against exp/log
+# (B, H, Nq, Nk) of the head-major attention: EVA02's ViT over both scale
+# views, then a ragged Nq != Nk case
+HM_SHAPES = [(4, 16, 1025, 1025), (3, 3, 77, 130)]
+# LSE: fp32 sums in another order, fast exp/log against exp/log
 LSE_ATOL = 1e-3
 # dq/dk/dv, as max abs error over max |reference|: P and dS round to bf16
 # before their products (2^-9 each), the outputs are bf16, and delta comes
@@ -159,6 +235,12 @@ ARGMAX_AGREE = 0.98
 TRAIN_LOSS_REL = 3e-2
 TRAIN_GRAD_COS = 0.98
 TRAIN_GRAD_NORM_REL = 5e-2
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM bandwidth, dense bf16 tensor-core rate, fp32 rate outside the tensor
+# cores. A card set below 700 W reaches less.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "fp32": 67e12}
 
 
 def emit(phase: str, **fields) -> None:
@@ -191,6 +273,52 @@ def time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def bound(bytes_moved: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the peak rate of their type, whichever is
+    larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[kind]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops, ops_kind=kind)
+
+
+def ln_bound(shape, dtype) -> dict:
+    """LayerNorm: x read and y written once, fp32 weight and bias read once;
+    ~8 fp32 operations an element (sum, centre, square, sum, scale, affine)."""
+    numel = int(np.prod(shape))
+    item = torch.empty((), dtype=dtype).element_size()
+    return bound(2 * numel * item + 2 * shape[-1] * 4, 8 * numel, "fp32")
+
+
+def attn_bound(b, h, nq, nk, products, reads, writes, rows) -> dict:
+    """Attention at head dim 64 in bf16: ``products`` matrix products of
+    2*Nq*Nk*64 operations per head; ``reads``/``writes`` counts of
+    [*, N, H*64] bf16 tensors at Nq (or Nk for k/v), given as their lengths;
+    ``rows`` fp32 [B, H, Nq] vectors (LSE, delta) moved."""
+    ops = products * 2.0 * b * h * nq * nk * 64
+    per_token = b * h * 64 * 2
+    bytes_moved = (sum(reads) + sum(writes)) * per_token + rows * b * h * nq * 4
+    return bound(bytes_moved, ops, "bf16_tensor")
+
+
+def sdpa_fwd(q, k, v, scale):
+    """The library yardstick: one ``F.scaled_dot_product_attention`` call
+    over [B, H, N, 64] views."""
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+
+def sdpa_bwd_fn(q, k, v, dout, scale):
+    """The library yardstick of a backward: autograd through one
+    ``F.scaled_dot_product_attention`` call, computing dq, dk and dv."""
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dout,
+                                       retain_graph=True)
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
@@ -215,15 +343,16 @@ def phase_build() -> None:
     emit("build", seconds=round(secs, 3), ptxas=ptxas)
 
 
-def phase_kernels(dev) -> list:
-    rng = np.random.RandomState(SEED)
-
+def _randn(gen: np.random.RandomState, dev):
     def randn(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
+        return torch.from_numpy(gen.standard_normal(shape).astype(
             np.float32)).to(dev)
+    return randn
 
-    ln_rows, worst_ln = [], 0.0
-    for shape, eps, dtype in LN_CASES:
+
+def check_layer_norm(randn, cases, phase: str) -> list:
+    rows = []
+    for shape, eps, dtype in cases:
         c = shape[-1]
         atol, rtol = LN_TOL[dtype]
         x = randn(*shape).to(dtype)
@@ -235,26 +364,53 @@ def phase_kernels(dev) -> list:
         err = (got - want).abs()
         ok = bool((err <= atol + rtol * want.abs()).all())
         max_abs = float(err.max())
+        wl, bl = w.to(dtype), b.to(dtype)
         row = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_abs,
                    ok=ok,
                    ms=time_ms(lambda: layer_norm_cuda(x, w, b, eps)),
-                   plain_ms=time_ms(lambda: layer_norm_plain(x, w, b, eps)))
-        emit("kernel_layer_norm", atol=atol, rtol=rtol, **row)
+                   plain_ms=time_ms(lambda: layer_norm_plain(x, w, b, eps)),
+                   library_ms=time_ms(lambda: F.layer_norm(x, (c,), wl, bl,
+                                                           eps)),
+                   library_call="F.layer_norm (weights in x's dtype)",
+                   **ln_bound(shape, dtype))
+        emit(phase, atol=atol, rtol=rtol, **row)
         if not ok:
             raise AssertionError(f"layer_norm kernel disagrees at {shape}: "
                                  f"max abs err {max_abs}")
-        ln_rows.append(row)
-        worst_ln = max(worst_ln, max_abs)
+        rows.append(row)
+    return rows
 
-    attn_rows, worst_attn = [], 0.0
+
+def _qkv_views(randn, b_, n, h, fused):
+    e = h * 64
+    if fused:
+        qkv = randn(b_, n, 3 * e).to(torch.bfloat16)
+        return qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
+    return tuple(randn(b_, n, e).to(torch.bfloat16) for _ in range(3))
+
+
+def _hm(t, h):
+    """[B, N, H*64] -> a [B, H, N, 64] view."""
+    b_, n, _ = t.shape
+    return t.reshape(b_, n, h, 64).transpose(1, 2)
+
+
+def _summary(name, source, replaces, row, err, **extra) -> dict:
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, **{k: row[k] for k in keys},
+                shape=row["shape"], **extra)
+
+
+def phase_kernels(dev) -> list:
+    randn = _randn(np.random.RandomState(SEED), dev)
+    ln_rows = check_layer_norm(randn, LN_CASES, "kernel_layer_norm")
+
+    attn_rows = []
     for b_, n, h, fused in ATTN_SHAPES:
         e = h * 64
         scale = 64 ** -0.5
-        if fused:
-            qkv = randn(b_, n, 3 * e).to(torch.bfloat16)
-            q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
-        else:
-            q, k, v = (randn(b_, n, e).to(torch.bfloat16) for _ in range(3))
+        q, k, v = _qkv_views(randn, b_, n, h, fused)
 
         def heads(t):
             return t.reshape(b_, n, h, 64)
@@ -265,54 +421,52 @@ def phase_kernels(dev) -> list:
         torch.cuda.synchronize()
         max_abs = float((got - want).abs().max())
         ok = max_abs <= ATTN_ATOL
+        hq, hk, hv = (_hm(t, h) for t in (q, k, v))
         row = dict(
             shape=[b_, n, h, 64], fused_qkv=fused, max_abs_err=max_abs, ok=ok,
             ms=time_ms(lambda: attention_qkv_tm(q, k, v, h, scale)),
             plain_ms=time_ms(lambda: attention_plain(
-                heads(q), heads(k), heads(v), scale=scale)))
+                heads(q), heads(k), heads(v), scale=scale)),
+            library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
+            **attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0))
         emit("kernel_attention_qkv", atol=ATTN_ATOL, **row)
         if not ok:
             raise AssertionError(f"attention kernel disagrees at "
                                  f"{(b_, n, h)}: max abs err {max_abs}")
         attn_rows.append(row)
-        worst_attn = max(worst_attn, max_abs)
-        del q, k, v, got, want
+        del q, k, v, got, want, hq, hk, hv
         torch.cuda.empty_cache()
 
     # the per-kernel summary times the largest shape on the path (the
     # refine batch); every shape's numbers are on the lines above
     return [
-        dict(name="layer_norm", route="cuda",
-             source="vfmseg_tpu_torch/csrc/layer_norm.cu",
-             replaces="vfmseg_tpu/ops/norm.py:28",
-             max_abs_err=worst_ln, ms=ln_rows[1]["ms"],
-             plain_ms=ln_rows[1]["plain_ms"], shape=ln_rows[1]["shape"]),
-        dict(name="attention_qkv", route="cuda",
-             source="vfmseg_tpu_torch/csrc/attention_qkv.cu",
-             replaces="vfmseg_tpu/ops/flash_attention.py:873",
-             max_abs_err=worst_attn, ms=attn_rows[1]["ms"],
-             plain_ms=attn_rows[1]["plain_ms"], shape=attn_rows[1]["shape"]),
+        _summary("layer_norm", "vfmseg_tpu_torch/csrc/layer_norm.cu",
+                 "vfmseg_tpu/ops/norm.py:28", ln_rows[1],
+                 max(r["max_abs_err"] for r in ln_rows)),
+        _summary("attention_qkv", "vfmseg_tpu_torch/csrc/attention_qkv.cu",
+                 "vfmseg_tpu/ops/flash_attention.py:873", attn_rows[1],
+                 max(r["max_abs_err"] for r in attn_rows)),
     ]
 
 
+def _grad_errors(grads, refs, shape):
+    return {name: float((got.float() - r.grad.reshape(shape)).abs().max()
+                        / r.grad.abs().max())
+            for name, got, r in zip(("dq", "dk", "dv"), grads, refs)}
+
+
 def phase_kernels_train(dev) -> list:
-    rng_np = np.random.RandomState(SEED + 3)
-
-    def randn(*shape):
-        return torch.from_numpy(rng_np.standard_normal(shape).astype(
-            np.float32)).to(dev)
-
+    randn = _randn(np.random.RandomState(SEED + 3), dev)
     rows = []
     for b_, n, h, fused in TRAIN_ATTN_SHAPES:
         e = h * 64
         scale = 64 ** -0.5
+        q, k, v = _qkv_views(randn, b_, n, h, fused)
         if fused:
-            qkv = randn(b_, n, 3 * e).to(torch.bfloat16)
-            q, k, v = qkv[..., :e], qkv[..., e:2 * e], qkv[..., 2 * e:]
-            dqkv = torch.empty_like(qkv)
+            dqkv = torch.empty((b_, n, 3 * e), dtype=torch.bfloat16,
+                               device=dev)
             dq, dk, dv = dqkv[..., :e], dqkv[..., e:2 * e], dqkv[..., 2 * e:]
         else:
-            q, k, v = (randn(b_, n, e).to(torch.bfloat16) for _ in range(3))
             dq, dk, dv = torch.empty((3, b_, n, e), dtype=torch.bfloat16,
                                      device=dev)
         dout = randn(b_, n, e).to(torch.bfloat16)
@@ -332,27 +486,29 @@ def phase_kernels_train(dev) -> list:
         want_out, want_lse = want_out.detach(), want_lse.detach()
         out_err = float((out.float() - want_out.reshape(b_, n, e)).abs().max())
         lse_err = float((lse - want_lse).abs().max())
-        grad_err = {}
-        for name, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-            want = r.grad.reshape(b_, n, e)
-            grad_err[name] = float((got.float() - want).abs().max()
-                                   / want.abs().max())
+        grad_err = _grad_errors((dq, dk, dv), ref, (b_, n, e))
         ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
               and max(grad_err.values()) <= GRAD_REL)
         plain_in = [heads(t) for t in (q, k, v)]
         p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale)
+        hq, hk, hv, hdo = (_hm(t, h) for t in (q, k, v, dout))
         row = dict(
             shape=[b_, n, h, 64], fused_qkv=fused, out_max_abs_err=out_err,
             lse_max_abs_err=lse_err, grad_rel_err=grad_err, ok=ok,
             fwd_ms=time_ms(lambda: attention_fwd_lse_tm(q, k, v, h, scale)),
             fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
                 *plain_in, scale=scale)),
+            fwd_library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
             dq_ms=time_ms(lambda: attention_bwd_dq_tm(
                 q, k, v, dout, lse, delta, h, scale, dq)),
             dkv_ms=time_ms(lambda: attention_bwd_dkv_tm(
                 q, k, v, dout, lse, delta, h, scale, dk, dv)),
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
-                *plain_in, p_out, p_lse, heads(dout), scale=scale)))
+                *plain_in, p_out, p_lse, heads(dout), scale=scale)),
+            bwd_library_ms=time_ms(sdpa_bwd_fn(hq, hk, hv, hdo, scale)),
+            fwd_bound=attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 1),
+            dq_bound=attn_bound(b_, h, n, n, 3, (n, n, n, n), (n,), 2),
+            dkv_bound=attn_bound(b_, h, n, n, 4, (n, n, n, n), (n, n), 2))
         emit("kernel_attention_train", out_atol=ATTN_ATOL, lse_atol=LSE_ATOL,
              grad_rel=GRAD_REL, **row)
         if not ok:
@@ -362,32 +518,201 @@ def phase_kernels_train(dev) -> list:
         del q, k, v, dq, dk, dv, dout, out, lse, delta, ref, plain_in
         torch.cuda.empty_cache()
 
-    path = rows[0]  # the ViT's shape, the largest on the path
-    worst_grad = max(max(r["grad_rel_err"].values()) for r in rows)
+    return _train_summaries(
+        rows, ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv"),
+        ("vfmseg_tpu_torch/csrc/attention_qkv.cu",
+         "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
+         "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu"),
+        ("vfmseg_tpu/ops/flash_attention.py:684",
+         "vfmseg_tpu/ops/flash_attention.py:1397",
+         "vfmseg_tpu/ops/flash_attention.py:1444"))
+
+
+def _train_summaries(rows, names, sources, replaces) -> list:
+    """Summary rows of a forward, dq and dk/dv triple, timed at the first
+    (the path's) shape; errors are the worst over every shape."""
+    path = rows[0]
+
+    def pick(kind):
+        b = path[f"{kind}_bound"]
+        return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+
+    bwd = dict(plain_ms=path["bwd_plain_ms"], library_ms=path["bwd_library_ms"],
+               err_kind="max abs err / max |ref|",
+               plain_computes="dq, dk, dv", library_computes="dq, dk, dv",
+               library_call="autograd through F.scaled_dot_product_attention",
+               shape=path["shape"])
     return [
-        dict(name="attention_fwd_lse", route="cuda",
-             source="vfmseg_tpu_torch/csrc/attention_qkv.cu",
-             replaces="vfmseg_tpu/ops/flash_attention.py:684",
+        dict(name=names[0], route="cuda", source=sources[0],
+             replaces=replaces[0],
              max_abs_err=max(r["out_max_abs_err"] for r in rows),
              lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows),
              ms=path["fwd_ms"], plain_ms=path["fwd_plain_ms"],
-             shape=path["shape"]),
-        dict(name="attention_bwd_dq", route="cuda",
-             source="vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
-             replaces="vfmseg_tpu/ops/flash_attention.py:1397",
+             library_ms=path["fwd_library_ms"],
+             library_call="F.scaled_dot_product_attention (no LSE)",
+             shape=path["shape"], **pick("fwd")),
+        dict(name=names[1], route="cuda", source=sources[1],
+             replaces=replaces[1],
              max_abs_err=max(r["grad_rel_err"]["dq"] for r in rows),
-             err_kind="max abs err / max |ref|", ms=path["dq_ms"],
-             plain_ms=path["bwd_plain_ms"], plain_computes="dq, dk, dv",
-             shape=path["shape"]),
-        dict(name="attention_bwd_dkv", route="cuda",
-             source="vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
-             replaces="vfmseg_tpu/ops/flash_attention.py:1444",
+             ms=path["dq_ms"], **pick("dq"), **bwd),
+        dict(name=names[2], route="cuda", source=sources[2],
+             replaces=replaces[2],
              max_abs_err=max(max(r["grad_rel_err"]["dk"],
                                  r["grad_rel_err"]["dv"]) for r in rows),
-             err_kind="max abs err / max |ref|", ms=path["dkv_ms"],
-             plain_ms=path["bwd_plain_ms"], plain_computes="dq, dk, dv",
-             shape=path["shape"], worst_grad_rel_err=worst_grad),
+             ms=path["dkv_ms"], **pick("dkv"), **bwd),
     ]
+
+
+def _rope_tables(n, grid, dev):
+    cos, sin = vit_rope_tables(grid[0], grid[1], 64, 1, 16, True)
+    if cos.shape[0] != n:
+        raise ValueError(f"a {grid} grid with a cls row has {cos.shape[0]} "
+                         f"tokens, not {n}")
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+                 for t in permuted_rope_tables(cos, sin))
+
+
+def check_rope_attention(randn, dev) -> list:
+    rows = []
+    for b_, n, h, grid in ROPE_SHAPES:
+        e = h * 64
+        scale = 64 ** -0.5
+        q, k, v = _qkv_views(randn, b_, n, h, True)
+        cos, sin = _rope_tables(n, grid, dev)
+
+        def heads(t):
+            return t.reshape(b_, n, h, 64)
+
+        got = attention_qkv_rope_tm(q, k, v, cos, sin, h, scale).float()
+        # the twin's rotation (fp32, rounded to bf16), then fp32 attention
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
+        qr, kr = (apply_rope_permuted(heads(t).float(), c, s)
+                  .to(torch.bfloat16).float() for t in (q, k))
+        want = attention_plain(qr, kr, heads(v).float(),
+                               scale=scale).reshape(b_, n, e)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        ok = max_abs <= ATTN_ATOL
+        hq, hk, hv = (_hm(t, h) for t in (q, k, v))
+        # bytes: q, k, v, out and the two fp32 [N, 64] tables; the rotation
+        # adds 3 operations per q/k element, negligible beside the products
+        b = attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0)
+        b = bound(b["bytes"] + 2 * n * 64 * 4, b["ops"], "bf16_tensor")
+        row = dict(
+            shape=[b_, n, h, 64], grid=list(grid), max_abs_err=max_abs, ok=ok,
+            ms=time_ms(lambda: attention_qkv_rope_tm(q, k, v, cos, sin, h,
+                                                     scale)),
+            plain_ms=time_ms(lambda: attention_qkv_rope_plain(
+                heads(q), heads(k), heads(v), cos, sin, scale=scale)),
+            library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
+            library_computes="attention without the rotation", **b)
+        emit("kernel_attention_qkv_rope", atol=ATTN_ATOL, **row)
+        if not ok:
+            raise AssertionError(f"RoPE attention kernel disagrees at "
+                                 f"{(b_, n, h)}: max abs err {max_abs}")
+        rows.append(row)
+        del q, k, v, got, want, hq, hk, hv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_headmajor(randn, dev) -> list:
+    rows = []
+    for b_, h, nq, nk in HM_SHAPES:
+        scale = 64 ** -0.5
+        # token-major [B, N, H*64] tensors, as the three projections give
+        # them, seen as [B, H, N, 64] views
+        q = _hm(randn(b_, nq, h * 64).to(torch.bfloat16), h)
+        k, v = (_hm(randn(b_, nk, h * 64).to(torch.bfloat16), h)
+                for _ in range(2))
+        dout = _hm(randn(b_, nq, h * 64).to(torch.bfloat16), h)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+        out, lse = attention_hm_fwd(q, k, v, scale)
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+        attention_hm_dq(q, k, v, dout, lse, delta, scale, dq)
+        attention_hm_dkv(q, k, v, dout, lse, delta, scale, dk, dv)
+
+        ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (q, k, v)]
+        want_out, want_lse = attention_fwd_lse_plain(*ref, scale=scale)
+        want_out.backward(dout.float().transpose(1, 2))
+        want_out = want_out.detach()
+        routed_err = routed_launches = None
+        if nq != nk:
+            # the dispatcher's route for Nq != Nk on the card: B5
+            before = kernels.ATTENTION_HM_FWD.launches
+            routed = multi_head_attention(
+                *(t.transpose(1, 2) for t in (q, k, v)), scale=scale)
+            routed_launches = kernels.ATTENTION_HM_FWD.launches - before
+            routed_err = float((routed.float() - want_out).abs().max())
+        torch.cuda.synchronize()
+        out_err = float((out.float().transpose(1, 2) - want_out).abs().max())
+        lse_err = float((lse - want_lse.detach()).abs().max())
+        grad_err = _grad_errors(
+            (t.transpose(1, 2) for t in (dq, dk, dv)), ref,
+            (b_, -1, h, 64))
+        ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
+              and max(grad_err.values()) <= GRAD_REL
+              and (nq == nk or (routed_err <= ATTN_ATOL
+                                and routed_launches == 1)))
+        plain_in = [t.transpose(1, 2) for t in (q, k, v)]
+        p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale)
+        n_ = (nq, nk, nk)
+        row = dict(
+            shape=[b_, h, nq, nk, 64], out_max_abs_err=out_err,
+            lse_max_abs_err=lse_err, grad_rel_err=grad_err,
+            routed_max_abs_err=routed_err, routed_b5_launches=routed_launches,
+            ok=ok,
+            fwd_ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale)),
+            fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
+                *plain_in, scale=scale)),
+            fwd_library_ms=time_ms(lambda: sdpa_fwd(q, k, v, scale)),
+            dq_ms=time_ms(lambda: attention_hm_dq(
+                q, k, v, dout, lse, delta, scale, dq)),
+            dkv_ms=time_ms(lambda: attention_hm_dkv(
+                q, k, v, dout, lse, delta, scale, dk, dv)),
+            bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
+                *plain_in, p_out, p_lse, dout.transpose(1, 2), scale=scale)),
+            bwd_library_ms=time_ms(sdpa_bwd_fn(q, k, v, dout, scale)),
+            fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1),
+            dq_bound=attn_bound(b_, h, nq, nk, 3, n_ + (nq,), (nq,), 2),
+            dkv_bound=attn_bound(b_, h, nq, nk, 4, n_ + (nq,), (nk, nk), 2))
+        emit("kernel_attention_headmajor", out_atol=ATTN_ATOL,
+             lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
+        if not ok:
+            raise AssertionError(f"head-major attention kernels disagree at "
+                                 f"{(b_, h, nq, nk)}: {row}")
+        rows.append(row)
+        del q, k, v, dq, dk, dv, dout, out, lse, delta, ref, plain_in
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_eva02(dev) -> list:
+    randn = _randn(np.random.RandomState(SEED + 11), dev)
+    ln_rows = check_layer_norm(randn, LN_EVA02_CASES,
+                               "kernel_layer_norm_eva02")
+    rope_rows = check_rope_attention(randn, dev)
+    hm_rows = check_headmajor(randn, dev)
+    emit("kernels_eva02",
+         layer_norm_2730_ms=[r["ms"] for r in ln_rows[:2]],
+         rope_ms=[r["ms"] for r in rope_rows],
+         headmajor_ms=[dict(fwd=r["fwd_ms"], dq=r["dq_ms"], dkv=r["dkv_ms"])
+                       for r in hm_rows])
+    return ln_rows, [
+        _summary("attention_qkv_rope",
+                 "vfmseg_tpu_torch/csrc/attention_qkv.cu",
+                 "vfmseg_tpu/ops/flash_attention.py:873", rope_rows[1],
+                 max(r["max_abs_err"] for r in rope_rows),
+                 library_computes="attention without the rotation",
+                 library_call="F.scaled_dot_product_attention"),
+    ] + _train_summaries(
+        hm_rows, ("attention_hm_fwd", "attention_hm_dq", "attention_hm_dkv"),
+        ("vfmseg_tpu_torch/csrc/attention_hm.cu",) * 3,
+        ("vfmseg_tpu/ops/flash_attention.py:71",
+         "vfmseg_tpu/ops/flash_attention.py:278",
+         "vfmseg_tpu/ops/flash_attention.py:344"))
 
 
 def _trainable_snapshot(model) -> dict:
@@ -395,7 +720,7 @@ def _trainable_snapshot(model) -> dict:
             if p.requires_grad}
 
 
-def phase_train_path(dev, cfg) -> tuple:
+def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     dtype = compute_dtype(cfg)
@@ -404,12 +729,12 @@ def phase_train_path(dev, cfg) -> tuple:
     state = create_train_state(model, cfg)
     build_secs = time.perf_counter() - t0
     before = _trainable_snapshot(model)
+    params = dict(model.named_parameters())
     last = len(model.backbone.blocks) - 1
     frozen_names = ["backbone.patch_embed.weight", "backbone.pos_embed",
-                    "backbone.blocks.0.attn.qkv.weight",
-                    "backbone.blocks.0.norm1.weight",
-                    f"backbone.blocks.{last}.mlp.fc2.weight"]
-    params = dict(model.named_parameters())
+                    "backbone.blocks.0.norm1.weight"] + [
+        n for n in params if n.startswith(f"backbone.blocks.{last}.")
+        and n not in before][:3]
     frozen = {n: params[n].detach().clone() for n in frozen_names}
     n_train = sum(p.numel() for p in before.values())
     n_total = sum(p.numel() for p in model.parameters())
@@ -428,7 +753,8 @@ def phase_train_path(dev, cfg) -> tuple:
         state = train_loop(state, make_train_step(), loader,
                            max_iters=TRAIN_STEPS, work_dir=TRAIN_WORK_DIR,
                            seed=SEED, log_interval=1,
-                           checkpoint_interval=TRAIN_CKPT_EVERY,
+                           checkpoint_interval=(TRAIN_CKPT_EVERY if restore
+                                                else 0),
                            max_keep_ckpts=2)
     finally:
         loader.close()
@@ -437,12 +763,10 @@ def phase_train_path(dev, cfg) -> tuple:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    want = {"layer_norm": TRAIN_STEPS * LN_PER_STEP, "attention_qkv": 0,
-            "attention_fwd_lse": TRAIN_STEPS * ATTN_PER_STEP,
-            "attention_bwd_dq": TRAIN_STEPS * ATTN_PER_STEP,
-            "attention_bwd_dkv": TRAIN_STEPS * ATTN_PER_STEP}
+    want = {k: TRAIN_STEPS * v for k, v in PER_STEP[label].items()}
     if counts != want:
-        raise AssertionError(f"train launch counts {counts} != {want}")
+        raise AssertionError(f"{label} train launch counts {counts} != "
+                             f"{want}")
     with open(os.path.join(TRAIN_WORK_DIR, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     if [r["step"] for r in records] != list(range(1, TRAIN_STEPS + 1)):
@@ -465,30 +789,35 @@ def phase_train_path(dev, cfg) -> tuple:
         raise AssertionError(f"frozen parameters moved or got gradients: "
                              f"{moved}")
 
-    # a fresh state from the same seed, restored from the last checkpoint
-    fresh = create_train_state(init_params(
-        build_segmentor(cfg["model"], dtype=dtype), SEED).to(dev), cfg)
-    fresh = CheckpointManager(TRAIN_WORK_DIR).restore(fresh)
-    got = dict(fresh.model.state_dict())
-    mismatch = [n for n, t in model.state_dict().items()
-                if (n in before or "running" in n)
-                and not torch.equal(t, got[n])]
-    opt_a = state.optimizer.state_dict()["state"]
-    opt_b = fresh.optimizer.state_dict()["state"]
-    opt_same = opt_a.keys() == opt_b.keys() and all(
-        torch.equal(opt_a[i]["exp_avg"], opt_b[i]["exp_avg"])
-        and torch.equal(opt_a[i]["exp_avg_sq"], opt_b[i]["exp_avg_sq"])
-        for i in opt_a)
-    if fresh.step != TRAIN_STEPS or mismatch or not opt_same:
-        raise AssertionError(f"restore: step {fresh.step}, mismatched "
-                             f"{mismatch[:5]}, optimizer equal {opt_same}")
-    ckpts = sorted(os.listdir(os.path.join(TRAIN_WORK_DIR, "checkpoints")))
-    del fresh, got
-    torch.cuda.empty_cache()
+    ckpts = []
+    if restore:
+        # a fresh state from the same seed, restored from the last checkpoint
+        fresh = create_train_state(init_params(
+            build_segmentor(cfg["model"], dtype=dtype), SEED).to(dev), cfg)
+        fresh = CheckpointManager(TRAIN_WORK_DIR).restore(fresh)
+        got = dict(fresh.model.state_dict())
+        mismatch = [n for n, t in model.state_dict().items()
+                    if (n in before or "running" in n)
+                    and not torch.equal(t, got[n])]
+        opt_a = state.optimizer.state_dict()["state"]
+        opt_b = fresh.optimizer.state_dict()["state"]
+        opt_same = opt_a.keys() == opt_b.keys() and all(
+            torch.equal(opt_a[i]["exp_avg"], opt_b[i]["exp_avg"])
+            and torch.equal(opt_a[i]["exp_avg_sq"], opt_b[i]["exp_avg_sq"])
+            for i in opt_a)
+        if fresh.step != TRAIN_STEPS or mismatch or not opt_same:
+            raise AssertionError(f"restore: step {fresh.step}, mismatched "
+                                 f"{mismatch[:5]}, optimizer equal "
+                                 f"{opt_same}")
+        ckpts = sorted(os.listdir(os.path.join(TRAIN_WORK_DIR,
+                                               "checkpoints")))
+        del fresh, got
+        torch.cuda.empty_cache()
 
     latency = [1.0 / r["steps_per_sec"] for r in records]
     steady = latency[1:]
-    emit("train_path", steps=TRAIN_STEPS, batch=cfg["batch_size"],
+    emit("train_path" if label == "dinov2" else f"{label}_train_path",
+         model=cfg["name"], steps=TRAIN_STEPS, batch=cfg["batch_size"],
          crop_hw=list(cfg["crop_size"]), model_build_s=build_secs,
          data_build_s=data_secs, loop_s=loop_secs,
          trainable_params=n_train, total_params=n_total,
@@ -496,7 +825,8 @@ def phase_train_path(dev, cfg) -> tuple:
              np.median(steady)), steps_per_s=1.0 / float(np.median(steady)),
          peak_mem_bytes=peak, launches=counts,
          launches_per_step={k: v // TRAIN_STEPS for k, v in counts.items()},
-         losses=losses, checkpoints=ckpts, restored_step=TRAIN_STEPS)
+         losses=losses, checkpoints=ckpts,
+         restored_step=TRAIN_STEPS if restore else None)
     return state, counts
 
 
@@ -513,9 +843,8 @@ def _device_kernel_ms(prof) -> tuple:
         if name.startswith(("Optimizer.", "ProfilerStep")):
             continue  # annotation ranges on the device timeline, not kernels
         ms = getattr(evt, "self_device_time_total", 0.0) / 1e3
-        for tag in ("attention_bwd_dkv", "attention_bwd_dq",
-                    "attention_qkv_kernel", "layer_norm"):
-            if tag in name:
+        for tag, marker in KERNEL_GROUPS:
+            if marker in name:
                 break
         else:
             tag = "gemm" if any(s in name.lower() for s in (
@@ -528,7 +857,22 @@ def _device_kernel_ms(prof) -> tuple:
     return groups, [dict(kernel=k, ms=v[0], calls=v[1]) for k, v in top]
 
 
-def phase_train_breakdown(dev, cfg, state) -> None:
+def _breakdown(prof, step_ms: float) -> dict:
+    """The profile's device time by kernel group, the attention kernels'
+    share of it, and the idle share against an unprofiled ``step_ms``."""
+    groups, top = _device_kernel_ms(prof)
+    if not groups:
+        return dict(kernel_ms="not measured (no device time in the profile)",
+                    top_kernels=top, device_ms=None, attention_share=None,
+                    idle_share=None)
+    device_ms = sum(groups.values())
+    attn = sum(v for k, v in groups.items() if k.startswith("attention"))
+    return dict(kernel_ms=groups, top_kernels=top, device_ms=device_ms,
+                attention_share=attn / device_ms,
+                idle_share=max(1 - device_ms / step_ms, 0.0))
+
+
+def phase_train_breakdown(dev, cfg, state, label: str) -> None:
     """Forward / backward / optimizer of one more step (CUDA events, median
     of 3 steps), and the kernels' device time over one profiled step."""
     model, opt = state.model, state.optimizer
@@ -536,7 +880,7 @@ def phase_train_breakdown(dev, cfg, state) -> None:
                           num_classes=cfg["num_classes"], seed=SEED + 5)
     batch = collate([ds[0], ds[1]])
     img = torch.from_numpy(batch["img"]).to(dev)
-    label = torch.from_numpy(batch["label"]).to(dev)
+    label_t = torch.from_numpy(batch["label"]).to(dev)
     model.train()
 
     def one_step(events=None):
@@ -544,7 +888,7 @@ def phase_train_breakdown(dev, cfg, state) -> None:
         with rng.streams(step_generators(SEED, state.step, dev)):
             if events:
                 events[0].record()
-            loss = sum_losses(model(img, label))
+            loss = sum_losses(model(img, label_t))
             if events:
                 events[1].record()
             loss.backward()
@@ -570,18 +914,14 @@ def phase_train_breakdown(dev, cfg, state) -> None:
         one_step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = _device_kernel_ms(prof)
-    device_ms = sum(groups.values())
-    attn = sum(v for k, v in groups.items() if k.startswith("attention"))
     step_ms = fwd + bwd + optim
     # idle against the unprofiled, event-timed step (the profiled wall time
     # carries the profiler's own overhead)
-    emit("train_breakdown", forward_ms=fwd, backward_ms=bwd,
+    emit("train_breakdown" if label == "dinov2"
+         else f"{label}_train_breakdown", model=cfg["name"],
+         forward_ms=fwd, backward_ms=bwd,
          optimizer_ms=optim, step_ms=step_ms, profiled_wall_ms=wall_ms,
-         kernel_ms=groups or "not measured (no device time in the profile)",
-         top_kernels=top, device_ms=device_ms if groups else None,
-         attention_share=attn / device_ms if groups else None,
-         idle_share=max(1 - device_ms / step_ms, 0.0) if groups else None)
+         **_breakdown(prof, step_ms))
 
 
 def _train_check_config(cfg) -> dict:
@@ -589,13 +929,15 @@ def _train_check_config(cfg) -> dict:
     m = c["model"]
     m["hr_crop_size"] = TRAIN_CHECK_CROP
     m["backbone"]["Lora_config"]["lora_dropout"] = 0.0
+    if "drop_path_rate" in m["backbone"]["backbone"]:
+        m["backbone"]["backbone"]["drop_path_rate"] = 0.0
     m["decode_head"]["dropout_ratio"] = 0.0
     m["aux_head"]["dropout_ratio"] = 0.0
     m["aux_head"]["transformer"].update(dropout=0.0, mask_ratio=0.0)
     return c
 
 
-def phase_train_card_vs_cpu(dev, cfg) -> None:
+def phase_train_card_vs_cpu(dev, cfg, label: str) -> None:
     c = _train_check_config(cfg)
     ds = SyntheticDataset(n=2, hw=TRAIN_CHECK_HW,
                           num_classes=c["num_classes"], seed=SEED + 7)
@@ -624,7 +966,9 @@ def phase_train_card_vs_cpu(dev, cfg) -> None:
     ok = (all(np.isfinite(list(card.values())))
           and max(rel.values()) <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
           and max(norm_rel.values()) <= TRAIN_GRAD_NORM_REL)
-    emit("train_card_vs_cpu", image_hw=list(TRAIN_CHECK_HW),
+    emit("train_card_vs_cpu" if label == "dinov2"
+         else f"{label}_train_card_vs_cpu", model=cfg["name"],
+         image_hw=list(TRAIN_CHECK_HW),
          hr_crop=list(TRAIN_CHECK_CROP), card=card, cpu=cpu,
          loss_rel_err=rel, loss_rel_limit=TRAIN_LOSS_REL,
          lora_grad_cosine=cos, cosine_limit=TRAIN_GRAD_COS,
@@ -633,18 +977,18 @@ def phase_train_card_vs_cpu(dev, cfg) -> None:
          lora_grad_norm_cpu=float(cpu_g.norm()), card_step_s=card_s,
          cpu_step_s=cpu_s, ok=ok)
     if not ok:
-        raise AssertionError(f"train card vs CPU: loss rel {rel}, LoRA "
-                             f"gradient cosine {cos}, norms {norm_rel}")
+        raise AssertionError(f"{label} train card vs CPU: loss rel {rel}, "
+                             f"LoRA gradient cosine {cos}, norms {norm_rel}")
 
 
 def synthetic_images(n: int, hw, seed: int) -> torch.Tensor:
     """Preprocessed NHWC float32 images: blocky colour fields plus noise,
     normalised with the config's mean and std."""
-    rng = np.random.RandomState(seed)
-    coarse = rng.randint(0, 256, (n, hw[0] // 32, hw[1] // 32, 3))
+    rng_np = np.random.RandomState(seed)
+    coarse = rng_np.randint(0, 256, (n, hw[0] // 32, hw[1] // 32, 3))
     img = np.repeat(np.repeat(coarse, 32, axis=1), 32, axis=2).astype(
         np.float32)
-    img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255)
+    img = np.clip(img + rng_np.normal(0, 12, img.shape), 0, 255)
     mean = np.asarray(PREPROCESSOR["mean"], np.float32)
     std = np.asarray(PREPROCESSOR["std"], np.float32)
     return torch.from_numpy(((img - mean) / std).astype(np.float32))
@@ -663,7 +1007,7 @@ def refined_windows(model, img: torch.Tensor, test_cfg: dict) -> int:
     return int((conf < test_cfg["conf"]).sum())
 
 
-def phase_main_path(dev, cfg) -> tuple:
+def phase_main_path(dev, cfg, label: str) -> tuple:
     t0 = time.perf_counter()
     model = init_params(build_segmentor(cfg["model"],
                                         dtype=compute_dtype(cfg)), SEED)
@@ -687,12 +1031,9 @@ def phase_main_path(dev, cfg) -> tuple:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    want = {"layer_norm": N_IMAGES * LN_PER_IMAGE,
-            "attention_qkv": N_IMAGES * ATTN_PER_IMAGE,
-            "attention_fwd_lse": 0, "attention_bwd_dq": 0,
-            "attention_bwd_dkv": 0}
+    want = {k: N_IMAGES * v for k, v in PER_IMAGE[label].items()}
     if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
+        raise AssertionError(f"{label} launch counts {counts} != {want}")
     for p in preds:
         if tuple(p.shape) != (1,) + IMAGE_HW or not bool(
                 ((p >= 0) & (p < cfg["num_classes"])).all()):
@@ -706,7 +1047,8 @@ def phase_main_path(dev, cfg) -> tuple:
     refined = [refined_windows(model, imgs[i:i + 1].to(dev), test_cfg)
                for i in range(N_IMAGES)]
     steady = latencies[1:]
-    emit("main_path", images=N_IMAGES, image_hw=list(IMAGE_HW),
+    emit("main_path" if label == "dinov2" else f"{label}_main_path",
+         model=cfg["name"], images=N_IMAGES, image_hw=list(IMAGE_HW),
          model_build_s=build_secs, latency_s=latencies,
          steady_latency_s=steady, images_per_s=len(steady) / sum(steady),
          peak_mem_bytes=peak, launches=counts,
@@ -718,7 +1060,7 @@ def phase_main_path(dev, cfg) -> tuple:
     return model, counts
 
 
-def phase_card_vs_cpu(model, dev, cfg) -> None:
+def phase_card_vs_cpu(model, dev, cfg, label: str) -> None:
     test_cfg = cfg["test_cfg"]
     logits_fn = make_logits_fn(model, test_cfg, test_cfg["mode"])
     img = synthetic_images(1, CHECK_HW, SEED + 2)
@@ -737,36 +1079,83 @@ def phase_card_vs_cpu(model, dev, cfg) -> None:
     drift = float(np.quantile(err, 0.99)) / max(scale, 1e-9)
     agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
     ok = drift < DRIFT_Q99 and agree >= ARGMAX_AGREE
-    emit("card_vs_cpu", image_hw=list(CHECK_HW), q99_rel_drift=drift,
+    emit("card_vs_cpu" if label == "dinov2" else f"{label}_card_vs_cpu",
+         model=cfg["name"], image_hw=list(CHECK_HW), q99_rel_drift=drift,
          drift_limit=DRIFT_Q99, argmax_agreement=agree,
          agreement_limit=ARGMAX_AGREE, max_abs_err=float(err.max()),
          cpu_seconds=cpu_secs, ok=ok)
     if not ok:
-        raise AssertionError(f"card vs CPU: q99 drift {drift}, argmax "
-                             f"agreement {agree}")
+        raise AssertionError(f"{label} card vs CPU: q99 drift {drift}, "
+                             f"argmax agreement {agree}")
+
+
+def phase_main_breakdown(model, dev, cfg, label: str) -> None:
+    """One 1024x2048 image through ``predict``: the median wall time of 3
+    unprofiled calls (synchronised host clock), then the kernels' device
+    time over one profiled call."""
+    predict = make_shape_aware_predict_fn(model, cfg["test_cfg"])
+    img = synthetic_images(1, IMAGE_HW, SEED + 1).to(dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(model, img, IMAGE_HW)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    image_ms = float(np.median(walls))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        predict(model, img, IMAGE_HW)
+        torch.cuda.synchronize()
+    emit("main_breakdown" if label == "dinov2"
+         else f"{label}_main_breakdown", model=cfg["name"],
+         image_ms=image_ms, **_breakdown(prof, image_ms))
+
+
+def run_paths(dev, cfg, label: str, restore: bool) -> dict:
+    """One model's inference and train paths; returns each path's launch
+    counts."""
+    t0 = time.perf_counter()
+    model, counts = phase_main_path(dev, cfg, label)
+    phase_card_vs_cpu(model, dev, cfg, label)
+    phase_main_breakdown(model, dev, cfg, label)
+    del model
+    torch.cuda.empty_cache()
+    state, train_counts = phase_train_path(dev, cfg, label, restore)
+    phase_train_breakdown(dev, cfg, state, label)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    phase_train_card_vs_cpu(dev, cfg, label)
+    emit(f"{label}_paths_done", seconds=time.perf_counter() - t0)
+    return {f"{label}_inference": counts, f"{label}_train": train_counts}
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     summary = phase_kernels(dev) + phase_kernels_train(dev)
-    cfg = headline_config()
-    model, counts = phase_main_path(dev, cfg)
-    phase_card_vs_cpu(model, dev, cfg)
-    del model
-    torch.cuda.empty_cache()
-    state, train_counts = phase_train_path(dev, cfg)
-    phase_train_breakdown(dev, cfg, state)
-    del state
-    torch.cuda.empty_cache()
-    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
-    phase_train_card_vs_cpu(dev, cfg)
+    ln_eva02, eva02_rows = phase_kernels_eva02(dev)
+    summary += eva02_rows
+    ln = summary[0]
+    ln["max_abs_err"] = max([ln["max_abs_err"]]
+                            + [r["max_abs_err"] for r in ln_eva02])
+    ln["ms_at_2730"] = ln_eva02[0]["ms"]
+    by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
+    by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
     for row in summary:
-        # each kernel's count from the path that runs it
-        row["launches"] = counts[row["name"]] or train_counts[row["name"]]
-        row["launches_by_path"] = dict(inference=counts[row["name"]],
-                                       train=train_counts[row["name"]])
+        paths = {p: c[row["name"]] for p, c in by_path.items()}
+        row["launches"] = sum(paths.values())
+        row["launches_by_path"] = paths
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} never launched on a main "
+                                 f"path")
+    if sorted(r["name"] for r in summary) != sorted(KERNEL_NAMES):
+        raise AssertionError("the kernel summary does not list every kernel")
+    emit("done", seconds=time.perf_counter() - t_start)
     print(dev_info["smi"], flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,12 @@
 """The torch port's models against the JAX package's, on the CPU.
 
-Both sides build the headline structure at toy width from one config dict,
+Both sides build the headline structure (or, through ``toy_config(family=
+"eva02")``, the EVA02 one) at toy width from one config dict,
 and the port loads the JAX variables through ``state_dict_from_flax``. The
 variables are drawn from a numpy seed so that LoRA B, the BatchNorm
 statistics and every other leaf are non-trivial. fp32; the JAX
 side takes its plain paths on the CPU (xla_attention, _ln_reference).
 """
-
-import copy
 
 import jax
 import jax.numpy as jnp
@@ -19,20 +18,27 @@ from vfmseg_tpu.models.build import build_segmentor as jax_build_segmentor
 from vfmseg_tpu.models.segmentors.ms_vfm import MsVFMSegmentor as JaxMsVFM
 from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
 from vfmseg_tpu_torch.models.build import build_segmentor
-from vfmseg_tpu_torch.models.presets import headline_config
+from vfmseg_tpu_torch.models.presets import config
 from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
 
 ATOL = 1e-4
+# the ported configs by backbone family
+CONFIGS = {"dinov2": "dg_lora_dinov2_ms_masked",
+           "eva02": "dg_lora_eva02_ms_masked"}
 
 
-def toy_config(embed=64, depth=4, heads=4, rank=4, channels=32):
-    """The headline config with its widths cut: same structure, same
-    types."""
-    cfg = copy.deepcopy(headline_config())
+def toy_config(embed=64, depth=4, heads=4, rank=4, channels=32,
+               family="dinov2"):
+    """A ported config (the headline by default) with its widths cut: same
+    structure, same types. EVA02's RoPE keeps its pretraining grid equal to
+    the toy image's (64 / 16)."""
+    cfg = config(CONFIGS[family])
     m = cfg["model"]
     bb = m["backbone"]
     bb["backbone"].update(embed_dim=embed, depth=depth, num_heads=heads,
                           img_size=64, out_indices=list(range(depth))[-4:])
+    if family == "eva02":
+        bb["backbone"]["pt_hw_seq_len"] = 4
     bb["Lora_config"].update(r=rank, lora_alpha=2 * rank)
     m["decode_head"].update(in_channels=[embed] * 4, channels=channels)
     m["aux_head"].update(in_channels=[embed] * 4, channels=channels)

@@ -54,8 +54,8 @@ class TestLayerNorm:
         """Every shape branch of the TPU kernel (2D flatten, native 3D)
         against the plain port, fp32, atol 1e-5."""
         x = _np(1, shape)
-        w = _np(2, (96,), 0.1) + 1.0
-        b = _np(3, (96,), 0.1)
+        w = _np(2, shape[-1:], 0.1) + 1.0
+        b = _np(3, shape[-1:], 0.1)
         with pltpu.force_tpu_interpret_mode():
             pallas = np.asarray(_ln(jnp.asarray(x), jnp.asarray(w),
                                     jnp.asarray(b), 1e-6))
@@ -67,6 +67,14 @@ class TestLayerNorm:
             np.testing.assert_allclose(ours.numpy(), pallas, atol=1e-5,
                                        rtol=0)
             np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5, rtol=0)
+
+    @pytest.mark.parametrize("c", [341, 2730])
+    @pytest.mark.parametrize("lead", [(2, 65), (3, 5, 33)])
+    def test_any_width_matches_pallas_and_reference(self, lead, c):
+        """Widths off the CUDA kernel's vector path: an odd one and EVA02's
+        SwiGLU sub-LN (2730, above 2048), on the 2D and 3D branches of the
+        TPU kernel; fp32, atol 1e-5."""
+        self.test_matches_pallas_and_reference(lead + (c,))
 
     def test_module_casts_to_compute_dtype(self):
         """The module computes in its dtype and keeps fp32 parameters; bf16

@@ -1,9 +1,10 @@
 """The torch port's whole inference slice against the JAX package's.
 
-The headline structure at toy width runs the dense gated two-stage slide
-inference (``make_logits_fn(..., "ms_slide_inference")``) on both sides from
-the same weights: a 128x256 image, stage 1 at 64x128, 64-pixel crops at
-stride 32 (21 windows). The gate's threshold and conf are picked from the
+The headline structure at toy width, and the same segmentor on a toy EVA02
+backbone, run the dense gated two-stage slide inference
+(``make_logits_fn(..., "ms_slide_inference")``) on both sides from the same
+weights: a 128x256 image, stage 1 at 64x128, 64-pixel crops at stride 32
+(21 windows). EVA02 takes the fused-rope eval route on both sides. The gate's threshold and conf are picked from the
 JAX stage-1 output so that both gate outcomes occur, with margin on either
 side. fp32 on the CPU.
 """
@@ -28,7 +29,7 @@ from vfmseg_tpu_torch.eval.evaluator import (
     make_logits_fn,
     make_shape_aware_predict_fn,
 )
-from vfmseg_tpu_torch.models.presets import headline_config
+from vfmseg_tpu_torch.models.presets import eva02_config, headline_config
 from vfmseg_tpu_torch.ops.resize import resize
 
 IMG_HW = (128, 256)
@@ -54,9 +55,8 @@ def _gate(stage1, test_cfg):
             < test_cfg["conf"]).numpy()
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
-    cfg = toy_config()
+def _slice_pair(family):
+    cfg = toy_config(family=family)
     jmodel, variables = jax_model_and_variables(cfg, seed=1)
     model = port_model(cfg, variables)
     img = np.random.RandomState(5).standard_normal(
@@ -87,8 +87,17 @@ def slice_pair():
                 jax_stage1=np.asarray(stage1), jax_logits=jax_logits)
 
 
-def test_gated_slide_matches_jax(slice_pair):
-    s = slice_pair
+@pytest.fixture(scope="module")
+def slice_pair():
+    return _slice_pair("dinov2")
+
+
+@pytest.fixture(scope="module")
+def eva02_slice_pair():
+    return _slice_pair("eva02")
+
+
+def _check_gated_slide(s):
     test_cfg = s["test_cfg"]
     want = np.asarray(s["jax_logits"])
     with torch.inference_mode():
@@ -108,10 +117,19 @@ def test_gated_slide_matches_jax(slice_pair):
     assert agree >= 0.999, agree
 
 
-def test_predict_matches_jax(slice_pair):
-    """The per-image entry point: predict(model, img, out_hw) -> labels at
-    the label resolution, against JAX logits finished the same way."""
-    s = slice_pair
+def test_gated_slide_matches_jax(slice_pair):
+    """Logits at atol 1e-3, argmax agreement >= 99.9%, gate decisions
+    equal."""
+    _check_gated_slide(slice_pair)
+
+
+def test_gated_slide_matches_jax_eva02(eva02_slice_pair):
+    """As the headline's, on the EVA02 backbone (the RoPE attention's CPU
+    twin against JAX's rotation in XLA)."""
+    _check_gated_slide(eva02_slice_pair)
+
+
+def _check_predict(s):
     test_cfg = s["test_cfg"]
     out_hw = (96, 200)
     want = np.asarray(jax_finish(s["jax_logits"], out_hw))
@@ -119,6 +137,16 @@ def test_predict_matches_jax(slice_pair):
     got = predict(s["model"], torch.from_numpy(s["img"]), out_hw)
     assert got.dtype == torch.int32 and tuple(got.shape) == (1,) + out_hw
     assert float((got.numpy() == want).mean()) >= 0.999
+
+
+def test_predict_matches_jax(slice_pair):
+    """The per-image entry point: predict(model, img, out_hw) -> labels at
+    the label resolution, against JAX logits finished the same way."""
+    _check_predict(slice_pair)
+
+
+def test_predict_matches_jax_eva02(eva02_slice_pair):
+    _check_predict(eva02_slice_pair)
 
 
 def test_predict_pads_small_images_like_jax(slice_pair):
@@ -144,3 +172,16 @@ def test_headline_config_equals_jax_load_config():
                 "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
     assert ours["batch_size"] == jcfg["data"]["batch_size"]
+
+
+def test_eva02_config_equals_jax_load_config():
+    """dg_lora_eva02_ms_masked as data equals the JAX load_config, its
+    backbone (EVA02-L with LoRA on the reference target names) included."""
+    jcfg = load_config("dg_lora_eva02_ms_masked")
+    ours = eva02_config()
+    assert ours["name"] == jcfg["name"]
+    for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
+                "preprocessor", "optimizer", "schedule", "peft"):
+        assert ours[key] == jcfg[key], key
+    assert ours["batch_size"] == jcfg["data"]["batch_size"]
+    assert ours["model"]["backbone"]["backbone"]["type"] == "EVA2"

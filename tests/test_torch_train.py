@@ -91,11 +91,13 @@ def _flat(tree, prefix=()):
             yield "/".join(prefix + (k,)), np.asarray(v)
 
 
-def deterministic_config():
-    """The toy headline config with every dropout and the mask ratio at 0."""
-    cfg = toy_config()
+def deterministic_config(family="dinov2"):
+    """The toy config with every dropout, drop-path and the mask ratio at
+    0."""
+    cfg = toy_config(family=family)
     m = cfg["model"]
     m["backbone"]["Lora_config"]["lora_dropout"] = 0.0
+    m["backbone"]["backbone"]["drop_path_rate"] = 0.0
     m["decode_head"]["dropout_ratio"] = 0.0
     m["aux_head"]["dropout_ratio"] = 0.0
     m["aux_head"]["transformer"].update(dropout=0.0, mask_ratio=0.0)
@@ -310,10 +312,8 @@ def test_trainable_set_and_decay_mask_equal_jax():
     assert all("lora" in k for k in ours_paths if k.startswith("backbone/"))
 
 
-def test_flax_round_trip_is_exact():
-    """flax_from_state_dict inverts state_dict_from_flax on the training
-    init's whole tree (mask_token included), leaf for leaf."""
-    _jmodel, variables = jax_model_and_variables(toy_config())
+def _check_flax_round_trip(family):
+    _jmodel, variables = jax_model_and_variables(toy_config(family=family))
     back = flax_from_state_dict(state_dict_from_flax(variables))
     for col in ("params", "batch_stats"):
         want = dict(_flat(variables[col]))
@@ -323,6 +323,27 @@ def test_flax_round_trip_is_exact():
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert "aux_head/transformer_decoder/mask_token" in dict(
         _flat(variables["params"]))
+    return dict(_flat(variables["params"]))
+
+
+def test_flax_round_trip_is_exact():
+    """flax_from_state_dict inverts state_dict_from_flax on the training
+    init's whole tree (mask_token included), leaf for leaf."""
+    _check_flax_round_trip("dinov2")
+
+
+def test_flax_round_trip_is_exact_eva02():
+    """As the headline's, on the EVA02 tree: split q/k/v projections with
+    their LoRA factors (k without bias), the SwiGLU's w1/w2/w3 and its
+    ffn_ln, and no LayerScale."""
+    params = _check_flax_round_trip("eva02")
+    blk = "backbone/blocks_0/"
+    for leaf in ("attn/q_proj/lora_a", "attn/k_proj/lora_b",
+                 "attn/v_proj/bias", "attn/proj/lora_a", "mlp/w1/kernel",
+                 "mlp/w2/bias", "mlp/ffn_ln/scale", "mlp/w3/kernel"):
+        assert blk + leaf in params, leaf
+    assert blk + "attn/k_proj/bias" not in params
+    assert not any("/ls1/" in k or "/ls2/" in k for k in params)
 
 
 def test_poly_schedule_matches_jax():
@@ -347,18 +368,8 @@ def _patched_randint(values):
     return lambda *args, **kwargs: jnp.asarray(vals.pop(0), jnp.int32)
 
 
-def test_train_step_matches_jax():
-    """One whole train step from the same weights against the JAX
-    make_train_step, with dropout and the mask ratio at 0 and the crop box
-    fixed at (y1, x1) = (32, 0) on both sides: loss entries and grad_norm
-    (rtol 1e-4; accuracy within 2 pixels), every trainable gradient (atol
-    1e-4 of the largest) and the BatchNorm statistics (atol 1e-5). The
-    parameter updates agree within 2e-6 (2% of one Adam step at lr 1e-4)
-    wherever the gradient stands above 1e-6 of the largest; below that it
-    is rounding noise (a bias ahead of a one-channel GroupNorm group has an
-    exact gradient of 0), which Adam's first step scales to +-lr on either
-    side, so there both updates are only held to |update| <= lr (+ decay)."""
-    cfg = deterministic_config()
+def _check_train_step(family):
+    cfg = deterministic_config(family)
     jmodel, variables = jax_model_and_variables(cfg, seed=2)
     batch = _batch()
     trainable, frozen = partition_params(
@@ -431,6 +442,28 @@ def test_train_step_matches_jax():
         if "running" in name:
             np.testing.assert_allclose(own[name].numpy(), want.numpy(),
                                        atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_train_step_matches_jax():
+    """One whole train step from the same weights against the JAX
+    make_train_step, with dropout and the mask ratio at 0 and the crop box
+    fixed at (y1, x1) = (32, 0) on both sides: loss entries and grad_norm
+    (rtol 1e-4; accuracy within 2 pixels), every trainable gradient (atol
+    1e-4 of the largest) and the BatchNorm statistics (atol 1e-5). The
+    parameter updates agree within 2e-6 (2% of one Adam step at lr 1e-4)
+    wherever the gradient stands above 1e-6 of the largest; below that it
+    is rounding noise (a bias ahead of a one-channel GroupNorm group has an
+    exact gradient of 0), which Adam's first step scales to +-lr on either
+    side, so there both updates are only held to |update| <= lr (+ decay)."""
+    _check_train_step("dinov2")
+
+
+def test_train_step_matches_jax_eva02():
+    """As the headline's, on the EVA02 backbone with drop-path at 0: the
+    training route (per-slot projections, RoPE in PyTorch, the head-major
+    attention's autograd Function on its CPU twins) against JAX's
+    head-major route with the _flash_hm custom VJP; same bounds."""
+    _check_train_step("eva02")
 
 
 class TestRandomStreams:

@@ -1,5 +1,5 @@
 // Tile constants and mma.sync helpers shared by the attention kernels
-// (attention_qkv.cu, attention_qkv_bwd.cu).
+// (attention_qkv.cu, attention_qkv_bwd.cu, attention_hm.cu).
 //
 // Every attention kernel of the port works on head dim 64 in tiles of 64 rows
 // staged in shared memory with rows padded to 72 elements, and multiplies with
@@ -73,6 +73,36 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t ro
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
     *reinterpret_cast<uint4*>(dst + r * kRow + c) = v;
+  }
+}
+
+// Rotate rows [0, valid) of a staged 64 x 64 q or k tile by 2D RoPE in the
+// evens|odds layout (vfmseg_tpu/ops/rope.py): x <- x * cos + half_swap(x) * sin,
+// half_swap exchanging columns c and c + 32. cos/sin point at the tile's first
+// row of fp32 [N, 64] tables. fp32 arithmetic from bf16, rounded once to bf16;
+// each thread owns two column pairs (c, c+1) and (c+32, c+33) of one row, so it
+// reads both halves before it writes. Rows past `valid` are the zero fill and
+// stay zero.
+__device__ __forceinline__ void rope_tile(bf16* tile, const float* __restrict__ cos,
+                                          const float* __restrict__ sin, int valid, int tid) {
+  constexpr int kHalf = kHeadDim / 2;
+  constexpr int kUnits = kHalf / 2;  // column pairs per half row
+  for (int i = tid; i < kBlock * kUnits; i += kThreads) {
+    const int r = i / kUnits;
+    if (r >= valid) break;  // i grows with r
+    const int c = (i % kUnits) * 2;
+    __nv_bfloat162* lo = reinterpret_cast<__nv_bfloat162*>(tile + r * kRow + c);
+    __nv_bfloat162* hi = reinterpret_cast<__nv_bfloat162*>(tile + r * kRow + c + kHalf);
+    const float2 xl = __bfloat1622float2(*lo);
+    const float2 xh = __bfloat1622float2(*hi);
+    const float* cr = cos + static_cast<int64_t>(r) * kHeadDim + c;
+    const float* sr = sin + static_cast<int64_t>(r) * kHeadDim + c;
+    const float2 cl = *reinterpret_cast<const float2*>(cr);
+    const float2 ch = *reinterpret_cast<const float2*>(cr + kHalf);
+    const float2 sl = *reinterpret_cast<const float2*>(sr);
+    const float2 sh = *reinterpret_cast<const float2*>(sr + kHalf);
+    *lo = __floats2bfloat162_rn(xl.x * cl.x + xh.x * sl.x, xl.y * cl.y + xh.y * sl.y);
+    *hi = __floats2bfloat162_rn(xh.x * ch.x + xl.x * sh.x, xh.y * ch.y + xl.y * sh.y);
   }
 }
 

@@ -5,7 +5,16 @@
 //
 // * vfmseg_attention_qkv: _fwd_kernel_qkv_tav (launched by
 //   _flash_forward_qkv_tav_main, entry flash_attention_qkv_tm), the inference
-//   primal, without its RoPE variant;
+//   primal;
+// * vfmseg_attention_qkv_rope: the same kernel with rope=True, EVA02's
+//   inference attention. Two fp32 [N, 64] tables cos/sin in the evens|odds
+//   layout of vfmseg_tpu/ops/rope.py rotate q and k in shared memory
+//   (rope_tile, attention_common.cuh): the staged Q tile once before its mma
+//   fragments are read, each K tile after it lands, both from bf16 in fp32,
+//   rounded once to bf16. The TPU kernel folds scale * log2 e into q before
+//   rotating and rotates k in bf16 arithmetic; the port's numerics are those of
+//   its plain twin (ops/attention.py attention_qkv_rope_plain), which rotates
+//   both in fp32 and rounds.
 // * vfmseg_attention_qkv_fwd_lse: _fwd_kernel_qkv (launched by
 //   _flash_forward_qkv with with_lse=True, reached through
 //   _flash_qkv_tm_fwd_rule), the training forward. It also writes, per batch
@@ -61,12 +70,13 @@ namespace {
 
 using namespace vfmseg_attn;
 
-template <bool kWithLse>
+template <bool kWithLse, bool kRope>
 __global__ void __launch_bounds__(kThreads)
 attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int n, int heads, int stride_b, int stride_n,
-                     float scale_log2) {
+                     float* __restrict__ lse, const float* __restrict__ cos,
+                     const float* __restrict__ sin, int n, int heads, int stride_b,
+                     int stride_n, float scale_log2) {
   __shared__ __align__(16) bf16 sq[kBlock * kRow];
   __shared__ __align__(16) bf16 sk[kBlock * kRow];
   __shared__ __align__(16) bf16 sv[kBlock * kRow];
@@ -83,6 +93,11 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile(sq, q + head + static_cast<int64_t>(q0) * stride_n, stride_n, n - q0, tid);
   __syncthreads();
+  if constexpr (kRope) {
+    rope_tile(sq, cos + static_cast<int64_t>(q0) * kHeadDim, sin + static_cast<int64_t>(q0) * kHeadDim,
+              n - q0, tid);
+    __syncthreads();
+  }
 
   // A fragments of this warp's 16 query rows, one per 16-wide d chunk.
   uint32_t qa[kDChunks][4];
@@ -100,6 +115,11 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(sk, k + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
     load_tile(sv, v + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
     __syncthreads();
+    if constexpr (kRope) {
+      rope_tile(sk, cos + static_cast<int64_t>(k0) * kHeadDim,
+                sin + static_cast<int64_t>(k0) * kHeadDim, n - k0, tid);
+      __syncthreads();
+    }
 
     // S = Q.K^T for 16 rows x 64 keys.
     float s[kNTiles][4];
@@ -168,14 +188,15 @@ attention_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool kWithLse>
+template <bool kWithLse, bool kRope>
 int launch_forward(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int batch, int n, int heads, int stride_b, int stride_n, float scale,
-                   void* stream) {
+                   const void* cos, const void* sin, int batch, int n, int heads, int stride_b,
+                   int stride_n, float scale, void* stream) {
   const dim3 grid((n + kBlock - 1) / kBlock, heads, batch);
-  attention_qkv_kernel<kWithLse><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  attention_qkv_kernel<kWithLse, kRope><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, n, heads, stride_b, stride_n, scale * kLog2e);
+      static_cast<bf16*>(out), lse, static_cast<const float*>(cos),
+      static_cast<const float*>(sin), n, heads, stride_b, stride_n, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,8 +208,19 @@ int launch_forward(const void* q, const void* k, const void* v, void* out, float
 extern "C" int vfmseg_attention_qkv(const void* q, const void* k, const void* v, void* out,
                                     int batch, int n, int heads, int stride_b, int stride_n,
                                     float scale, void* stream) {
-  return launch_forward<false>(q, k, v, out, nullptr, batch, n, heads, stride_b, stride_n,
-                               scale, stream);
+  return launch_forward<false, false>(q, k, v, out, nullptr, nullptr, nullptr, batch, n, heads,
+                                      stride_b, stride_n, scale, stream);
+}
+
+// As vfmseg_attention_qkv, with q and k rotated by 2D RoPE: cos and sin are
+// contiguous fp32 [n, 64] tables in the evens|odds layout (identity rows for
+// the cls token), shared by every batch item and head.
+extern "C" int vfmseg_attention_qkv_rope(const void* q, const void* k, const void* v, void* out,
+                                         const void* cos, const void* sin, int batch, int n,
+                                         int heads, int stride_b, int stride_n, float scale,
+                                         void* stream) {
+  return launch_forward<false, true>(q, k, v, out, nullptr, cos, sin, batch, n, heads, stride_b,
+                                     stride_n, scale, stream);
 }
 
 // As vfmseg_attention_qkv, and lse: contiguous fp32 [batch, heads, n], the
@@ -197,8 +229,8 @@ extern "C" int vfmseg_attention_qkv_fwd_lse(const void* q, const void* k, const 
                                             void* out, void* lse, int batch, int n, int heads,
                                             int stride_b, int stride_n, float scale,
                                             void* stream) {
-  return launch_forward<true>(q, k, v, out, static_cast<float*>(lse), batch, n, heads,
-                              stride_b, stride_n, scale, stream);
+  return launch_forward<true, false>(q, k, v, out, static_cast<float*>(lse), nullptr, nullptr,
+                                     batch, n, heads, stride_b, stride_n, scale, stream);
 }
 
 // Text of a status code returned by any entry of this library.

@@ -6,17 +6,27 @@
 // then the mean of the centred squares (not E[x^2] - mean^2),
 // rsqrt(var + eps), an fp32 affine from fp32 weight and bias, and the store
 // in the input's dtype. The TPU needed two launch paths to keep unaligned token
-// counts off a re-tiling copy; here a row is a row, so one kernel takes any
-// [rows, C] with C a multiple of 8.
+// counts off a re-tiling copy; here a row is a row, so the kernels take any
+// [rows, C] with C >= 1.
 //
 // What bounds it: device memory. Each element is read once and written once
 // (4 bytes per element in bf16) against ~8 flops, far below the card's
 // ~295 flop/byte ridge.
 //
-// What the design does about it: one warp per row, each lane issuing 16-byte
-// loads and stores on neighbouring addresses; the row stays in registers
-// between the two statistics passes and the affine, so x crosses the bus
-// exactly once each way. Four rows per 128-thread block.
+// What the design does about it, in two paths picked per launch:
+//
+// * C a multiple of 8, at most 2048 (bf16) or 1024 (fp32), 16-byte aligned
+//   rows (the ViT's 1024 and the decoder's 256): one warp per row, each lane
+//   issuing 16-byte loads and stores on neighbouring addresses; the row stays
+//   in registers between the two statistics passes and the affine, so x
+//   crosses the bus exactly once each way. Four rows per 128-thread block.
+// * Any other C (EVA02's SwiGLU sub-LN is 2730 wide, so its rows are only
+//   4-byte aligned): one block per row, up to 256 threads striding the row
+//   with bf16x2 loads where the row is 4-byte aligned and scalar loads
+//   otherwise; block reductions through shared memory. The row is read three
+//   times (sum, centred squares, affine); the second and third reads hit L1,
+//   which holds the block's row (5.5 KB at 2730 bf16), so device memory still
+//   sees each element once each way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,6 +139,111 @@ layer_norm_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   }
 }
 
+// Sum of v over the block; `red` holds one float per warp. Every thread gets
+// the total.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // `red` is free: every thread has read the previous sum
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < warps; ++w) total += red[w];
+  return total;
+}
+
+// Two or one elements of T at p <-> floats.
+template <typename T, int kPair>
+struct Units;
+
+template <typename T>
+struct Units<T, 1> {
+  __device__ __forceinline__ static void load(const T* p, float (&out)[1]) {
+    out[0] = static_cast<float>(*p);
+  }
+  __device__ __forceinline__ static void store(T* p, const float (&in)[1]) {
+    *p = static_cast<T>(in[0]);
+  }
+};
+
+template <>
+struct Units<__nv_bfloat16, 1> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&out)[1]) {
+    out[0] = __bfloat162float(*p);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&in)[1]) {
+    *p = __float2bfloat16_rn(in[0]);
+  }
+};
+
+template <>
+struct Units<__nv_bfloat16, 2> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&out)[2]) {
+    float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&in)[2]) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(in[0], in[1]);
+  }
+};
+
+// One block per row of any width c; kPair elements per load (2 only for bf16
+// rows that are 4-byte aligned, i.e. c even and x, y 4-byte aligned).
+template <typename T, int kPair>
+__global__ void __launch_bounds__(256)
+layer_norm_row_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                      const float* __restrict__ bias, T* __restrict__ y, int c, float eps) {
+  __shared__ float red[8];
+  const T* xr = x + static_cast<int64_t>(blockIdx.x) * c;
+  T* yr = y + static_cast<int64_t>(blockIdx.x) * c;
+  const int units = c / kPair;  // c % kPair == 0 on this path
+  const float inv_c = 1.f / static_cast<float>(c);
+
+  float sum = 0.f;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    float v[kPair];
+    Units<T, kPair>::load(xr + u * kPair, v);
+#pragma unroll
+    for (int e = 0; e < kPair; ++e) sum += v[e];
+  }
+  const float mean = block_sum(sum, red) * inv_c;
+
+  float sq = 0.f;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    float v[kPair];
+    Units<T, kPair>::load(xr + u * kPair, v);
+#pragma unroll
+    for (int e = 0; e < kPair; ++e) {
+      const float d = v[e] - mean;
+      sq += d * d;
+    }
+  }
+  const float rstd = rsqrtf(block_sum(sq, red) * inv_c + eps);
+
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    float v[kPair];
+    Units<T, kPair>::load(xr + u * kPair, v);
+#pragma unroll
+    for (int e = 0; e < kPair; ++e) {
+      const int col = u * kPair + e;
+      v[e] = (v[e] - mean) * rstd * weight[col] + bias[col];
+    }
+    Units<T, kPair>::store(yr + u * kPair, v);
+  }
+}
+
+template <typename T, int kPair>
+int launch_rows(const T* x, const float* w, const float* b, T* y, int rows, int c, float eps,
+                cudaStream_t stream) {
+  const int units = c / kPair;
+  const int threads = units >= 256 ? 256 : ((units + 31) / 32) * 32;
+  layer_norm_row_kernel<T, kPair><<<rows, threads, 0, stream>>>(x, w, b, y, c, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* x, const void* weight, const void* bias, void* y, int rows,
            int c, float eps, cudaStream_t stream) {
@@ -140,23 +255,30 @@ int launch(const void* x, const void* weight, const void* bias, void* y, int row
   const float* wp = static_cast<const float*>(weight);
   const float* bp = static_cast<const float*>(bias);
   T* yp = static_cast<T*>(y);
-  if (vectors <= 32) {
-    layer_norm_kernel<T, 1><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
-  } else if (vectors <= 64) {
-    layer_norm_kernel<T, 2><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
-  } else if (vectors <= 128) {
-    layer_norm_kernel<T, 4><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
-  } else if (vectors <= 256) {
-    layer_norm_kernel<T, 8><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned16 = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (c % 8 == 0 && aligned16 && vectors <= 256) {
+    if (vectors <= 32) {
+      layer_norm_kernel<T, 1><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
+    } else if (vectors <= 64) {
+      layer_norm_kernel<T, 2><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
+    } else if (vectors <= 128) {
+      layer_norm_kernel<T, 4><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
+    } else {
+      layer_norm_kernel<T, 8><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, c, eps);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const bool aligned4 = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 4 == 0;
+  if constexpr (sizeof(T) == 2) {
+    if (c % 2 == 0 && aligned4) return launch_rows<T, 2>(xp, wp, bp, yp, rows, c, eps, stream);
+  }
+  return launch_rows<T, 1>(xp, wp, bp, yp, rows, c, eps, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x and y are contiguous [rows, c];
+// dtype: 0 = float32, 1 = bfloat16. x and y are contiguous [rows, c], any
+// c >= 1 and any element alignment;
 // weight and bias are contiguous float32 [c]. Returns a cudaError_t.
 extern "C" int vfmseg_layer_norm(const void* x, const void* weight, const void* bias,
                                  void* y, int rows, int c, float eps, int dtype,

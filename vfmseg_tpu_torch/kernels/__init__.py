@@ -30,6 +30,11 @@ LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
 # scale, stream
 ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_qkv.cu: q, k, v, out, cos, sin, batch, n, heads, stride_b,
+# stride_n, scale, stream
+ATTENTION_QKV_ROPE = Kernel("attention_qkv_rope", "vfmseg_attention_qkv_rope",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                             _P])
 
 # csrc/attention_qkv.cu: q, k, v, out, lse, batch, n, heads, stride_b,
 # stride_n, scale, stream
@@ -45,8 +50,24 @@ ATTENTION_BWD_DKV = Kernel("attention_bwd_dkv", "vfmseg_attention_bwd_dkv",
                            [_P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P])
 
-KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_FWD_LSE, ATTENTION_BWD_DQ,
-           ATTENTION_BWD_DKV)
+# csrc/attention_hm.cu: q, k, v, out, lse (or null), strides (int64 array:
+# batch, head, token of q, k, v, out), batch, heads, nq, nk, scale, stream
+ATTENTION_HM_FWD = Kernel("attention_hm_fwd", "vfmseg_attention_hm_fwd",
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])
+# csrc/attention_hm.cu: q, k, v, dout, lse, delta, dq, strides (q, k, v,
+# dout, dq), batch, heads, nq, nk, scale, stream
+ATTENTION_HM_DQ = Kernel("attention_hm_dq", "vfmseg_attention_hm_dq",
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _P])
+# csrc/attention_hm.cu: as above with dk, dv in place of dq (strides: q, k,
+# v, dout, dk, dv)
+ATTENTION_HM_DKV = Kernel("attention_hm_dkv", "vfmseg_attention_hm_dkv",
+                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _P])
+
+KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
+           ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
+           ATTENTION_HM_DQ, ATTENTION_HM_DKV)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -13,12 +13,16 @@ Two forms of ``y = x W + b + dropout(x) A B * (alpha / r)``:
 
 Parameters follow the torch (peft) orientation: ``weight`` [out, in],
 ``lora_a`` [r, in], ``lora_b`` [out, r].
+
+The reference configs name LoRA targets in each family's own module names;
+:func:`normalize_lora_targets` maps them onto the ViT's (the port's copy of
+vfmseg_tpu/models/backbones/clip.py:25-38).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,22 @@ from torch import nn
 
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.common import Dense
+
+
+# reference target_modules name -> the ViT's linear name (CLIP uses
+# out_proj/c_fc/c_proj, EVA02 attn.proj, SAM configs lin1/lin2)
+LORA_TARGET_ALIASES = {
+    "out_proj": "proj",
+    "attn.proj": "proj",
+    "mlp.c_fc": "fc1",
+    "mlp.c_proj": "fc2",
+    "lin1": "fc1",
+    "lin2": "fc2",
+}
+
+
+def normalize_lora_targets(targets: Sequence[str]) -> Tuple[str, ...]:
+    return tuple(LORA_TARGET_ALIASES.get(t, t) for t in targets)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
-"""DINOv2 ViT backbone builders.
+"""DINOv2 ViT backbone factory, the backbone table and the LoRA wrapper.
 
 Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
-config surface (configs/_base_/models/lora_dinov2_ms_masked.py) and build the
-ViT core of ``vit.py``.
+config surface (configs/_base_/models/lora_*_ms_masked.py) and build the ViT
+core of ``vit.py``; ``EVA2`` builds through ``eva02.py``.
 """
 
 from __future__ import annotations
@@ -11,8 +11,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
+from vfmseg_tpu_torch.models.backbones.adapters import (
+    LoRASpec,
+    normalize_lora_targets,
+)
+from vfmseg_tpu_torch.models.backbones.eva02 import build_eva02
 from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
+
+# the linears of the ported ViT that LoRA may target
+LORA_LINEARS = {"qkv", "q_proj", "k_proj", "v_proj", "proj", "fc1", "fc2"}
 
 
 def build_dinov2(
@@ -43,7 +50,7 @@ def build_dinov2(
     return VisionTransformer(cfg, lora=lora)
 
 
-_BACKBONES = {"DinoVisionTransformer": build_dinov2}
+_BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02}
 
 
 def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
@@ -64,15 +71,16 @@ def build_lora_backbone(backbone: dict, Lora_config: dict, checkpoint: str = "",
                         **extra) -> VisionTransformer:
     """Reference LoRABackbone (lora_backbone.py:12-24): the inner backbone
     with LoRA on its target linears. ``checkpoint`` is the converted
-    backbone file, loaded by the weight tooling and not at build time."""
+    backbone file, loaded by the weight tooling and not at build time. The
+    reference target names are normalised to the ViT's linears."""
     del checkpoint
     lora = LoRASpec(
         rank=Lora_config.get("r", 0),
         alpha=Lora_config.get("lora_alpha", 1.0),
         dropout=Lora_config.get("lora_dropout", 0.0),
-        targets=tuple(Lora_config.get("target_modules", ())),
+        targets=normalize_lora_targets(Lora_config.get("target_modules", ())),
     )
-    unknown = set(lora.targets) - {"qkv", "proj", "fc1", "fc2"}
+    unknown = set(lora.targets) - LORA_LINEARS
     if unknown:
         raise NotImplementedError(f"LoRA targets {sorted(unknown)} are not "
                                   "linears of the ported ViT")

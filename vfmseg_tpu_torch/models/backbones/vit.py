@@ -1,12 +1,32 @@
-"""Vision Transformer core, the DINOv2 inference path.
+"""Vision Transformer core: the DINOv2 and EVA02 paths.
 
-Port of vfmseg_tpu/models/backbones/vit.py:44-128, 164-201, 321-406 and
-409-580, restricted to the configuration the headline model uses: one fused
-qkv linear (optionally LoRA), no RoPE, no relative positions, no windows, an
-exact-erf GELU MLP, LayerScale, a learned cls token and position embedding
-(bicubic interpolation with DINOv2's +0.1 trick at other grid sizes), and
-pre-norm feature maps taken at ``out_indices``. Eval only: drop-path and the
-other families' options wait for their slices.
+Port of vfmseg_tpu/models/backbones/vit.py:44-128, 147-340 and 343-580,
+restricted to what the DINOv2-L and EVA02-L configs use: a learned cls token
+and position embedding (bicubic interpolation with DINOv2's +0.1 trick at
+other grid sizes), pre-norm blocks, optional LayerScale, drop-path in
+training, feature maps taken before any final norm at ``out_indices``, and
+two block families:
+
+* DINOv2 (``attn_type="fused"``, ``ffn_layer="mlp"``): one fused qkv linear
+  (optionally LoRA) read straight by the attention kernel, and an exact-erf
+  GELU MLP.
+* EVA02 (``attn_type="split_subln"``, ``ffn_layer="swiglu_eva"``,
+  ``use_rope``): separate q/k/v projections (k without bias), 2D RoPE on the
+  patch tokens, and the SwiGLU with its sub-LN over the hidden width. The
+  attention has two routes, as the JAX module does:
+
+  - *eval* (not training, no gradient wanted; vit.py:202-247): the three
+    projections' LoRA-folded weights concatenate into one ``[3E, E]``
+    product with the q/k rows permuted to the evens|odds RoPE layout, and
+    the rotation happens inside the fused-qkv attention kernel (B2-RoPE);
+  - *training* (vit.py:249-314): per-slot projections (LoRA sequential, with
+    dropout), the rotation in PyTorch with the natural tables, and the
+    head-major attention (B5 under autograd).
+
+The RoPE tables are built once per grid size and device and shared by every
+block, with identity rows for the cls token (vit.py:484-502). No relative
+positions, windows, Rein adapters or pyramid resizing: those belong to other
+families.
 
 Module and parameter names follow the flax tree (``blocks.<i>`` for
 ``blocks_<i>``), so ``weights.state_dict_from_flax`` maps one onto the other.
@@ -16,16 +36,31 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, make_dense
+from vfmseg_tpu_torch.models import rng
+from vfmseg_tpu_torch.models.backbones.adapters import (
+    LoRALinear,
+    LoRASpec,
+    make_dense,
+)
 from vfmseg_tpu_torch.models.common import Conv2d
-from vfmseg_tpu_torch.ops.attention import multi_head_attention_qkv_tm
+from vfmseg_tpu_torch.ops.attention import (
+    multi_head_attention_headmajor,
+    multi_head_attention_qkv_tm,
+)
 from vfmseg_tpu_torch.ops.norm import LayerNorm
+from vfmseg_tpu_torch.ops.rope import (
+    apply_rope,
+    evens_odds_perm,
+    permuted_rope_tables,
+    vit_rope_tables,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,9 +75,45 @@ class ViTConfig:
     qkv_bias: bool = True
     proj_bias: bool = True
     ffn_bias: bool = True
+    # "mlp" (DINOv2) or "swiglu_eva" (EVA02: w1/w2, sub-LN, w3)
+    ffn_layer: str = "mlp"
     init_values: Optional[float] = 1e-5  # LayerScale; None disables
+    drop_path_rate: float = 0.0
     ln_eps: float = 1e-6
+    # "fused" (one qkv linear) or "split_subln" (EVA02: q/k/v, k bias-free)
+    attn_type: str = "fused"
+    # EVA02 2D rotary embedding on the patch tokens' q/k
+    use_rope: bool = False
+    rope_pt_seq_len: int = 16
+    rope_intp_freq: bool = True
     dtype: torch.dtype = torch.float32
+
+
+class RopeTables(NamedTuple):
+    """fp32 ``[N, head_dim]`` tables over all tokens: natural (pairwise)
+    for the training route, evens|odds permuted for the kernel."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    cos_p: torch.Tensor
+    sin_p: torch.Tensor
+
+
+def _wants_grad(x: torch.Tensor, module: nn.Module) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Stochastic depth on a residual branch (vit.py:333-340): one keep draw
+    per sample from the ``dropout`` stream, kept samples scaled by
+    1 / (1 - rate); the identity outside training."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = rng.uniform("dropout", shape, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Mlp(nn.Module):
@@ -54,6 +125,22 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
+
+
+class SwiGLUEva(nn.Module):
+    """EVA02's SwiGLU: silu(w1 x) * (w2 x) -> sub-LN -> w3 (vit.py:147-161);
+    no LoRA."""
+
+    def __init__(self, dim: int, hidden: int, ln_eps: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.w1 = make_dense(dim, hidden, True, "w1", None, dtype)
+        self.w2 = make_dense(dim, hidden, True, "w2", None, dtype)
+        self.ffn_ln = LayerNorm(hidden, ln_eps, dtype)
+        self.w3 = make_dense(hidden, dim, True, "w3", None, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w3(self.ffn_ln(F.silu(self.w1(x)) * self.w2(x)))
 
 
 class Attention(nn.Module):
@@ -69,9 +156,91 @@ class Attention(nn.Module):
         self.proj = make_dense(dim, dim, cfg.proj_bias, "proj", lora,
                                cfg.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rope: Optional[RopeTables] = None) -> torch.Tensor:
+        if rope is not None:
+            raise NotImplementedError("RoPE with a fused qkv linear is not "
+                                      "ported")
         out = multi_head_attention_qkv_tm(self.qkv(x), self.num_heads)
         return self.proj(out)
+
+
+def _fp32_weight(lin: nn.Module) -> torch.Tensor:
+    """A projection's fp32 ``[out, in]`` weight, LoRA folded in."""
+    w = lin.weight.float()
+    if isinstance(lin, LoRALinear):
+        w = w + (lin.lora_b.float() @ lin.lora_a.float()) * lin.scaling
+    return w
+
+
+class SplitAttention(nn.Module):
+    """EVA02's attention: separate q/k/v projections, k without bias, 2D
+    RoPE on q and k, one proj (vit.py:164-318)."""
+
+    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec]):
+        super().__init__()
+        dim = cfg.embed_dim
+        self.num_heads = cfg.num_heads
+        self.dtype = cfg.dtype
+        self.q_proj = make_dense(dim, dim, cfg.qkv_bias, "q_proj", lora,
+                                 cfg.dtype)
+        self.k_proj = make_dense(dim, dim, False, "k_proj", lora, cfg.dtype)
+        self.v_proj = make_dense(dim, dim, cfg.qkv_bias, "v_proj", lora,
+                                 cfg.dtype)
+        self.proj = make_dense(dim, dim, cfg.proj_bias, "proj", lora,
+                               cfg.dtype)
+        self._fused: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._fused_key = None
+
+    def fused_qkv(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval route's ``[3E, E]`` weight and ``[3E]`` bias in the
+        compute dtype: LoRA folded in fp32, q and k rows in the evens|odds
+        layout, k's bias zero (vit.py:221-240).
+
+        Cached until a parameter of the three projections is written in
+        place (loading a state dict), moved, or the dtype changes."""
+        lins = (self.q_proj, self.k_proj, self.v_proj)
+        params = [p for lin in lins for p in lin.parameters()]
+        key = (self.dtype,) + tuple((p.device, p.data_ptr(), p._version)
+                                    for p in params)
+        if key != self._fused_key:
+            dim = self.q_proj.out_features
+            perm = torch.from_numpy(evens_odds_perm(
+                self.num_heads, dim // self.num_heads)).to(params[0].device)
+            wq, wk, wv = (_fp32_weight(lin) for lin in lins)
+            zeros = torch.zeros(dim, device=wq.device)
+
+            def bias(lin):
+                return zeros if lin.bias is None else lin.bias.float()
+
+            with torch.no_grad():
+                w = torch.cat([wq[perm], wk[perm], wv]).to(self.dtype)
+                b = torch.cat([bias(self.q_proj)[perm], zeros,
+                               bias(self.v_proj)]).to(self.dtype)
+            self._fused = (w, b)
+            self._fused_key = key
+        return self._fused
+
+    def forward(self, x: torch.Tensor,
+                rope: Optional[RopeTables] = None) -> torch.Tensor:
+        b, n, c = x.shape
+        h = self.num_heads
+        if rope is not None and not self.training and not _wants_grad(x,
+                                                                      self):
+            w, bias = self.fused_qkv()
+            qkv = F.linear(x.to(self.dtype), w, bias)
+            out = multi_head_attention_qkv_tm(qkv, h,
+                                              rope_cs=(rope.cos_p, rope.sin_p))
+            return self.proj(out)
+        q, k, v = (lin(x).reshape(b, n, h, c // h)
+                   for lin in (self.q_proj, self.k_proj, self.v_proj))
+        if rope is not None:
+            cos = rope.cos.to(q.dtype)[None, :, None, :]
+            sin = rope.sin.to(q.dtype)[None, :, None, :]
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        out = multi_head_attention_headmajor(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
 class LayerScale(nn.Module):
@@ -85,25 +254,44 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with LayerScale (dino_layers/block.py)."""
+    """Pre-LN transformer block with optional LayerScale and drop-path
+    (dino_layers/block.py; vit.py:343-406)."""
 
-    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec]):
+    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec],
+                 drop_path_rate: float = 0.0):
         super().__init__()
         dim = cfg.embed_dim
+        hidden = int(dim * cfg.mlp_ratio)
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, cfg.ln_eps, cfg.dtype)
-        self.attn = Attention(cfg, lora)
+        if cfg.attn_type == "fused":
+            self.attn = Attention(cfg, lora)
+        elif cfg.attn_type == "split_subln":
+            self.attn = SplitAttention(cfg, lora)
+        else:
+            raise NotImplementedError(f"attn_type={cfg.attn_type!r} is not "
+                                      f"ported")
         self.norm2 = LayerNorm(dim, cfg.ln_eps, cfg.dtype)
-        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), cfg.ffn_bias, lora,
-                       cfg.dtype)
+        if cfg.ffn_layer == "mlp":
+            self.mlp = Mlp(dim, hidden, cfg.ffn_bias, lora, cfg.dtype)
+        elif cfg.ffn_layer == "swiglu_eva":
+            self.mlp = SwiGLUEva(dim, hidden, cfg.ln_eps, cfg.dtype)
+        else:
+            raise NotImplementedError(f"ffn_layer={cfg.ffn_layer!r} is not "
+                                      f"ported")
         if cfg.init_values is not None:
             self.ls1 = LayerScale(dim, cfg.init_values, cfg.dtype)
             self.ls2 = LayerScale(dim, cfg.init_values, cfg.dtype)
         else:
             self.ls1 = self.ls2 = nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor,
+                rope: Optional[RopeTables] = None) -> torch.Tensor:
+        rate = self.drop_path_rate
+        h = self.ls1(self.attn(self.norm1(x), rope))
+        x = x + drop_path(h, rate, self.training)
+        h = self.ls2(self.mlp(self.norm2(x)))
+        return x + drop_path(h, rate, self.training)
 
 
 class VisionTransformer(nn.Module):
@@ -119,8 +307,11 @@ class VisionTransformer(nn.Module):
         n_grid = (cfg.img_size // cfg.patch_size) ** 2
         self.cls_token = nn.Parameter(torch.zeros(1, 1, e))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_grid + 1, e))
-        self.blocks = nn.ModuleList(Block(cfg, lora)
-                                    for _ in range(cfg.depth))
+        # drop-path rate grows linearly over the depth (vit.py:504-506)
+        self.blocks = nn.ModuleList(
+            Block(cfg, lora, cfg.drop_path_rate * i / max(cfg.depth - 1, 1))
+            for i in range(cfg.depth))
+        self._rope: Dict[tuple, RopeTables] = {}
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         cfg = self.cfg
@@ -130,12 +321,29 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + self.interpolated_pos_embed(gh, gw).to(x.dtype)
+        rope = self.rope_tables(gh, gw, x.device) if cfg.use_rope else None
         outs = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, rope)
             if i in cfg.out_indices:
                 outs.append(x[:, 1:, :].reshape(b, gh, gw, cfg.embed_dim))
         return tuple(outs)
+
+    def rope_tables(self, gh: int, gw: int,
+                    device: torch.device) -> RopeTables:
+        """The blocks' RoPE tables at a (gh, gw) grid on ``device``, built
+        once and kept."""
+        key = (gh, gw, device)
+        if key not in self._rope:
+            cfg = self.cfg
+            cos, sin = vit_rope_tables(
+                gh, gw, cfg.embed_dim // cfg.num_heads, 1,
+                cfg.rope_pt_seq_len, cfg.rope_intp_freq)
+            cos_p, sin_p = permuted_rope_tables(cos, sin)
+            self._rope[key] = RopeTables(*(
+                torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                for t in (cos, sin, cos_p, sin_p)))
+        return self._rope[key]
 
     def interpolated_pos_embed(self, gh: int, gw: int) -> torch.Tensor:
         """DINOv2's pos-embed at a (gh, gw) grid (dino_v2.py:184-215): torch

@@ -1,13 +1,18 @@
-"""Model and test config presets, and the headline config as data.
+"""Model and test config presets, and the ported configs as data.
 
-Port of the DINOv2 and MsVFM parts of vfmseg_tpu/models/presets.py. The
-repo's config files import the JAX package, so the port carries the headline
-config (configs/dg/gta2citys/dg_lora_dinov2_ms_masked.py over
-configs/_base_/models/lora_dinov2_ms_masked.py) as data in
-:func:`headline_config`; a test holds it equal to the JAX ``load_config``.
+Port of the DINOv2, EVA02 and MsVFM parts of vfmseg_tpu/models/presets.py.
+The repo's config files import the JAX package, so the port carries its
+configs as data: the headline (configs/dg/gta2citys/dg_lora_dinov2_ms_masked.py
+over configs/_base_/models/lora_dinov2_ms_masked.py) in
+:func:`headline_config`, and the same MsVFM segmentor on a LoRA EVA02-L
+backbone (configs/dg/gta2citys/dg_lora_eva02_ms_masked.py) in
+:func:`eva02_config`; :func:`config` looks either up by name. Tests hold
+each equal to the JAX ``load_config``.
 """
 
 from __future__ import annotations
+
+import copy
 
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
@@ -17,6 +22,7 @@ PREPROCESSOR = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, pad_val=0,
 
 DINOV2_CHECKPOINT = "checkpoints/dinov2_converted.npz"
 DINOV2_DIM = 1024
+EVA02_CHECKPOINT = "checkpoints/eva02_converted.npz"
 
 
 def dinov2_l(img_size: int = 512) -> dict:
@@ -33,6 +39,29 @@ def lora_dinov2(img_size: int = 512, r: int = 32) -> dict:
         backbone=dinov2_l(img_size),
         checkpoint=DINOV2_CHECKPOINT,
         Lora_config=dict(r=r, lora_alpha=r, target_modules=["qkv"],
+                         lora_dropout=0.1),
+    )
+
+
+def eva02_l(img_size: int = 512) -> dict:
+    return dict(
+        type="EVA2", patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+        mlp_ratio=2.6666666666666665, img_size=img_size, init_values=None,
+        drop_path_rate=0.1, rope=True, pt_hw_seq_len=16, intp_freq=True,
+        subln=True, naiveswiglu=True, use_abs_pos_emb=True,
+        out_indices=[7, 11, 15, 23])
+
+
+def lora_eva02(img_size: int = 512, r: int = 32) -> dict:
+    """LoRABackbone wrapper dict with EVA02's reference targets (its own
+    module names; ``attn.proj`` is normalised to ``proj`` at build)."""
+    return dict(
+        type="LoRABackbone",
+        backbone=eva02_l(img_size),
+        checkpoint=EVA02_CHECKPOINT,
+        Lora_config=dict(r=r, lora_alpha=r,
+                         target_modules=["q_proj", "k_proj", "v_proj",
+                                         "attn.proj"],
                          lora_dropout=0.1),
     )
 
@@ -93,3 +122,24 @@ def headline_config() -> dict:
         batch_size=2,
         compute=dict(dtype="bfloat16", attn_impl="auto"),
     )
+
+
+def eva02_config() -> dict:
+    """dg_lora_eva02_ms_masked: the headline config with its backbone
+    replaced by LoRA EVA02-L (the config's ``_delete_``); heads, test,
+    training and compute settings are the headline's."""
+    cfg = copy.deepcopy(headline_config())
+    cfg["name"] = "dg_lora_eva02_ms_masked"
+    cfg["model"]["backbone"] = lora_eva02(img_size=512)
+    return cfg
+
+
+CONFIGS = {"dg_lora_dinov2_ms_masked": headline_config,
+           "dg_lora_eva02_ms_masked": eva02_config}
+
+
+def config(name: str) -> dict:
+    """A ported config by its name in configs/."""
+    if name not in CONFIGS:
+        raise NotImplementedError(f"config {name!r} is not ported")
+    return CONFIGS[name]()

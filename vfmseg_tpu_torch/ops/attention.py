@@ -2,37 +2,48 @@
 with its backward.
 
 Port of vfmseg_tpu/ops/attention.py:31-57 (``xla_attention``), :194-235
-(``multi_head_attention_qkv_tm``) and the same-shape route of :272-314
+(``multi_head_attention_qkv_tm``, with its ``rope_cs``), :238-269
+(``multi_head_attention_headmajor`` without the bias branch) and :272-314
 (``multi_head_attention``), whose TPU kernels are ``flash_attention_qkv_tm``
-and its custom VJP ``_flash_qkv_tm`` (vfmseg_tpu/ops/flash_attention.py:
-1579-1663).
+with its custom VJP ``_flash_qkv_tm`` and ``flash_attention_headmajor`` with
+``_flash_hm`` (vfmseg_tpu/ops/flash_attention.py:1579-1663, 1775-1814).
 
 * :func:`attention_plain` is the plain PyTorch version: fp32 logits and
   softmax, probabilities cast to v's dtype before the product with v.
   :func:`attention_fwd_lse_plain` adds the log-sum-exp of the scaled logits,
   and :func:`attention_bwd_plain` is the backward that recomputes the
-  probabilities from it, on whole tensors.
-* :func:`attention_qkv_tm` launches the inference kernel
-  (``csrc/attention_qkv.cu``, B2), :func:`attention_fwd_lse_tm` the training
-  forward that also writes the LSE (same file, B3), and
-  :func:`attention_bwd_dq_tm` / :func:`attention_bwd_dkv_tm` the two
-  backward kernels (``csrc/attention_qkv_bwd.cu``, B4), on bf16
-  ``[B, N, H*64]`` views.
-* :func:`multi_head_attention_qkv_tm` and :func:`multi_head_attention` pick:
-  when grad is enabled and an input requires it, the autograd Functions
-  :class:`FusedQKVAttention` / :class:`QKVAttention` (B3 forward, B4
-  backward on CUDA; the LSE twins on the CPU), as the JAX package takes its
-  forward rule under differentiation; otherwise the inference kernel on
-  CUDA and :func:`attention_plain` on the CPU. Nothing falls back from a
-  kernel to a plain version.
+  probabilities from it, on whole tensors. :func:`attention_qkv_rope_plain`
+  rotates q and k by RoPE first.
+* Kernels, on bf16 views with head dim 64:
 
-Layouts are the JAX package's: ``[B, N, H, D]`` per head, ``[B, N, 3*H*D]``
-for a fused qkv projection (q|k|v thirds, head-contiguous), and token-major
-``[B, N, H*D]`` output. The LSE is ``[B, H, N]`` fp32, natural log.
+  - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2), and
+    :func:`attention_qkv_rope_tm`, its RoPE variant (EVA02 inference);
+  - :func:`attention_fwd_lse_tm` (same file, B3), the training forward
+    with the LSE, and :func:`attention_bwd_dq_tm` /
+    :func:`attention_bwd_dkv_tm` (``csrc/attention_qkv_bwd.cu``, B4), all
+    over ``[B, N, H*64]`` views of one stride pair;
+  - :func:`attention_hm_fwd`, :func:`attention_hm_dq` and
+    :func:`attention_hm_dkv` (``csrc/attention_hm.cu``, B5), general
+    attention over ``[B, H, N, 64]`` views with their own strides and
+    Nq != Nk.
+* :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`
+  and :func:`multi_head_attention` pick: when grad is enabled and an input
+  requires it, the autograd Functions :class:`FusedQKVAttention` /
+  :class:`QKVAttention` (B3 forward, B4 backward on CUDA) or
+  :class:`HeadMajorAttention` (B5), with the LSE twins on the CPU, as the JAX
+  package takes its forward rules under differentiation; otherwise the
+  inference kernels on CUDA and the plain versions on the CPU. Nothing falls
+  back from a kernel to a plain version.
+
+Layouts are the JAX package's: ``[B, N, H, D]`` per head, ``[B, H, N, D]``
+head-major, ``[B, N, 3*H*D]`` for a fused qkv projection (q|k|v thirds,
+head-contiguous), and token-major ``[B, N, H*D]`` output. The LSE is
+``[B, H, N]`` fp32, natural log.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -41,8 +52,13 @@ from vfmseg_tpu_torch.kernels import (
     ATTENTION_BWD_DKV,
     ATTENTION_BWD_DQ,
     ATTENTION_FWD_LSE,
+    ATTENTION_HM_DKV,
+    ATTENTION_HM_DQ,
+    ATTENTION_HM_FWD,
     ATTENTION_QKV,
+    ATTENTION_QKV_ROPE,
 )
+from vfmseg_tpu_torch.ops.rope import apply_rope_permuted
 
 HEAD_DIM = 64  # the only head dim the attention kernels take
 _INT_MAX = 2**31 - 1
@@ -59,6 +75,20 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
+
+
+def attention_qkv_rope_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, cos: torch.Tensor,
+                             sin: torch.Tensor, *,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`attention_plain` after rotating q and k by RoPE in the
+    evens|odds layout (``apply_rope_permuted``) in fp32 and rounding them
+    back to their dtype. q, k, v: [B, N, H, D]; cos, sin: [N, D]."""
+    c = cos.float()[None, :, None, :]
+    s = sin.float()[None, :, None, :]
+    qr = apply_rope_permuted(q.float(), c, s).to(q.dtype)
+    kr = apply_rope_permuted(k.float(), c, s).to(k.dtype)
+    return attention_plain(qr, kr, v, scale=scale)
 
 
 def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
@@ -150,6 +180,29 @@ def attention_qkv_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ATTENTION_QKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, n, num_heads, stride_b, stride_n, float(scale),
                   _stream(q))
+    return out
+
+
+def attention_qkv_rope_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cos: torch.Tensor, sin: torch.Tensor,
+                          num_heads: int, scale: float) -> torch.Tensor:
+    """Launch the RoPE variant of the inference kernel: q, k, v as
+    :func:`attention_qkv_tm` takes them, in the evens|odds layout; cos, sin:
+    contiguous fp32 ``[N, 64]`` tables on the same card."""
+    b, n, stride_b, stride_n = _strided_views("attention_qkv_rope_tm",
+                                              num_heads, q, k, v)
+    for name, t in (("cos", cos), ("sin", sin)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n, HEAD_DIM)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"attention_qkv_rope_tm needs a contiguous fp32 "
+                             f"{name} of shape {(n, HEAD_DIM)} on {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    ATTENTION_QKV_ROPE(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), cos.data_ptr(), sin.data_ptr(), b, n,
+                       num_heads, stride_b, stride_n, float(scale),
+                       _stream(q))
     return out
 
 
@@ -308,20 +361,212 @@ class QKVAttention(torch.autograd.Function):
         return grads[0], grads[1], grads[2], None, None
 
 
+def _hm_strides_ok(t: torch.Tensor) -> bool:
+    """B5 reads a view as it is: unit head-dim stride, other strides
+    multiples of 8 (16-byte rows) and 16-byte aligned data."""
+    return (t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _hm_views(fn: str, *views: torch.Tensor):
+    """Check bf16 CUDA ``[B, H, N, 64]`` views on one device, unit stride
+    along the head dim, other strides multiples of 8 and 16-byte aligned
+    data; return their (batch, head, token) strides as the int64 array the
+    B5 entries read."""
+    first = views[0]
+    for t in views:
+        if not t.is_cuda:
+            raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{fn} takes bf16, got {t.dtype}")
+        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
+            raise ValueError(f"{fn} takes [B, H, N, {HEAD_DIM}] views, got "
+                             f"{tuple(t.shape)}")
+        if t.device != first.device or t.shape[:2] != first.shape[:2]:
+            raise ValueError(f"{fn} needs views of one batch and head count "
+                             f"on one device")
+        if not _hm_strides_ok(t):
+            raise ValueError(f"{fn} needs unit head-dim stride, strides that "
+                             f"are multiples of 8 and 16-byte aligned data, "
+                             f"got {t.stride()}")
+    b, h, _, _ = first.shape
+    if b > 65535 or h > 65535 or max(t.shape[2] for t in views) > _INT_MAX:
+        raise ValueError(f"{fn}: shape {tuple(first.shape)} exceeds the "
+                         f"launch limits")
+    vals = [st for t in views for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _hm_rows(fn: str, t: torch.Tensor, shape) -> None:
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device.type != "cuda"):
+        raise ValueError(f"{fn} needs contiguous fp32 rows of shape "
+                         f"{tuple(shape)} on the card")
+
+
+def _hm_out(like: torch.Tensor, n: int) -> torch.Tensor:
+    """A ``[B, H, n, D]`` view of a new token-major ``[B, n, H, D]``
+    tensor: the layout the proj matmul reads after a transpose."""
+    b, h, _, d = like.shape
+    return torch.empty((b, n, h, d), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def attention_hm_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, with_lse: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch B5's forward on bf16 CUDA ``[B, H, Nq, 64]`` q and
+    ``[B, H, Nk, 64]`` k, v views (each with its own strides). Returns (out:
+    a ``[B, H, Nq, 64]`` view of a token-major tensor, lse: contiguous fp32
+    ``[B, H, Nq]`` or None)."""
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    if k.shape != v.shape:
+        raise ValueError("attention_hm_fwd needs k and v of one shape")
+    out = _hm_out(q, nq)
+    strides = _hm_views("attention_hm_fwd", q, k, v, out)
+    lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0 or nk == 0:
+        return out, lse
+    ATTENTION_HM_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr() if with_lse else None,
+                     ctypes.addressof(strides), b, h, nq, nk, float(scale),
+                     _stream(q))
+    return out, lse
+
+
+def attention_hm_dq(q, k, v, dout, lse, delta, scale: float,
+                    dq: torch.Tensor) -> None:
+    """Launch B5's dq kernel: q, k, v as the forward took them; dout and dq
+    ``[B, H, Nq, 64]`` views; lse and delta contiguous fp32 ``[B, H, Nq]``."""
+    b, h, nq, _ = q.shape
+    strides = _hm_views("attention_hm_dq", q, k, v, dout, dq)
+    for t in (lse, delta):
+        _hm_rows("attention_hm_dq", t, (b, h, nq))
+    if q.numel() == 0 or k.shape[2] == 0:
+        return
+    ATTENTION_HM_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                    ctypes.addressof(strides), b, h, nq, k.shape[2],
+                    float(scale), _stream(q))
+
+
+def attention_hm_dkv(q, k, v, dout, lse, delta, scale: float,
+                     dk: torch.Tensor, dv: torch.Tensor) -> None:
+    """Launch B5's dk/dv kernel; arguments as :func:`attention_hm_dq`,
+    writing dk and dv, ``[B, H, Nk, 64]`` views."""
+    b, h, nq, _ = q.shape
+    strides = _hm_views("attention_hm_dkv", q, k, v, dout, dk, dv)
+    for t in (lse, delta):
+        _hm_rows("attention_hm_dkv", t, (b, h, nq))
+    if k.numel() == 0:
+        return
+    ATTENTION_HM_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
+                     b, h, nq, k.shape[2], float(scale), _stream(q))
+
+
+def _hm_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if B5 takes its strides as they are, else a contiguous copy."""
+    return t if _hm_strides_ok(t) else t.contiguous()
+
+
+def _tok(t: torch.Tensor) -> torch.Tensor:
+    return t.transpose(1, 2)  # [B, H, N, D] <-> [B, N, H, D]
+
+
+class HeadMajorAttention(torch.autograd.Function):
+    """Training attention over head-major ``[B, H, N, D]`` views (port of
+    ``_flash_hm_fwd_rule`` / ``_flash_hm_bwd_rule``): B5's forward with the
+    LSE, then its dq and dk/dv kernels, on CUDA; the LSE twins on the CPU.
+    The gradients come back in the layout of q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.is_cuda:
+            out, lse = attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale)
+        else:
+            out, lse = attention_fwd_lse_plain(_tok(q), _tok(k), _tok(v),
+                                               scale=scale)
+            out = _tok(out)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if not q.is_cuda:
+            grads = attention_bwd_plain(_tok(q), _tok(k), _tok(v), _tok(out),
+                                        lse, _tok(dout), scale=ctx.scale)
+            return tuple(_tok(g) for g in grads) + (None,)
+        q, k, v = map(_hm_layout, (q, k, v))
+        dout = _hm_layout(dout)
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        attention_hm_dq(q, k, v, dout, lse, delta, ctx.scale, dq)
+        attention_hm_dkv(q, k, v, dout, lse, delta, ctx.scale, dk, dv)
+        return dq, dk, dv, None
+
+
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def multi_head_attention_headmajor(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, *,
+                                   scale: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """MHA over head-major ``[B, H, Nq, D]`` q and ``[B, H, Nk, D]`` k/v
+    views; returns ``[B, H, Nq, D]``. Under differentiation
+    :class:`HeadMajorAttention`; otherwise B5's forward without the LSE on
+    CUDA and :func:`attention_plain` on the CPU."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"attention on {q.device}")
+    if _wants_grad(q, k, v):
+        return HeadMajorAttention.apply(q, k, v, scale)
+    if q.is_cuda:
+        return attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale,
+                                with_lse=False)[0]
+    return _tok(attention_plain(_tok(q), _tok(k), _tok(v), scale=scale))
+
+
 def multi_head_attention_qkv_tm(qkv: torch.Tensor, num_heads: int, *,
-                                scale: Optional[float] = None) -> torch.Tensor:
+                                scale: Optional[float] = None,
+                                rope_cs: Optional[Tuple[torch.Tensor,
+                                                        torch.Tensor]] = None
+                                ) -> torch.Tensor:
     """MHA off a fused qkv projection [B, N, 3*H*D], returning token-major
-    [B, N, H*D]."""
+    [B, N, H*D].
+
+    rope_cs: optional fp32 (cos, sin) ``[N, D]`` tables in the evens|odds
+    layout (``ops/rope.py``); q and k then rotate inside the kernel (or in
+    :func:`attention_qkv_rope_plain` on the CPU), and the caller must have
+    permuted the q/k projection columns to match. Inference only, as in the
+    JAX package: training takes the head-major route."""
     b, n, f = qkv.shape
     d = f // (3 * num_heads)
     if scale is None:
         scale = d ** -0.5
     if qkv.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"attention on {qkv.device}")
+    if rope_cs is not None:
+        if _wants_grad(qkv):
+            raise NotImplementedError(
+                "the RoPE fused-qkv attention is inference only; training "
+                "takes the head-major route")
+        cos, sin = rope_cs
+        if qkv.device.type == "cuda":
+            return attention_qkv_rope_tm(*_thirds(qkv), cos, sin, num_heads,
+                                         scale)
+        qkv_r = qkv.reshape(b, n, 3, num_heads, d)
+        out = attention_qkv_rope_plain(qkv_r[:, :, 0], qkv_r[:, :, 1],
+                                       qkv_r[:, :, 2], cos, sin, scale=scale)
+        return out.reshape(b, n, num_heads * d)
     if _wants_grad(qkv):
         return FusedQKVAttention.apply(qkv, num_heads, scale)
     if qkv.device.type == "cuda":
@@ -336,20 +581,20 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None) -> torch.Tensor:
     """MHA over [B, N, H, D] q and [B, Nk, H, D] k/v; returns [B, N, H, D].
 
-    On CUDA only the matched-shape case runs (the decoder's self- and
-    cross-attention at equal lengths), on the same kernels as the ViT, read
-    from three separate tensors. The general kernel for Nq != Nk is not
-    ported yet, so that case raises there; on the CPU it takes the plain
-    version, differentiated by autograd."""
+    Matched shapes (the decoder's self- and cross-attention at equal
+    lengths) run on the same kernels as the ViT (B2, or B3/B4 under
+    differentiation), read from three separate tensors. Other shapes run on
+    B5 through :func:`multi_head_attention_headmajor` on CUDA or under
+    differentiation, as the JAX package takes ``flash_attention`` there;
+    otherwise the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"attention on {q.device}")
     matched = q.shape == k.shape == v.shape
-    if q.device.type == "cuda" and not matched:
-        raise NotImplementedError(
-            "CUDA attention needs matched q/k/v shapes; the general flash "
-            "kernel for Nq != Nk is not ported")
+    if not matched and (q.device.type == "cuda" or _wants_grad(q, k, v)):
+        return _tok(multi_head_attention_headmajor(_tok(q), _tok(k), _tok(v),
+                                                   scale=scale))
     if matched and (q.device.type == "cuda" or _wants_grad(q, k, v)):
         b, n, h, d = q.shape
         q3, k3, v3 = (t.reshape(b, n, h * d) for t in (q, k, v))
