@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one CUDA card and check them:
 the gated inference and the two-scale train step of the headline model
-(LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L.
+(LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L and on LoRA
+SAM ViT-H.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -28,30 +29,39 @@ Phases, each printing one JSON line:
    (B5: forward with LSE, dq, dk/dv) at the EVA02 train path's shape over
    token-major strided views and at a ragged Nq != Nk case, which
    ``multi_head_attention`` must route to B5.
-6. main_path / eva02_main_path: each model at full width with seeded
-   weights in bf16, through ``predict`` on 3 synthetic 1024x2048 images;
-   launch counts per kernel, asserted per image (no training kernel may
-   launch), latency, images/s and peak memory.
-7. card_vs_cpu / eva02_card_vs_cpu: one 512x1024 image through the gated
-   slide logits on the card (bf16) and on the CPU (fp32, plain path), same
-   seeded weights; then main_breakdown / eva02_main_breakdown: one more
-   image through ``predict`` under ``torch.profiler`` for the kernels'
-   device time, against the synchronised wall time of unprofiled images.
-8. train_path / eva02_train_path: each model at full width in training mode
-   (bf16 compute, fp32 master weights, LoRA, both heads; EVA02 with
-   drop-path 0.1 and LoRA dropout 0.1), batch 2 of synthetic 1024x1024
-   crops through ``InfiniteLoader`` and ``train_loop`` for 8 steps (DINOv2:
-   checkpoints at steps 4 and 8, then a fresh state restored from step 8);
-   launch counts asserted per step, per-step latency, steady steps/s and
-   peak memory.
-9. train_breakdown / eva02_train_breakdown: one more step split by CUDA
-   events into forward, backward and optimizer, and a ``torch.profiler``
-   pass over one step for the kernels' device time and the idle share.
-10. train_card_vs_cpu / eva02_train_card_vs_cpu: one train step of the
-   full-width model at 256x256 (HR crop 128) on the card in bf16 and on the
-   CPU in fp32, same seeded weights and crop box, dropout, drop-path and
-   mask ratio 0: loss entries, the cosine of the flattened LoRA gradients,
-   and the LoRA gradient norm and ``grad_norm``.
+6. kernels_sam: the rel-pos attention (B7) at the six shapes of SAM's
+   paths (windowed and global blocks of stage 1, the refine batch and the
+   train step; head dim 80, q, k, v strided views of one fused qkv tensor,
+   rel terms from ``decomposed_rel_pos_terms_hm``) and at a head-dim-64
+   case off the path, against ``attention_decomposed_plain``; then B5's
+   forward entry with the LSE off, which computes B6's function, timed at
+   (18, 16, 1025) against ``attention_plain``, SDPA and its bound.
+7. main_path / eva02_main_path / sam_main_path: each model at full width
+   with seeded weights in bf16, built on the card, through ``predict`` on 3
+   synthetic 1024x2048 images; launch counts per kernel, asserted per image
+   (no training kernel may launch), latency, images/s and peak memory.
+8. card_vs_cpu / eva02_card_vs_cpu / sam_card_vs_cpu: one 512x1024 image
+   through the gated slide logits on the card (bf16) and on the CPU (fp32,
+   plain path), same seeded weights; then main_breakdown /
+   eva02_main_breakdown / sam_main_breakdown: one more image through
+   ``predict`` under ``torch.profiler`` for the kernels' device time,
+   against the synchronised wall time of unprofiled images.
+9. train_path / eva02_train_path / sam_train_path: each model at full
+   width in training mode (bf16 compute, fp32 master weights, LoRA, both
+   heads; EVA02 with drop-path 0.1, LoRA dropout 0.1 in every config),
+   batch 2 of synthetic 1024x1024 crops through ``InfiniteLoader`` and
+   ``train_loop`` for 8 steps (DINOv2: checkpoints at steps 4 and 8, then a
+   fresh state restored from step 8); launch counts asserted per step,
+   per-step latency, steady steps/s and peak memory.
+10. train_breakdown / eva02_train_breakdown / sam_train_breakdown: one
+   more step split by CUDA events into forward, backward and optimizer, and
+   a ``torch.profiler`` pass over one step for the kernels' device time and
+   the idle share.
+11. train_card_vs_cpu / eva02_train_card_vs_cpu / sam_train_card_vs_cpu:
+   one train step of the full-width model at 256x256 (HR crop 128) on the
+   card in bf16 and on the CPU in fp32, same seeded weights and crop box,
+   dropout, drop-path and mask ratio 0: loss entries, the cosine of the
+   flattened LoRA gradients, and the LoRA gradient norm and ``grad_norm``.
 
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
@@ -92,17 +102,20 @@ from vfmseg_tpu_torch.eval.slide import (
     confident_mask,
     extract_crops,
 )
+from vfmseg_tpu_torch.kernels.time_relpos import SHAPES as RELPOS_SHAPES
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.build import build_segmentor, compute_dtype
 from vfmseg_tpu_torch.models.presets import (
     PREPROCESSOR,
     eva02_config,
     headline_config,
+    sam_config,
 )
 from vfmseg_tpu_torch.ops.attention import (
     attention_bwd_dkv_tm,
     attention_bwd_dq_tm,
     attention_bwd_plain,
+    attention_decomposed_plain,
     attention_delta,
     attention_fwd_lse_plain,
     attention_fwd_lse_tm,
@@ -113,6 +126,7 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_qkv_rope_plain,
     attention_qkv_rope_tm,
     attention_qkv_tm,
+    attention_relpos_hm,
     multi_head_attention,
 )
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda, layer_norm_plain
@@ -121,6 +135,10 @@ from vfmseg_tpu_torch.ops.rope import (
     apply_rope_permuted,
     permuted_rope_tables,
     vit_rope_tables,
+)
+from vfmseg_tpu_torch.ops.window import (
+    decomposed_rel_pos_bias_hm,
+    decomposed_rel_pos_terms_hm,
 )
 from vfmseg_tpu_torch.train.checkpoint import CheckpointManager
 from vfmseg_tpu_torch.train.loop import train_loop
@@ -154,6 +172,7 @@ KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
                  ("attention_qkv", "attention_qkv_kernel<false, false>"),
                  ("attention_qkv_rope", "attention_qkv_kernel<false, true>"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
+                 ("attention_relpos", "attention_relpos_kernel"),
                  ("layer_norm", "layer_norm")]
 
 
@@ -161,18 +180,22 @@ def _counts(**nonzero) -> dict:
     return {name: nonzero.get(name, 0) for name in KERNEL_NAMES}
 
 
-# Each path's launches per 1024x2048 image: stage-1 ViT (24 blocks), refine
-# ViT over all 18 crops in one batch (24 blocks), VFMHead decoder (3 blocks,
-# self- and cross-attention); DINOv2 blocks run 2 LayerNorms, EVA02 blocks 3
-# (norm1, norm2 and the SwiGLU's sub-LN).
+# Each path's launches per 1024x2048 image: stage-1 ViT (24 blocks; SAM 32),
+# refine ViT over all 18 crops in one batch (24 blocks; SAM 32), VFMHead
+# decoder (3 blocks, self- and cross-attention); DINOv2 and SAM blocks run 2
+# LayerNorms, EVA02 blocks 3 (norm1, norm2 and the SwiGLU's sub-LN); every
+# SAM block, windowed or global, runs B7 once.
 PER_IMAGE = {
     "dinov2": _counts(layer_norm=48 + 48 + 9, attention_qkv=24 + 24 + 6),
     "eva02": _counts(layer_norm=72 + 72 + 9, attention_qkv_rope=24 + 24,
                      attention_qkv=6),
+    "sam": _counts(layer_norm=64 + 64 + 9, attention_relpos=32 + 32,
+                   attention_qkv=6),
 }
 # Each path's launches per train step: one ViT pass over the 2B batch of
-# both scale views (24 blocks), the VFMHead decoder (3 blocks); every
-# attention has a backward, every LayerNorm backward is plain torch.
+# both scale views (24 blocks; SAM 32), the VFMHead decoder (3 blocks); every
+# attention has a backward kernel except B7, whose backward recomputes
+# through the plain version; every LayerNorm backward is plain torch.
 PER_STEP = {
     "dinov2": _counts(layer_norm=48 + 9, attention_fwd_lse=24 + 6,
                       attention_bwd_dq=24 + 6, attention_bwd_dkv=24 + 6),
@@ -180,6 +203,9 @@ PER_STEP = {
                      attention_bwd_dq=6, attention_bwd_dkv=6,
                      attention_hm_fwd=24, attention_hm_dq=24,
                      attention_hm_dkv=24),
+    "sam": _counts(layer_norm=64 + 9, attention_relpos=32,
+                   attention_fwd_lse=6, attention_bwd_dq=6,
+                   attention_bwd_dkv=6),
 }
 
 # (shape, eps, dtype) of every LayerNorm on the DINOv2 path, then the fp32
@@ -217,6 +243,9 @@ TRAIN_ATTN_SHAPES = [(4, 1025, 16, True), (2, 1024, 8, False),
 # (B, H, Nq, Nk) of the head-major attention: EVA02's ViT over both scale
 # views, then a ragged Nq != Nk case
 HM_SHAPES = [(4, 16, 1025, 1025), (3, 3, 77, 130)]
+# B6's function computed by B5's forward entry with the LSE off, at the
+# shape of a head-major primal over ViT-L's refine batch: (B, H, N)
+B6_SHAPE = (18, 16, 1025)
 # LSE: fp32 sums in another order, fast exp/log against exp/log
 LSE_ATOL = 1e-3
 # dq/dk/dv, as max abs error over max |reference|: P and dS round to bf16
@@ -293,14 +322,17 @@ def ln_bound(shape, dtype) -> dict:
     return bound(2 * numel * item + 2 * shape[-1] * 4, 8 * numel, "fp32")
 
 
-def attn_bound(b, h, nq, nk, products, reads, writes, rows) -> dict:
-    """Attention at head dim 64 in bf16: ``products`` matrix products of
-    2*Nq*Nk*64 operations per head; ``reads``/``writes`` counts of
-    [*, N, H*64] bf16 tensors at Nq (or Nk for k/v), given as their lengths;
-    ``rows`` fp32 [B, H, Nq] vectors (LSE, delta) moved."""
-    ops = products * 2.0 * b * h * nq * nk * 64
-    per_token = b * h * 64 * 2
-    bytes_moved = (sum(reads) + sum(writes)) * per_token + rows * b * h * nq * 4
+def attn_bound(b, h, nq, nk, products, reads, writes, rows, d=64,
+               extra_bytes=0) -> dict:
+    """Attention at head dim ``d`` in bf16: ``products`` matrix products of
+    2*Nq*Nk*d operations per head; ``reads``/``writes`` counts of
+    [*, N, H*d] bf16 tensors at Nq (or Nk for k/v), given as their lengths;
+    ``rows`` fp32 [B, H, Nq] vectors (LSE, delta) moved; ``extra_bytes``
+    for other inputs (B7's rel terms)."""
+    ops = products * 2.0 * b * h * nq * nk * d
+    per_token = b * h * d * 2
+    bytes_moved = ((sum(reads) + sum(writes)) * per_token
+                   + rows * b * h * nq * 4 + extra_bytes)
     return bound(bytes_moved, ops, "bf16_tensor")
 
 
@@ -715,6 +747,112 @@ def phase_kernels_eva02(dev) -> list:
          "vfmseg_tpu/ops/flash_attention.py:344"))
 
 
+def _relpos_inputs(randn, b_, h, grid, d):
+    """q, k, v as head-major views of one fused [B, N, 3, H, d] bf16 tensor
+    (the layout SAM's attention reads), and the rel terms that
+    ``decomposed_rel_pos_terms_hm`` gives for q from tables as a block
+    holds them (a window's 27 rows, or a global block's 127 rows resized to
+    the grid), with the tables for the bias."""
+    n = grid[0] * grid[1]
+    qkv = randn(b_, n, 3, h, d).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    length = 27 if grid == (14, 14) else 127
+    tables = (randn(length, d) * 0.05, randn(length, d) * 0.05)
+    rel_h, rel_w = decomposed_rel_pos_terms_hm(q, *tables, grid)
+    return q, k, v, rel_h.contiguous(), rel_w.contiguous(), tables
+
+
+def check_relpos(randn) -> list:
+    rows = []
+    cases = RELPOS_SHAPES + [("off_path_d64", 2, 3, (6, 9))]
+    for label, b_, h, grid in cases:
+        d = 64 if label == "off_path_d64" else 80
+        n = grid[0] * grid[1]
+        scale = d ** -0.5
+        q, k, v, rel_h, rel_w, tables = _relpos_inputs(randn, b_, h, grid, d)
+        got = attention_relpos_hm(q, k, v, rel_h, rel_w, scale).float()
+        want = attention_decomposed_plain(q.float(), k.float(), v.float(),
+                                          rel_h, rel_w, scale=scale)
+        torch.cuda.synchronize()
+        max_abs = float((got - want).abs().max())
+        ok = max_abs <= ATTN_ATOL
+        # the library call's [B, H, N, N] bf16 bias, built outside its timing
+        bias = decomposed_rel_pos_bias_hm(q, *tables, grid)
+        rel_bytes = b_ * h * n * (grid[0] + grid[1]) * 2
+        row = dict(
+            path=label, shape=[b_, h, n, d], grid=list(grid),
+            max_abs_err=max_abs, ok=ok,
+            ms=time_ms(lambda: attention_relpos_hm(q, k, v, rel_h, rel_w,
+                                                   scale)),
+            plain_ms=time_ms(lambda: attention_decomposed_plain(
+                q, k, v, rel_h, rel_w, scale=scale)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=scale)),
+            **attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0, d=d,
+                         extra_bytes=rel_bytes))
+        emit("kernel_attention_relpos", atol=ATTN_ATOL, **row)
+        if not ok:
+            raise AssertionError(f"rel-pos attention kernel disagrees at "
+                                 f"{label} {(b_, h, n, d)}: max abs err "
+                                 f"{max_abs}")
+        rows.append(row)
+        del q, k, v, rel_h, rel_w, bias, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_b6_on_b5(randn) -> dict:
+    """B6's function (head-major attention, no bias, no LSE) as the port
+    computes it: B5's forward entry with the LSE off, over token-major
+    [B, N, H*64] tensors seen as [B, H, N, 64] views."""
+    b_, h, n = B6_SHAPE
+    scale = 64 ** -0.5
+    q, k, v = (_hm(randn(b_, n, h * 64).to(torch.bfloat16), h)
+               for _ in range(3))
+    got = attention_hm_fwd(q, k, v, scale, with_lse=False)[0].float()
+    want = attention_plain(*(t.float().transpose(1, 2) for t in (q, k, v)),
+                           scale=scale).transpose(1, 2)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    tok = [t.transpose(1, 2) for t in (q, k, v)]
+    row = dict(
+        shape=[b_, h, n, n, 64], max_abs_err=max_abs,
+        ok=max_abs <= ATTN_ATOL,
+        ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale, with_lse=False)),
+        plain_ms=time_ms(lambda: attention_plain(*tok, scale=scale)),
+        library_ms=time_ms(lambda: sdpa_fwd(q, k, v, scale)),
+        **attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0))
+    emit("kernel_b6_on_b5_fwd", atol=ATTN_ATOL,
+         replaces="vfmseg_tpu/ops/flash_attention.py:1684",
+         computed_by="attention_hm_fwd(with_lse=False), csrc/attention_hm.cu",
+         **row)
+    if not row["ok"]:
+        raise AssertionError(f"B5 forward without LSE disagrees at "
+                             f"{B6_SHAPE}: max abs err {max_abs}")
+    return row
+
+
+def phase_kernels_sam(dev) -> list:
+    randn = _randn(np.random.RandomState(SEED + 13), dev)
+    rows = check_relpos(randn)
+    b6 = time_b6_on_b5(randn)
+    emit("kernels_sam", relpos_ms={r["path"]: r["ms"] for r in rows},
+         relpos_bound_ms={r["path"]: r["bound_ms"] for r in rows},
+         b6_on_b5_ms=b6["ms"])
+    # the summary times the refine batch's global blocks; every shape's
+    # numbers are in by_path
+    summary = _summary("attention_relpos",
+                       "vfmseg_tpu_torch/csrc/attention_relpos.cu",
+                       "vfmseg_tpu/ops/flash_attention.py:1826", rows[3],
+                       max(r["max_abs_err"] for r in rows),
+                       library_call="F.scaled_dot_product_attention with "
+                                    "the [B, H, N, N] bf16 bias")
+    summary["by_path"] = {r["path"]: {k: r[k] for k in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        for r in rows}
+    return [summary]
+
+
 def _trainable_snapshot(model) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters()
             if p.requires_grad}
@@ -725,7 +863,6 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     t0 = time.perf_counter()
     dtype = compute_dtype(cfg)
     model = init_params(build_segmentor(cfg["model"], dtype=dtype), SEED)
-    model = model.to(dev)
     state = create_train_state(model, cfg)
     build_secs = time.perf_counter() - t0
     before = _trainable_snapshot(model)
@@ -793,7 +930,7 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     if restore:
         # a fresh state from the same seed, restored from the last checkpoint
         fresh = create_train_state(init_params(
-            build_segmentor(cfg["model"], dtype=dtype), SEED).to(dev), cfg)
+            build_segmentor(cfg["model"], dtype=dtype), SEED), cfg)
         fresh = CheckpointManager(TRAIN_WORK_DIR).restore(fresh)
         got = dict(fresh.model.state_dict())
         mismatch = [n for n, t in model.state_dict().items()
@@ -944,8 +1081,9 @@ def phase_train_card_vs_cpu(dev, cfg, label: str) -> None:
     batch = collate([ds[0], ds[1]])
 
     def one_step(device, dtype):
-        model = init_params(build_segmentor(c["model"], dtype=dtype), SEED)
-        state = create_train_state(model.to(device), c)
+        model = init_params(build_segmentor(c["model"], dtype=dtype,
+                                            device=device), SEED)
+        state = create_train_state(model, c)
         t0 = time.perf_counter()
         _, metrics = make_train_step()(state, batch, SEED)
         metrics = {k: float(v) for k, v in metrics.items()}
@@ -1011,7 +1149,6 @@ def phase_main_path(dev, cfg, label: str) -> tuple:
     t0 = time.perf_counter()
     model = init_params(build_segmentor(cfg["model"],
                                         dtype=compute_dtype(cfg)), SEED)
-    model = model.to(dev)
     build_secs = time.perf_counter() - t0
     test_cfg = cfg["test_cfg"]
     predict = make_shape_aware_predict_fn(model, test_cfg)
@@ -1067,7 +1204,8 @@ def phase_card_vs_cpu(model, dev, cfg, label: str) -> None:
     with torch.inference_mode():
         card = logits_fn(model, img.to(dev)).float().cpu()
     cpu_model = init_params(build_segmentor(cfg["model"],
-                                            dtype=torch.float32), SEED)
+                                            dtype=torch.float32,
+                                            device="cpu"), SEED)
     t0 = time.perf_counter()
     with torch.inference_mode():
         cpu = logits_fn(cpu_model, img)
@@ -1139,13 +1277,14 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(dev) + phase_kernels_train(dev)
     ln_eva02, eva02_rows = phase_kernels_eva02(dev)
-    summary += eva02_rows
+    summary += eva02_rows + phase_kernels_sam(dev)
     ln = summary[0]
     ln["max_abs_err"] = max([ln["max_abs_err"]]
                             + [r["max_abs_err"] for r in ln_eva02])
     ln["ms_at_2730"] = ln_eva02[0]["ms"]
     by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
     by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
+    by_path.update(run_paths(dev, sam_config(), "sam", restore=False))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(paths.values())

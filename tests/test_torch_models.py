@@ -24,14 +24,17 @@ from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
 ATOL = 1e-4
 # the ported configs by backbone family
 CONFIGS = {"dinov2": "dg_lora_dinov2_ms_masked",
-           "eva02": "dg_lora_eva02_ms_masked"}
+           "eva02": "dg_lora_eva02_ms_masked",
+           "sam": "dg_lora_sam_ms_masked"}
 
 
 def toy_config(embed=64, depth=4, heads=4, rank=4, channels=32,
                family="dinov2"):
     """A ported config (the headline by default) with its widths cut: same
     structure, same types. EVA02's RoPE keeps its pretraining grid equal to
-    the toy image's (64 / 16)."""
+    the toy image's (64 / 16). SAM gets windows of 3 (so 4x4 and 4x8 grids
+    pad them), global blocks 1 and 3, and rel-pos tables for a 128-pixel
+    pretraining grid (15 rows, resized for the 4-row side of a grid)."""
     cfg = config(CONFIGS[family])
     m = cfg["model"]
     bb = m["backbone"]
@@ -39,6 +42,9 @@ def toy_config(embed=64, depth=4, heads=4, rank=4, channels=32,
                           img_size=64, out_indices=list(range(depth))[-4:])
     if family == "eva02":
         bb["backbone"]["pt_hw_seq_len"] = 4
+    if family == "sam":
+        bb["backbone"].update(window_size=3, global_attn_indexes=[1, 3],
+                              pretrain_img_size=128)
     bb["Lora_config"].update(r=rank, lora_alpha=2 * rank)
     m["decode_head"].update(in_channels=[embed] * 4, channels=channels)
     m["aux_head"].update(in_channels=[embed] * 4, channels=channels)
@@ -91,7 +97,8 @@ def jax_model_and_variables(cfg, seed=0):
 
 
 def port_model(cfg, variables):
-    model = build_segmentor(cfg["model"], dtype=torch.float32)
+    model = build_segmentor(cfg["model"], dtype=torch.float32,
+                            device="cpu")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model
 
@@ -187,9 +194,12 @@ def test_lora_fold_tracks_parameter_writes():
 
 def test_init_params_is_seeded_and_nontrivial():
     cfg = toy_config()
-    a = init_params(build_segmentor(cfg["model"]), 7).state_dict()
-    b = init_params(build_segmentor(cfg["model"]), 7).state_dict()
-    c = init_params(build_segmentor(cfg["model"]), 8).state_dict()
+    a = init_params(build_segmentor(cfg["model"], device="cpu"),
+                    7).state_dict()
+    b = init_params(build_segmentor(cfg["model"], device="cpu"),
+                    7).state_dict()
+    c = init_params(build_segmentor(cfg["model"], device="cpu"),
+                    8).state_dict()
     for k in a:
         torch.testing.assert_close(a[k], b[k])
     assert any(not torch.equal(a[k], c[k]) for k in a if k.endswith("weight"))

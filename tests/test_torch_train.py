@@ -295,10 +295,8 @@ def test_lora_gradients_match_jax():
     torch.testing.assert_close(folded, lin(tx).detach(), atol=1e-5, rtol=0)
 
 
-def test_trainable_set_and_decay_mask_equal_jax():
-    """partition() and decays() select what partition_params and decay_mask
-    select on the same tree (the headline's lora-only PEFT)."""
-    cfg = toy_config()
+def _check_trainable_set_and_decay_mask(family):
+    cfg = toy_config(family=family)
     _jmodel, variables = jax_model_and_variables(cfg)
     trainable, _frozen = partition_params(
         variables["params"], jax_trainable_predicate(
@@ -310,6 +308,12 @@ def test_trainable_set_and_decay_mask_equal_jax():
     assert ours_paths == {k: bool(v) for k, v in jax_mask.items()}
     assert any(ours_paths.values()) and not all(ours_paths.values())
     assert all("lora" in k for k in ours_paths if k.startswith("backbone/"))
+
+
+def test_trainable_set_and_decay_mask_equal_jax():
+    """partition() and decays() select what partition_params and decay_mask
+    select on the same tree (the headline's lora-only PEFT)."""
+    _check_trainable_set_and_decay_mask("dinov2")
 
 
 def _check_flax_round_trip(family):
@@ -368,9 +372,9 @@ def _patched_randint(values):
     return lambda *args, **kwargs: jnp.asarray(vals.pop(0), jnp.int32)
 
 
-def _check_train_step(family):
+def _check_train_step(family, seed=2):
     cfg = deterministic_config(family)
-    jmodel, variables = jax_model_and_variables(cfg, seed=2)
+    jmodel, variables = jax_model_and_variables(cfg, seed=seed)
     batch = _batch()
     trainable, frozen = partition_params(
         variables["params"], jax_trainable_predicate(
@@ -553,7 +557,7 @@ class TestRandomStreams:
 
 
 def _toy_state(cfg, seed=0):
-    model = init_params(build_segmentor(cfg["model"]), seed)
+    model = init_params(build_segmentor(cfg["model"], device="cpu"), seed)
     cfg = dict(cfg, optimizer=dict(cfg["optimizer"], lr=1e-3))
     return create_train_state(model, cfg, max_iters=10)
 

@@ -65,9 +65,16 @@ ATTENTION_HM_DKV = Kernel("attention_hm_dkv", "vfmseg_attention_hm_dkv",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _F, _P])
 
+# csrc/attention_relpos.cu: q, k, v, rel_h, rel_w, out, strides (int64
+# array: batch, head, token of q, k, v, out), batch, heads, n, kh, kw,
+# head_dim, scale, stream
+ATTENTION_RELPOS = Kernel("attention_relpos", "vfmseg_attention_relpos",
+                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _P])
+
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
            ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
-           ATTENTION_HM_DQ, ATTENTION_HM_DKV)
+           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_RELPOS)
 
 
 def launch_counts() -> Dict[str, int]:

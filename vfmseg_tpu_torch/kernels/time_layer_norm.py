@@ -52,21 +52,12 @@ def _median_ms(run) -> float:
     return float(np.median(times))
 
 
-def time_shape(shape, dtype, dev) -> dict:
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    c = shape[-1]
-    x = torch.randn(shape, generator=gen).to(dev, dtype)
-    w = (torch.randn(c, generator=gen) * 0.1 + 1.0).to(dev)
-    b = (torch.randn(c, generator=gen) * 0.1).to(dev)
-    row = dict(shape=list(shape), dtype=str(dtype))
-    try:
-        layer_norm_cuda(x, w, b, 1e-6)
-    except ValueError as err:
-        return dict(row, refused=str(err))
-
+def eager_and_graph_ms(call, dev) -> dict:
+    """``eager_ms`` and ``graph_ms`` (module doc) of ``call``, a function
+    that launches the kernel once."""
     def eager():
         for _ in range(INNER):
-            layer_norm_cuda(x, w, b, 1e-6)
+            call()
 
     for _ in range(3):
         eager()
@@ -80,8 +71,22 @@ def time_shape(shape, dtype, dev) -> dict:
     torch.cuda.current_stream(dev).wait_stream(side)
     graph.replay()
     torch.cuda.synchronize(dev)
-    return dict(row, eager_ms=_median_ms(eager), graph_ms=_median_ms(
-        graph.replay))
+    return dict(eager_ms=_median_ms(eager), graph_ms=_median_ms(graph.replay))
+
+
+def time_shape(shape, dtype, dev) -> dict:
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen).to(dev, dtype)
+    w = (torch.randn(c, generator=gen) * 0.1 + 1.0).to(dev)
+    b = (torch.randn(c, generator=gen) * 0.1).to(dev)
+    row = dict(shape=list(shape), dtype=str(dtype))
+    try:
+        layer_norm_cuda(x, w, b, 1e-6)
+    except ValueError as err:
+        return dict(row, refused=str(err))
+    return dict(row, **eager_and_graph_ms(
+        lambda: layer_norm_cuda(x, w, b, 1e-6), dev))
 
 
 def main() -> None:

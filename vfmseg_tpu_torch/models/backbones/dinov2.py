@@ -2,7 +2,8 @@
 
 Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
 config surface (configs/_base_/models/lora_*_ms_masked.py) and build the ViT
-core of ``vit.py``; ``EVA2`` builds through ``eva02.py``.
+core of ``vit.py``; ``EVA2`` builds through ``eva02.py`` and ``SAMViT``
+through ``sam.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from vfmseg_tpu_torch.models.backbones.adapters import (
     normalize_lora_targets,
 )
 from vfmseg_tpu_torch.models.backbones.eva02 import build_eva02
+from vfmseg_tpu_torch.models.backbones.sam import build_sam
 from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
 
 # the linears of the ported ViT that LoRA may target
@@ -50,7 +52,8 @@ def build_dinov2(
     return VisionTransformer(cfg, lora=lora)
 
 
-_BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02}
+_BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02,
+              "SAMViT": build_sam}
 
 
 def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,

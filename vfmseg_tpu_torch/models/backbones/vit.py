@@ -1,11 +1,12 @@
-"""Vision Transformer core: the DINOv2 and EVA02 paths.
+"""Vision Transformer core: the DINOv2, EVA02 and SAM paths.
 
 Port of vfmseg_tpu/models/backbones/vit.py:44-128, 147-340 and 343-580,
-restricted to what the DINOv2-L and EVA02-L configs use: a learned cls token
-and position embedding (bicubic interpolation with DINOv2's +0.1 trick at
-other grid sizes), pre-norm blocks, optional LayerScale, drop-path in
-training, feature maps taken before any final norm at ``out_indices``, and
-two block families:
+restricted to what the DINOv2-L, EVA02-L and SAM ViT-H configs use: a learned
+cls token and position embedding (bicubic interpolation with DINOv2's +0.1
+trick at other grid sizes), or SAM's grid-shaped one without a cls token
+(bilinear at other grid sizes), pre-norm blocks, optional LayerScale,
+drop-path in training, feature maps taken before any final norm at
+``out_indices``, and three block families:
 
 * DINOv2 (``attn_type="fused"``, ``ffn_layer="mlp"``): one fused qkv linear
   (optionally LoRA) read straight by the attention kernel, and an exact-erf
@@ -22,11 +23,18 @@ two block families:
   - *training* (vit.py:249-314): per-slot projections (LoRA sequential, with
     dropout), the rotation in PyTorch with the natural tables, and the
     head-major attention (B5 under autograd).
+* SAM (``attn_type="fused"``, ``use_rel_pos``, ``window_size``;
+  vit.py:282-311, 363-385): q, k and v are head-major views of the fused
+  qkv output, the decomposed relative-position terms are built from q and
+  the block's ``rel_pos_h``/``rel_pos_w`` tables, and the attention adds
+  them to its logits (B7). Windowed blocks partition the normalised tokens
+  into zero-padded windows around the attention only; the blocks at
+  ``global_attn_indexes`` attend over the whole grid with tables sized for
+  the pretraining grid, resized to the grid at hand.
 
 The RoPE tables are built once per grid size and device and shared by every
-block, with identity rows for the cls token (vit.py:484-502). No relative
-positions, windows, Rein adapters or pyramid resizing: those belong to other
-families.
+block, with identity rows for the cls token (vit.py:484-502). No Rein
+adapters or pyramid resizing: those belong to other families.
 
 Module and parameter names follow the flax tree (``blocks.<i>`` for
 ``blocks_<i>``), so ``weights.state_dict_from_flax`` maps one onto the other.
@@ -51,15 +59,22 @@ from vfmseg_tpu_torch.models.backbones.adapters import (
 )
 from vfmseg_tpu_torch.models.common import Conv2d
 from vfmseg_tpu_torch.ops.attention import (
+    multi_head_attention_decomposed_hm,
     multi_head_attention_headmajor,
     multi_head_attention_qkv_tm,
 )
 from vfmseg_tpu_torch.ops.norm import LayerNorm
+from vfmseg_tpu_torch.ops.resize import resize
 from vfmseg_tpu_torch.ops.rope import (
     apply_rope,
     evens_odds_perm,
     permuted_rope_tables,
     vit_rope_tables,
+)
+from vfmseg_tpu_torch.ops.window import (
+    decomposed_rel_pos_terms_hm,
+    window_partition,
+    window_unpartition,
 )
 
 
@@ -86,6 +101,17 @@ class ViTConfig:
     use_rope: bool = False
     rope_pt_seq_len: int = 16
     rope_intp_freq: bool = True
+    num_cls_tokens: int = 1  # 0: no cls token (SAM)
+    # "learned": [1, cls + grid, E], bicubic at other grids (DINOv2, EVA02);
+    # "learned_2d": [1, side, side, E], bilinear at other grids (SAM)
+    pos_embed: str = "learned"
+    # SAM: the window of the windowed blocks, the blocks that attend
+    # globally, the decomposed relative positions, and the pretraining
+    # grid that sizes the global blocks' tables (1024 / 16)
+    window_size: Optional[int] = None
+    global_attn_indexes: Tuple[int, ...] = ()
+    use_rel_pos: bool = False
+    rel_pos_pretrain_extent: int = 64
     dtype: torch.dtype = torch.float32
 
 
@@ -145,9 +171,14 @@ class SwiGLUEva(nn.Module):
 
 class Attention(nn.Module):
     """Fused-qkv MHA; attention reads q/k/v straight out of the qkv output
-    and returns token-major [B, N, E] for the proj linear."""
+    and returns token-major [B, N, E] for the proj linear.
 
-    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec]):
+    With ``rel_pos_len`` (SAM), the block's ``[rel_pos_len, head_dim]``
+    tables give the decomposed relative-position terms over the ``hw`` grid
+    of the tokens, and q, k, v are head-major views of the qkv output."""
+
+    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec],
+                 rel_pos_len: int = 0):
         super().__init__()
         dim = cfg.embed_dim
         self.num_heads = cfg.num_heads
@@ -155,14 +186,27 @@ class Attention(nn.Module):
                               cfg.dtype)
         self.proj = make_dense(dim, dim, cfg.proj_bias, "proj", lora,
                                cfg.dtype)
+        self.rel_pos_h = self.rel_pos_w = None
+        if rel_pos_len:
+            shape = (rel_pos_len, dim // cfg.num_heads)
+            self.rel_pos_h = nn.Parameter(torch.zeros(shape))
+            self.rel_pos_w = nn.Parameter(torch.zeros(shape))
 
-    def forward(self, x: torch.Tensor,
-                rope: Optional[RopeTables] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Optional[RopeTables] = None,
+                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         if rope is not None:
             raise NotImplementedError("RoPE with a fused qkv linear is not "
                                       "ported")
-        out = multi_head_attention_qkv_tm(self.qkv(x), self.num_heads)
-        return self.proj(out)
+        qkv = self.qkv(x)
+        if self.rel_pos_h is None:
+            return self.proj(multi_head_attention_qkv_tm(qkv, self.num_heads))
+        b, n, c = x.shape
+        h = self.num_heads
+        q, k, v = qkv.reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        rel_h, rel_w = decomposed_rel_pos_terms_hm(
+            q, self.rel_pos_h.to(q.dtype), self.rel_pos_w.to(q.dtype), hw)
+        out = multi_head_attention_decomposed_hm(q, k, v, rel_h, rel_w)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
 def _fp32_weight(lin: nn.Module) -> torch.Tensor:
@@ -221,8 +265,9 @@ class SplitAttention(nn.Module):
             self._fused_key = key
         return self._fused
 
-    def forward(self, x: torch.Tensor,
-                rope: Optional[RopeTables] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Optional[RopeTables] = None,
+                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``hw``: unused; the split attention has no relative positions."""
         b, n, c = x.shape
         h = self.num_heads
         if rope is not None and not self.training and not _wants_grad(x,
@@ -255,17 +300,27 @@ class LayerScale(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block with optional LayerScale and drop-path
-    (dino_layers/block.py; vit.py:343-406)."""
+    (dino_layers/block.py; vit.py:343-406); with ``window_size`` (a SAM
+    windowed block) the attention runs over zero-padded windows of the
+    normalised tokens (vit.py:371-385)."""
 
     def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec],
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, window_size: int = 0):
         super().__init__()
         dim = cfg.embed_dim
         hidden = int(dim * cfg.mlp_ratio)
         self.drop_path_rate = drop_path_rate
+        self.window_size = window_size
+        rel_pos_len = 0
+        if cfg.use_rel_pos:
+            extent = window_size or cfg.rel_pos_pretrain_extent
+            rel_pos_len = 2 * extent - 1
         self.norm1 = LayerNorm(dim, cfg.ln_eps, cfg.dtype)
         if cfg.attn_type == "fused":
-            self.attn = Attention(cfg, lora)
+            self.attn = Attention(cfg, lora, rel_pos_len)
+        elif cfg.use_rel_pos:
+            raise NotImplementedError("relative positions with split q/k/v "
+                                      "are not ported")
         elif cfg.attn_type == "split_subln":
             self.attn = SplitAttention(cfg, lora)
         else:
@@ -285,10 +340,21 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = nn.Identity()
 
-    def forward(self, x: torch.Tensor,
-                rope: Optional[RopeTables] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope: Optional[RopeTables] = None,
+                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """x: [B, N, E] tokens; hw: the (gh, gw) grid of the patch tokens."""
         rate = self.drop_path_rate
-        h = self.ls1(self.attn(self.norm1(x), rope))
+        h = self.norm1(x)
+        if self.window_size:
+            b, n, c = h.shape
+            ws = self.window_size
+            wins, pad_hw = window_partition(h.reshape(b, *hw, c), ws)
+            h = self.attn(wins.reshape(-1, ws * ws, c), hw=(ws, ws))
+            h = window_unpartition(h.reshape(-1, ws, ws, c), ws, pad_hw,
+                                   hw).reshape(b, n, c)
+        else:
+            h = self.attn(h, rope, hw)
+        h = self.ls1(h)
         x = x + drop_path(h, rate, self.training)
         h = self.ls2(self.mlp(self.norm2(x)))
         return x + drop_path(h, rate, self.training)
@@ -302,31 +368,48 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.embed_dim
+        p = cfg.num_cls_tokens
         self.patch_embed = Conv2d(3, e, cfg.patch_size, stride=cfg.patch_size,
                                   dtype=cfg.dtype)
-        n_grid = (cfg.img_size // cfg.patch_size) ** 2
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, e))
-        self.pos_embed = nn.Parameter(torch.zeros(1, n_grid + 1, e))
+        side = cfg.img_size // cfg.patch_size
+        self.cls_token = nn.Parameter(torch.zeros(1, p, e)) if p else None
+        if cfg.pos_embed == "learned":
+            self.pos_embed = nn.Parameter(torch.zeros(1, side * side + p, e))
+        elif cfg.pos_embed == "learned_2d" and not p:
+            self.pos_embed = nn.Parameter(torch.zeros(1, side, side, e))
+        else:
+            raise NotImplementedError(
+                f"pos_embed={cfg.pos_embed!r} with {p} cls tokens is not "
+                f"ported")
+
+        def window(i: int) -> int:
+            if cfg.window_size and i not in cfg.global_attn_indexes:
+                return cfg.window_size
+            return 0
+
         # drop-path rate grows linearly over the depth (vit.py:504-506)
         self.blocks = nn.ModuleList(
-            Block(cfg, lora, cfg.drop_path_rate * i / max(cfg.depth - 1, 1))
+            Block(cfg, lora, cfg.drop_path_rate * i / max(cfg.depth - 1, 1),
+                  window(i))
             for i in range(cfg.depth))
         self._rope: Dict[tuple, RopeTables] = {}
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         cfg = self.cfg
+        p = cfg.num_cls_tokens
         b, h, w, _ = x.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
         x = self.patch_embed(x).reshape(b, gh * gw, cfg.embed_dim)
-        cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
-        x = torch.cat([cls, x], dim=1)
+        if p:
+            cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
+            x = torch.cat([cls, x], dim=1)
         x = x + self.interpolated_pos_embed(gh, gw).to(x.dtype)
         rope = self.rope_tables(gh, gw, x.device) if cfg.use_rope else None
         outs = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x, rope)
+            x = blk(x, rope, (gh, gw))
             if i in cfg.out_indices:
-                outs.append(x[:, 1:, :].reshape(b, gh, gw, cfg.embed_dim))
+                outs.append(x[:, p:, :].reshape(b, gh, gw, cfg.embed_dim))
         return tuple(outs)
 
     def rope_tables(self, gh: int, gw: int,
@@ -346,17 +429,24 @@ class VisionTransformer(nn.Module):
         return self._rope[key]
 
     def interpolated_pos_embed(self, gh: int, gw: int) -> torch.Tensor:
-        """DINOv2's pos-embed at a (gh, gw) grid (dino_v2.py:184-215): torch
-        bicubic with the +0.1 scale-factor trick on the grid part; the cls
-        position passes through. fp32."""
+        """The pos-embed at a (gh, gw) grid, [1, cls + gh*gw, E] fp32.
+
+        DINOv2's (dino_v2.py:184-215): torch bicubic with the +0.1
+        scale-factor trick on the grid part; the cls position passes through.
+        SAM's grid-shaped one (vit.py:461-472): bilinear to (gh, gw)."""
         pos = self.pos_embed
-        side = int(math.sqrt(pos.shape[1] - 1))
+        p = self.cfg.num_cls_tokens
+        if self.cfg.pos_embed == "learned_2d":
+            if tuple(pos.shape[1:3]) != (gh, gw):
+                pos = resize(pos.float(), size=(gh, gw), method="bilinear")
+            return pos.reshape(1, gh * gw, -1)
+        side = int(math.sqrt(pos.shape[1] - p))
         if (gh, gw) == (side, side):
             return pos
-        grid = pos[:, 1:].reshape(1, side, side, -1).permute(0, 3, 1, 2)
+        grid = pos[:, p:].reshape(1, side, side, -1).permute(0, 3, 1, 2)
         grid = F.interpolate(
             grid.float(), mode="bicubic", align_corners=False,
             scale_factor=((gh + 0.1) / side, (gw + 0.1) / side),
             recompute_scale_factor=False)
         grid = grid.permute(0, 2, 3, 1).reshape(1, gh * gw, -1)
-        return torch.cat([pos[:, :1], grid.to(pos.dtype)], dim=1)
+        return torch.cat([pos[:, :p], grid.to(pos.dtype)], dim=1)

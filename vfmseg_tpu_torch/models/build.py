@@ -6,7 +6,7 @@ headline model uses; every other type raises ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 
@@ -58,12 +58,22 @@ _SEGMENTORS = {"MsVFMEncoderDecoder": build_ms_vfm_encoder_decoder}
 
 
 def build_segmentor(model_cfg: Dict[str, Any],
-                    dtype: torch.dtype = torch.float32) -> MsVFMSegmentor:
+                    dtype: torch.dtype = torch.float32,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> MsVFMSegmentor:
     """Build the segmentor of a config's ``model`` section, in eval mode
-    (``.train()`` for the training forward), with parameters in fp32 on the
-    CPU and compute in ``dtype``."""
+    (``.train()`` for the training forward), with parameters in fp32 on
+    ``device`` and compute in ``dtype``. The device is the card unless the
+    caller asks for another (``device="cpu"``); with no card, asking for it
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_segmentor: no CUDA device "
+                           "(torch.cuda.is_available() is false); pass "
+                           "device='cpu' to build on the CPU")
     cfg = dict(model_cfg)
     kind = cfg.pop("type")
     if kind not in _SEGMENTORS:
         raise NotImplementedError(f"segmentor type {kind!r} is not ported")
-    return _SEGMENTORS[kind](dtype=dtype, **cfg).eval()
+    with device:
+        return _SEGMENTORS[kind](dtype=dtype, **cfg).eval()

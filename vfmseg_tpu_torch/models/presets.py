@@ -1,13 +1,15 @@
 """Model and test config presets, and the ported configs as data.
 
-Port of the DINOv2, EVA02 and MsVFM parts of vfmseg_tpu/models/presets.py.
-The repo's config files import the JAX package, so the port carries its
-configs as data: the headline (configs/dg/gta2citys/dg_lora_dinov2_ms_masked.py
-over configs/_base_/models/lora_dinov2_ms_masked.py) in
-:func:`headline_config`, and the same MsVFM segmentor on a LoRA EVA02-L
-backbone (configs/dg/gta2citys/dg_lora_eva02_ms_masked.py) in
-:func:`eva02_config`; :func:`config` looks either up by name. Tests hold
-each equal to the JAX ``load_config``.
+Port of the DINOv2, EVA02, SAM and MsVFM parts of
+vfmseg_tpu/models/presets.py. The repo's config files import the JAX
+package, so the port carries its configs as data: the headline
+(configs/dg/gta2citys/dg_lora_dinov2_ms_masked.py over
+configs/_base_/models/lora_dinov2_ms_masked.py) in :func:`headline_config`,
+and the same MsVFM segmentor on a LoRA EVA02-L backbone
+(configs/dg/gta2citys/dg_lora_eva02_ms_masked.py) in :func:`eva02_config`
+and on a LoRA SAM ViT-H backbone (configs/dg/gta2citys/
+dg_lora_sam_ms_masked.py) in :func:`sam_config`; :func:`config` looks any of
+them up by name. Tests hold each equal to the JAX ``load_config``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ PREPROCESSOR = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, pad_val=0,
 DINOV2_CHECKPOINT = "checkpoints/dinov2_converted.npz"
 DINOV2_DIM = 1024
 EVA02_CHECKPOINT = "checkpoints/eva02_converted.npz"
+SAM_CHECKPOINT = "checkpoints/sam_converted.npz"
+SAM_DIM = 1280
 
 
 def dinov2_l(img_size: int = 512) -> dict:
@@ -62,6 +66,24 @@ def lora_eva02(img_size: int = 512, r: int = 32) -> dict:
         Lora_config=dict(r=r, lora_alpha=r,
                          target_modules=["q_proj", "k_proj", "v_proj",
                                          "attn.proj"],
+                         lora_dropout=0.1),
+    )
+
+
+def sam_h(img_size: int = 512) -> dict:
+    return dict(
+        type="SAMViT", img_size=img_size, embed_dim=SAM_DIM, depth=32,
+        num_heads=16, window_size=14, global_attn_indexes=[7, 15, 23, 31],
+        out_indices=[7, 15, 23, 31], use_rel_pos=True)
+
+
+def lora_sam(img_size: int = 512, r: int = 32) -> dict:
+    """LoRABackbone wrapper dict with LoRA on SAM's fused qkv."""
+    return dict(
+        type="LoRABackbone",
+        backbone=sam_h(img_size),
+        checkpoint=SAM_CHECKPOINT,
+        Lora_config=dict(r=r, lora_alpha=r, target_modules=["qkv"],
                          lora_dropout=0.1),
     )
 
@@ -134,8 +156,23 @@ def eva02_config() -> dict:
     return cfg
 
 
+def sam_config() -> dict:
+    """dg_lora_sam_ms_masked: the headline config with LoRA SAM ViT-H as its
+    backbone and both heads taking its 1280-wide maps (the decode head's
+    ``channels`` 320); test, training and compute settings are the
+    headline's."""
+    cfg = copy.deepcopy(headline_config())
+    cfg["name"] = "dg_lora_sam_ms_masked"
+    m = cfg["model"]
+    m["backbone"] = lora_sam(img_size=512)
+    m["decode_head"].update(in_channels=[SAM_DIM] * 4, channels=320)
+    m["aux_head"].update(in_channels=[SAM_DIM] * 4)
+    return cfg
+
+
 CONFIGS = {"dg_lora_dinov2_ms_masked": headline_config,
-           "dg_lora_eva02_ms_masked": eva02_config}
+           "dg_lora_eva02_ms_masked": eva02_config,
+           "dg_lora_sam_ms_masked": sam_config}
 
 
 def config(name: str) -> dict:

@@ -1,20 +1,23 @@
 """Multi-head attention on hand-written CUDA kernels: inference, and training
 with its backward.
 
-Port of vfmseg_tpu/ops/attention.py:31-57 (``xla_attention``), :194-235
-(``multi_head_attention_qkv_tm``, with its ``rope_cs``), :238-269
+Port of vfmseg_tpu/ops/attention.py:31-57 (``xla_attention``), :101-158
+(``xla_attention_decomposed_hm``, ``multi_head_attention_decomposed_hm``),
+:194-235 (``multi_head_attention_qkv_tm``, with its ``rope_cs``), :238-269
 (``multi_head_attention_headmajor`` without the bias branch) and :272-314
 (``multi_head_attention``), whose TPU kernels are ``flash_attention_qkv_tm``
-with its custom VJP ``_flash_qkv_tm`` and ``flash_attention_headmajor`` with
-``_flash_hm`` (vfmseg_tpu/ops/flash_attention.py:1579-1663, 1775-1814).
+with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
+``_flash_hm`` and ``flash_attention_relpos_hm`` with ``_flash_relpos_hm``
+(vfmseg_tpu/ops/flash_attention.py:1579-1663, 1775-1814, 1940-1977).
 
 * :func:`attention_plain` is the plain PyTorch version: fp32 logits and
   softmax, probabilities cast to v's dtype before the product with v.
   :func:`attention_fwd_lse_plain` adds the log-sum-exp of the scaled logits,
   and :func:`attention_bwd_plain` is the backward that recomputes the
   probabilities from it, on whole tensors. :func:`attention_qkv_rope_plain`
-  rotates q and k by RoPE first.
-* Kernels, on bf16 views with head dim 64:
+  rotates q and k by RoPE first. :func:`attention_decomposed_plain` adds
+  SAM's decomposed rel-pos bias from its two k-separable terms.
+* Kernels, on bf16 views with head dim 64 (B7: 64 or 80):
 
   - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2), and
     :func:`attention_qkv_rope_tm`, its RoPE variant (EVA02 inference);
@@ -25,15 +28,19 @@ with its custom VJP ``_flash_qkv_tm`` and ``flash_attention_headmajor`` with
   - :func:`attention_hm_fwd`, :func:`attention_hm_dq` and
     :func:`attention_hm_dkv` (``csrc/attention_hm.cu``, B5), general
     attention over ``[B, H, N, 64]`` views with their own strides and
-    Nq != Nk.
-* :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`
-  and :func:`multi_head_attention` pick: when grad is enabled and an input
-  requires it, the autograd Functions :class:`FusedQKVAttention` /
-  :class:`QKVAttention` (B3 forward, B4 backward on CUDA) or
-  :class:`HeadMajorAttention` (B5), with the LSE twins on the CPU, as the JAX
-  package takes its forward rules under differentiation; otherwise the
-  inference kernels on CUDA and the plain versions on the CPU. Nothing falls
-  back from a kernel to a plain version.
+    Nq != Nk;
+  - :func:`attention_relpos_hm` (``csrc/attention_relpos.cu``, B7), SAM's
+    attention with the rel-pos bias rebuilt in the kernel from its terms.
+* :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`,
+  :func:`multi_head_attention_decomposed_hm` and :func:`multi_head_attention`
+  pick: when grad is enabled and an input requires it, the autograd
+  Functions :class:`FusedQKVAttention` / :class:`QKVAttention` (B3 forward,
+  B4 backward on CUDA), :class:`HeadMajorAttention` (B5) or
+  :class:`DecomposedRelPosAttention` (B7 forward, plain recomputed
+  backward), with the plain twins on the CPU, as the JAX package takes its
+  forward rules under differentiation; otherwise the inference kernels on
+  CUDA and the plain versions on the CPU. Nothing falls back from a kernel
+  to a plain version.
 
 Layouts are the JAX package's: ``[B, N, H, D]`` per head, ``[B, H, N, D]``
 head-major, ``[B, N, 3*H*D]`` for a fused qkv projection (q|k|v thirds,
@@ -57,6 +64,7 @@ from vfmseg_tpu_torch.kernels import (
     ATTENTION_HM_FWD,
     ATTENTION_QKV,
     ATTENTION_QKV_ROPE,
+    ATTENTION_RELPOS,
 )
 from vfmseg_tpu_torch.ops.rope import apply_rope_permuted
 
@@ -368,20 +376,21 @@ def _hm_strides_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _hm_views(fn: str, *views: torch.Tensor):
-    """Check bf16 CUDA ``[B, H, N, 64]`` views on one device, unit stride
-    along the head dim, other strides multiples of 8 and 16-byte aligned
-    data; return their (batch, head, token) strides as the int64 array the
-    B5 entries read."""
+def _hm_views(fn: str, *views: torch.Tensor, head_dims=(HEAD_DIM,)):
+    """Check bf16 CUDA ``[B, H, N, D]`` views (D in ``head_dims``, one D for
+    all) on one device, unit stride along the head dim, other strides
+    multiples of 8 and 16-byte aligned data; return their (batch, head,
+    token) strides as the int64 array the B5 and B7 entries read."""
     first = views[0]
     for t in views:
+        if (t.dim() != 4 or t.shape[-1] not in head_dims
+                or t.shape[-1] != first.shape[-1]):
+            raise ValueError(f"{fn} takes [B, H, N, D] views with head dim D "
+                             f"in {head_dims}, got {tuple(t.shape)}")
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{fn} takes bf16, got {t.dtype}")
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM:
-            raise ValueError(f"{fn} takes [B, H, N, {HEAD_DIM}] views, got "
-                             f"{tuple(t.shape)}")
         if t.device != first.device or t.shape[:2] != first.shape[:2]:
             raise ValueError(f"{fn} needs views of one batch and head count "
                              f"on one device")
@@ -533,6 +542,117 @@ def multi_head_attention_headmajor(q: torch.Tensor, k: torch.Tensor,
         return attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale,
                                 with_lse=False)[0]
     return _tok(attention_plain(_tok(q), _tok(k), _tok(v), scale=scale))
+
+
+def attention_decomposed_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, rel_h: torch.Tensor,
+                               rel_w: torch.Tensor, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Attention with SAM's k-separable rel-pos bias (the twin of
+    ``xla_attention_decomposed_hm``): fp32 logits scaled, plus
+    ``rel_h[..., :, None] + rel_w[..., None, :]`` in fp32 on their
+    ``[N, kh, kw]`` view, fp32 softmax, probabilities cast to v's dtype
+    before the product. q, k, v: [B, H, N, D] with N = kh*kw; rel_h:
+    [B, H, N, kh]; rel_w: [B, H, N, kw]. Returns [B, H, N, D] in q's
+    dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, h, n, _ = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = (logits.reshape(b, h, n, kh, kw) + rel_h.float()[..., :, None]
+              + rel_w.float()[..., None, :])
+    probs = torch.softmax(logits.reshape(b, h, n, kh * kw), dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+RELPOS_HEAD_DIMS = (64, 80)  # the head dims B7 is built for
+
+
+def attention_relpos_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        rel_h: torch.Tensor, rel_w: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """Launch B7 (``csrc/attention_relpos.cu``) on bf16 CUDA ``[B, H, N, D]``
+    q, k, v views (D 64 or 80, each view with its own strides) and
+    contiguous bf16 rel_h ``[B, H, N, kh]``, rel_w ``[B, H, N, kw]`` with
+    N = kh*kw below 65536 and kh + kw at most 512 (the rows the kernel
+    stages in shared memory). Returns a ``[B, H, N, D]`` view of a new
+    token-major tensor."""
+    fn = "attention_relpos_hm"
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{fn} needs q, k and v of one shape")
+    out = _hm_out(q, q.shape[2])
+    strides = _hm_views(fn, q, k, v, out, head_dims=RELPOS_HEAD_DIMS)
+    b, h, n, d = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    for name, t, c in (("rel_h", rel_h, kh), ("rel_w", rel_w, kw)):
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (b, h, n, c)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{fn} needs a contiguous bf16 {name} of shape "
+                             f"{(b, h, n, c)} on {q.device}")
+    if kh * kw != n or n >= 2**16 or kh + kw > 512:
+        raise ValueError(f"{fn} needs N = kh * kw < 65536 and kh + kw <= "
+                         f"512, got N {n}, kh {kh}, kw {kw}")
+    if out.numel() == 0:
+        return out
+    ATTENTION_RELPOS(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     rel_h.data_ptr(), rel_w.data_ptr(), out.data_ptr(),
+                     ctypes.addressof(strides), b, h, n, kh, kw, d,
+                     float(scale), _stream(q))
+    return out
+
+
+class DecomposedRelPosAttention(torch.autograd.Function):
+    """Training attention with the decomposed rel-pos bias (port of
+    ``_flash_relpos_fwd_rule`` / ``_flash_relpos_bwd_rule``): the forward is
+    B7 on CUDA, :func:`attention_decomposed_plain` on the CPU; the backward
+    recomputes through the plain version under autograd, for q, k, v, rel_h
+    and rel_w, as the JAX rule recomputes through the XLA formulation (B7
+    has no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale):
+        if q.is_cuda:
+            out = attention_relpos_hm(*map(_hm_layout, (q, k, v)),
+                                      rel_h.contiguous(), rel_w.contiguous(),
+                                      scale)
+        else:
+            out = attention_decomposed_plain(q, k, v, rel_h, rel_w,
+                                             scale=scale)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_decomposed_plain(*inputs, scale=ctx.scale)
+        return torch.autograd.grad(out, inputs, dout) + (None,)
+
+
+def multi_head_attention_decomposed_hm(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, rel_h: torch.Tensor,
+                                       rel_w: torch.Tensor, *,
+                                       scale: Optional[float] = None
+                                       ) -> torch.Tensor:
+    """Attention over head-major ``[B, H, N, D]`` views with SAM's
+    decomposed rel-pos bias from its two terms; returns ``[B, H, N, D]``.
+    Under differentiation :class:`DecomposedRelPosAttention`; otherwise B7
+    on CUDA and :func:`attention_decomposed_plain` on the CPU."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type not in ("cuda", "cpu"):
+        raise NotImplementedError(f"attention on {q.device}")
+    if _wants_grad(q, k, v, rel_h, rel_w):
+        return DecomposedRelPosAttention.apply(q, k, v, rel_h, rel_w, scale)
+    if q.is_cuda:
+        return attention_relpos_hm(*map(_hm_layout, (q, k, v)),
+                                   rel_h.contiguous(), rel_w.contiguous(),
+                                   scale)
+    return attention_decomposed_plain(q, k, v, rel_h, rel_w, scale=scale)
 
 
 def multi_head_attention_qkv_tm(qkv: torch.Tensor, num_heads: int, *,

@@ -13,8 +13,10 @@
   parameters and BatchNorm statistics (checkpoints, gradients);
   :func:`flax_name` gives one port name's flax path.
 * :func:`init_params` fills a model from a seed through ``torch.Generator``,
-  with LoRA B and the BatchNorm statistics non-zero and LayerScale well
-  above its 1e-5 init, so that no branch is trivially zero.
+  with LoRA B, the BatchNorm statistics and SAM's rel-pos tables non-zero
+  and LayerScale well above its 1e-5 init, so that no branch is trivially
+  zero. The draws are made on the CPU and copied to the model's device, so
+  a seed gives the same weights on any device.
 """
 
 from __future__ import annotations
@@ -28,7 +30,11 @@ import torch
 from torch import nn
 
 from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
-from vfmseg_tpu_torch.models.backbones.vit import LayerScale, VisionTransformer
+from vfmseg_tpu_torch.models.backbones.vit import (
+    Attention,
+    LayerScale,
+    VisionTransformer,
+)
 from vfmseg_tpu_torch.models.heads.transformer import TransformerDecoder
 from vfmseg_tpu_torch.ops.norm import LayerNorm
 
@@ -171,8 +177,12 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         if isinstance(mod, LayerScale):
             normal(mod.gamma, 0.02, mean=0.1)
         if isinstance(mod, VisionTransformer):
-            normal(mod.cls_token, 0.02)
+            if mod.cls_token is not None:
+                normal(mod.cls_token, 0.02)
             normal(mod.pos_embed, 0.02)
+        if isinstance(mod, Attention) and mod.rel_pos_h is not None:
+            normal(mod.rel_pos_h, 0.1)
+            normal(mod.rel_pos_w, 0.1)
         if isinstance(mod, TransformerDecoder) and hasattr(mod, "mask_token"):
             normal(mod.mask_token, 1.0)
         bias = getattr(mod, "bias", None)
