@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths once on one CUDA card and check them:
 the gated inference and the two-scale train step of the headline model
 (LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L and on LoRA
-SAM ViT-H.
+SAM ViT-H, and the headline through the compact gated engine and the eval
+CLI's dataset loop.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -36,6 +37,12 @@ Phases, each printing one JSON line:
    case off the path, against ``attention_decomposed_plain``; then B5's
    forward entry with the LSE off, which computes B6's function, timed at
    (18, 16, 1025) against ``attention_plain``, SDPA and its bound.
+6b. kernels_compact: the window blend (B9) against ``blend_windows_plain``,
+   bit-identical, at the compact path's shapes (``BLEND_CASES``: a
+   1024x2048 image's fp32 base with k = 20 and 4, a group of 8 images'
+   fp32 base with k = 30 and 160, pad rows included, and the bf16 base the
+   JAX engine blends in at k = 20 and 30), with
+   ``index_put_(accumulate=True)`` as the library yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -62,6 +69,20 @@ Phases, each printing one JSON line:
    card in bf16 and on the CPU in fp32, same seeded weights and crop box,
    dropout, drop-path and mask ratio 0: loss entries, the cosine of the
    flattened LoRA gradients, and the LoRA gradient norm and ``grad_norm``.
+12. compact_calibration / compact_per_image / compact_stream /
+   compact_eval_cli: the headline at full width with ``gate=compact``. The
+   decode head's logit scale is bisected until the gate skips ~0.8 of the
+   windows of 16 synthetic 1024x2048 images (``calibrate_logit_scale``);
+   the compact per-image predictor runs all 16 (launches asserted per
+   image: one stage-1 ViT, and for an image with refined windows one refine
+   ViT and decoder and one B9), and on 4 of them its logits meet the dense
+   path's (the same refined windows, argmax agreement, q99 drift); the
+   stream (``stream_evaluate``, group 8) runs all 16 with its launches
+   asserted per group, its predictions held to the per-image ones, its
+   images/s, group times, measured skip, refined and padded windows and
+   peak memory, and one profiled pass; then ``evaluate_dataset``, the eval
+   CLI's loop, over a 4-image in-memory labelled set, printing its metrics
+   JSON.
 
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
@@ -93,10 +114,15 @@ import torch.nn.functional as F
 from vfmseg_tpu_torch import kernels
 from vfmseg_tpu_torch.data.loader import InfiniteLoader, collate
 from vfmseg_tpu_torch.data.synthetic import SyntheticDataset
+from vfmseg_tpu_torch.data.transforms import TestPipeline
+from vfmseg_tpu_torch.eval.compact import _bucket, window_confidence
 from vfmseg_tpu_torch.eval.evaluator import (
+    make_compact_ms_slide,
     make_logits_fn,
     make_shape_aware_predict_fn,
+    stream_evaluate,
 )
+from vfmseg_tpu_torch.eval.metrics import IoUAccumulator
 from vfmseg_tpu_torch.eval.slide import (
     compute_slide_grid,
     confident_mask,
@@ -140,6 +166,11 @@ from vfmseg_tpu_torch.ops.window import (
     decomposed_rel_pos_bias_hm,
     decomposed_rel_pos_terms_hm,
 )
+from vfmseg_tpu_torch.ops.window_blend import (
+    blend_windows_cuda,
+    blend_windows_plain,
+)
+from vfmseg_tpu_torch.tools.test import evaluate_dataset
 from vfmseg_tpu_torch.train.checkpoint import CheckpointManager
 from vfmseg_tpu_torch.train.loop import train_loop
 from vfmseg_tpu_torch.train.state import create_train_state
@@ -173,6 +204,7 @@ KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
                  ("attention_qkv_rope", "attention_qkv_kernel<false, true>"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
                  ("attention_relpos", "attention_relpos_kernel"),
+                 ("window_blend", "window_blend_kernel"),
                  ("layer_norm", "layer_norm")]
 
 
@@ -207,6 +239,45 @@ PER_STEP = {
                    attention_fwd_lse=6, attention_bwd_dq=6,
                    attention_bwd_dkv=6),
 }
+
+# The headline's compact gated engine: launches per stage-1 call (the ViT
+# over a batch of whole images at 512x1024) and per finish step that refines
+# k > 0 windows (the ViT and the VFMHead decoder over the k windows, then one
+# B9); a finish step with k = 0 launches nothing.
+COMPACT_STAGE1 = _counts(layer_norm=48, attention_qkv=24)
+COMPACT_FINISH = _counts(layer_norm=48 + 9, attention_qkv=24 + 6,
+                         window_blend=1)
+# B9 at the compact path's shapes: (label, images in the base, windows
+# needed, refine batch k, base dtype). The engine blends into an fp32 base
+# (the TPU kernel's dtype); the JAX engine's bf16 base is checked beside
+# it. The per-image predictor at the bucket for all 18 windows (2 pad rows)
+# and at an image of the calibrated gate (3 needed, bucket 4); a stream
+# group of 8 images at 0.8 skip (29 of 144 windows, bucket 30) and with
+# every window refined (144, bucket 160).
+BLEND_CASES = [("per_image_all", 1, 18, 20, torch.float32),
+               ("per_image_all_bf16", 1, 18, 20, torch.bfloat16),
+               ("per_image_skip", 1, 3, 4, torch.float32),
+               ("stream_skip", 8, 29, 30, torch.float32),
+               ("stream_skip_bf16", 8, 29, 30, torch.bfloat16),
+               ("stream_all", 8, 144, 160, torch.float32)]
+TARGET_SKIP = 0.8
+COMPACT_IMAGES = 16
+COMPACT_GROUP = 8
+COMPACT_DENSE_IMAGES = 4
+CLI_IMAGES = 4
+# compact against dense on the card, one bf16 model: argmax agreement and
+# the q99 logit drift relative to the dense logits' q99 magnitude. Both
+# take the same stage-1 map and refine the same windows and both blend in
+# fp32 (the dense path sums the windows and scales, the compact one scales
+# each delta and adds: fp32 rounding in another order), but the refine
+# batch differs (the bucket's k windows against all 18), and the refine
+# head's bf16 GEMMs may round another way at another batch size.
+COMPACT_AGREE = 0.999
+COMPACT_DRIFT_Q99 = 1e-3
+# the stream (stage 1 at batch 8) against the per-image compact predictor
+# (stage 1 at batch 1): the same gate and blend, stage 1 and the refine
+# batch in other shapes
+STREAM_AGREE = 0.999
 
 # (shape, eps, dtype) of every LayerNorm on the DINOv2 path, then the fp32
 # input the kernel also takes
@@ -853,6 +924,346 @@ def phase_kernels_sam(dev) -> list:
     return [summary]
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers, for a bit-exact comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _blend_inputs(gen, rs, dev, b, need, k, dtype) -> dict:
+    """A finish step's blend at full size: ``need`` windows of the 18-box
+    slide grid over ``b`` images, drawn without repeats and in ascending
+    window id (image i % b, box i // b), then ``k - need`` zero pad rows at
+    the last window's origin, as the engine builds them."""
+    test_cfg = headline_config()["test_cfg"]
+    crop = tuple(test_cfg["crop_size"])
+    boxes = compute_slide_grid(IMAGE_HW, crop, tuple(test_cfg["stride"]))
+    n = len(boxes) * b
+    ids = sorted(rs.choice(n, need, replace=False).tolist()) + [n - 1] * (
+        k - need)
+
+    def idx(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    img_i = idx([i % b for i in ids])
+    ys = idx([boxes[i // b][0] for i in ids])
+    xs = idx([boxes[i // b][1] for i in ids])
+    base = (torch.randn((b,) + IMAGE_HW + (19,), generator=gen, device=dev)
+            * 4.0).to(dtype)
+    delta = torch.randn((k,) + crop + (19,), generator=gen, device=dev) * 0.5
+    delta[need:] = 0.0
+    return dict(base=base, delta=delta.to(dtype), img_i=img_i, ys=ys, xs=xs,
+                crop=crop)
+
+
+def check_window_blend(dev) -> list:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rs = np.random.RandomState(SEED + 17)
+    rows = []
+    for label, b, need, k, dtype in BLEND_CASES:
+        a = _blend_inputs(gen, rs, dev, b, need, k, dtype)
+        base, delta, img_i, ys, xs = (a[n] for n in ("base", "delta", "img_i",
+                                                     "ys", "xs"))
+        ch, cw = a["crop"]
+        got = blend_windows_cuda(base.clone(), delta, img_i, ys, xs)
+        want = blend_windows_plain(base.clone(), delta, img_i, ys, xs)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(_bits(got), _bits(want)))
+        max_abs = float((got.float() - want.float()).abs().max())
+        changed = int((got != base).any(-1).sum())
+        # the library yardstick: one index_put_ with accumulate over the
+        # windows' pixels (rows of C), its index built outside the timing
+        h, w = IMAGE_HW
+        pix = ((img_i.long()[:, None, None] * h + ys.long()[:, None, None]
+                + torch.arange(ch, device=dev)[None, :, None]) * w
+               + xs.long()[:, None, None]
+               + torch.arange(cw, device=dev)[None, None, :]).reshape(-1)
+        covered = int(torch.unique(pix).numel())
+        rows_c = delta.reshape(-1, delta.shape[-1])
+        work = base.clone()
+        flat = work.view(-1, work.shape[-1])
+        item = base.element_size()
+        row = dict(
+            path=label, shape=[b, h, w, 19], k=k, needed=need,
+            pad_rows=k - need, dtype=str(dtype), bit_identical=same,
+            max_abs_err=max_abs, pixels_changed=changed,
+            covered_pixels=covered,
+            ms=time_ms(lambda: blend_windows_cuda(work, delta, img_i, ys, xs)),
+            plain_ms=time_ms(lambda: blend_windows_plain(work, delta, img_i,
+                                                         ys, xs)),
+            library_ms=time_ms(lambda: flat.index_put_((pix,), rows_c,
+                                                       accumulate=True)),
+            library_call="index_put_(accumulate=True) over the windows' "
+                         "pixel rows",
+            # the deltas read once, the covered base read and written once;
+            # one add per delta element
+            **bound(delta.numel() * item + 2 * covered * 19 * item,
+                    delta.numel(), "fp32"))
+        emit("kernel_window_blend", tolerance="bit-identical", **row)
+        if not same:
+            raise AssertionError(f"window blend kernel differs from the loop "
+                                 f"at {label}: max abs err {max_abs}")
+        rows.append(row)
+        del a, base, delta, got, want, work, flat, pix, rows_c
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_compact(dev) -> list:
+    rows = check_window_blend(dev)
+    emit("kernels_compact", window_blend_ms={r["path"]: r["ms"] for r in rows},
+         window_blend_bound_ms={r["path"]: r["bound_ms"] for r in rows})
+    # the summary times a stream group at the calibrated skip; every shape's
+    # numbers are in by_path
+    summary = _summary("window_blend", "vfmseg_tpu_torch/csrc/window_blend.cu",
+                       "vfmseg_tpu/ops/window_blend.py:51",
+                       next(r for r in rows if r["path"] == "stream_skip"),
+                       max(r["max_abs_err"] for r in rows),
+                       tolerance="bit-identical",
+                       library_call=rows[0]["library_call"])
+    summary["by_path"] = {r["path"]: {key: r[key] for key in (
+        "shape", "k", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by")} for r in rows}
+    return [summary]
+
+
+def calibrate_logit_scale(model, engine, groups, target: float) -> tuple:
+    """The decode head's logit scale at which the gate skips ~``target`` of
+    the windows of ``groups`` (image batches), as bench.py:489-566 finds it:
+    the rate of the scaled stage-1 map seeds a bracket, then a bisection on
+    the skip rate the scaled model measures. The logits are linear in the
+    classifier ``conv_seg``. Leaves the model at the returned scale."""
+    seg = model.decode_head.conv_seg
+    orig = [p.detach().clone() for p in (seg.weight, seg.bias)]
+    hw = tuple(groups[0].shape[1:3])
+    yx = engine._geometry(hw, groups[0].device)[0]
+
+    def set_scale(s):
+        with torch.no_grad():
+            for p, o in zip((seg.weight, seg.bias), orig):
+                p.copy_(o * s)
+
+    @torch.inference_mode()
+    def measured(s):
+        set_scale(s)
+        rates = [float((engine._stage1_impl(model, g, hw)[1]
+                        >= engine.conf).float().mean()) for g in groups]
+        return float(np.mean(rates))
+
+    with torch.inference_mode():
+        set_scale(1.0)
+        full = engine._stage1_impl(model, groups[0], hw)[0].float()
+
+        def analytic(s):
+            conf = window_confidence(full * s, yx, engine.crop,
+                                     engine.threshold)
+            return float((conf >= engine.conf).float().mean())
+
+        lo, hi = 1e-3, 1.0
+        while analytic(hi) < target and hi < 1e12:
+            lo, hi = hi, hi * 10.0
+        seed, seed_r = hi, analytic(hi)
+        for _ in range(25):
+            mid = (lo * hi) ** 0.5
+            r = analytic(mid)
+            if abs(r - target) < abs(seed_r - target):
+                seed, seed_r = mid, r
+            lo, hi = (mid, hi) if r < target else (lo, mid)
+        del full
+    lo, hi = seed / 8.0, seed * 8.0
+    while measured(hi) < target and hi < 1e12:
+        lo, hi = hi, hi * 8.0
+    while measured(lo) > target and lo > 1e-6:
+        lo, hi = lo / 8.0, lo
+    best, best_r = seed, measured(seed)
+    evals = 0
+    for _ in range(16):
+        mid = (lo * hi) ** 0.5
+        r = measured(mid)
+        evals += 1
+        if abs(r - target) < abs(best_r - target):
+            best, best_r = mid, r
+        if abs(r - target) <= 0.002:
+            break
+        lo, hi = (mid, hi) if r < target else (lo, mid)
+    set_scale(best)
+    return best, best_r, dict(analytic_seed=seed, analytic_rate=seed_r,
+                              bisection_steps=evals)
+
+
+def phase_compact_path(dev) -> dict:
+    """The headline through the compact gated engine at full width: the
+    gate calibrated to ~0.8 skip, the per-image compact predictor against
+    the dense one, the stream at group 8, the eval CLI's dataset loop, and a
+    profiler pass over the stream."""
+    cfg = headline_config()
+    t0 = time.perf_counter()
+    model = init_params(build_segmentor(cfg["model"],
+                                        dtype=compute_dtype(cfg)), SEED)
+    build_secs = time.perf_counter() - t0
+    test_cfg = dict(cfg["test_cfg"], gate="compact")
+    dense_cfg = cfg["test_cfg"]
+    n_windows = len(compute_slide_grid(IMAGE_HW,
+                                       tuple(test_cfg["crop_size"]),
+                                       tuple(test_cfg["stride"])))
+    imgs = synthetic_images(COMPACT_IMAGES, IMAGE_HW, SEED + 21).to(dev)
+    groups = [imgs[i:i + COMPACT_GROUP]
+              for i in range(0, COMPACT_IMAGES, COMPACT_GROUP)]
+    engine = make_compact_ms_slide(model, test_cfg)
+    t0 = time.perf_counter()
+    scale, cal_rate, cal = calibrate_logit_scale(model, engine, groups,
+                                                 TARGET_SKIP)
+    cal_secs = time.perf_counter() - t0
+    emit("compact_calibration", model=cfg["name"], logit_scale=scale,
+         measured_skip=cal_rate, target_skip=TARGET_SKIP, seconds=cal_secs,
+         images=COMPACT_IMAGES, **cal)
+
+    # per image: the compact predictor, counted and timed, on every image
+    predict = make_shape_aware_predict_fn(model, test_cfg)
+    per_image = make_compact_ms_slide(model, test_cfg)
+    # the dense gate's decisions per image, before the counted run
+    refined = [refined_windows(model, imgs[i:i + 1], dense_cfg)
+               for i in range(COMPACT_IMAGES)]
+    want = {key: COMPACT_IMAGES * COMPACT_STAGE1[key]
+            + sum(1 for n in refined if n) * COMPACT_FINISH[key]
+            for key in COMPACT_STAGE1}
+    latencies, preds = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for i in range(COMPACT_IMAGES):
+        img = imgs[i:i + 1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        preds.append(predict(model, img, IMAGE_HW)[0])
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t)
+    counts_image = kernels.launch_counts()
+    if counts_image != want:
+        raise AssertionError(f"compact per-image launch counts "
+                             f"{counts_image} != {want}")
+
+    # compact against dense, per image: refined counts, argmax, drift
+    logits_fn = make_logits_fn(model, dense_cfg, dense_cfg["mode"])
+    agree, drift, refined_compact = [], [], []
+    for i in range(COMPACT_DENSE_IMAGES):
+        img = imgs[i:i + 1]
+        per_image.reset_stats()
+        with torch.inference_mode():
+            got, n = per_image(model, img)
+            ref = logits_fn(model, img)
+        refined_compact.append(n)
+        got = got.float()
+        agree.append(float((got.argmax(-1) == ref.argmax(-1)).float().mean()))
+        # every third element: torch.quantile takes at most 2^24
+        err = (got - ref).abs().flatten()[::3]
+        mag = ref.abs().flatten()[::3]
+        drift.append(float(torch.quantile(err, 0.99)
+                           / torch.quantile(mag, 0.99).clamp(min=1e-9)))
+        del got, ref, err, mag
+    agreement = float(np.mean(agree))
+    ok_dense = (refined_compact == refined[:COMPACT_DENSE_IMAGES]
+                and agreement >= COMPACT_AGREE
+                and max(drift) <= COMPACT_DRIFT_Q99
+                and 0 < sum(refined) < n_windows * COMPACT_IMAGES)
+    steady = latencies[1:]
+    emit("compact_per_image", model=cfg["name"], images=COMPACT_IMAGES,
+         image_hw=list(IMAGE_HW), model_build_s=build_secs,
+         refined_windows=refined, windows_per_image=n_windows,
+         skip=1 - sum(refined) / (n_windows * COMPACT_IMAGES),
+         latency_s=latencies, images_per_s=len(steady) / sum(steady),
+         launches=counts_image,
+         vs_dense=dict(images=COMPACT_DENSE_IMAGES,
+                       refined_compact=refined_compact,
+                       refined_dense=refined[:COMPACT_DENSE_IMAGES],
+                       argmax_agreement=agree, mean_agreement=agreement,
+                       agreement_limit=COMPACT_AGREE, q99_rel_drift=drift,
+                       drift_limit=COMPACT_DRIFT_Q99),
+         ok=ok_dense)
+    if not ok_dense:
+        raise AssertionError(
+            f"compact vs dense: refined {refined_compact} vs "
+            f"{refined[:COMPACT_DENSE_IMAGES]}, agreement {agree}, drift "
+            f"{drift}, refined in all {sum(refined)}")
+
+    # the stream: warm up, then a timed run, counted; then a profiled one
+    def run_stream():
+        engine.reset_stats()
+        out, marks = [], []
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        for i, pred in enumerate(stream_evaluate(
+                model, test_cfg, [(im, IMAGE_HW) for im in imgs],
+                group=COMPACT_GROUP, engine=engine)):
+            out.append(pred)
+            if i % COMPACT_GROUP == COMPACT_GROUP - 1:
+                marks.append(time.perf_counter() - t_start)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t_start, marks
+
+    run_stream()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    stream_preds, wall, marks = run_stream()
+    counts_stream = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_groups = len(groups)
+    group_need = [sum(refined[g * COMPACT_GROUP:(g + 1) * COMPACT_GROUP])
+                  for g in range(n_groups)]
+    want = {key: n_groups * COMPACT_STAGE1[key]
+            + sum(1 for need in group_need if need) * COMPACT_FINISH[key]
+            for key in COMPACT_STAGE1}
+    stats = dict(windows=engine.stat_windows, refined=engine.stat_refined,
+                 refine_rows=engine.stat_refine_rows,
+                 padded=engine.stat_refine_rows - engine.stat_refined)
+    stream_agree = [float((a == b).float().mean())
+                    for a, b in zip(stream_preds, preds)]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_stream()
+    ok_stream = (counts_stream == want and len(stream_preds) == COMPACT_IMAGES
+                 and min(stream_agree) >= STREAM_AGREE)
+    emit("compact_stream", model=cfg["name"], images=COMPACT_IMAGES,
+         group=COMPACT_GROUP, depth=2, wall_s=wall,
+         images_per_s=COMPACT_IMAGES / wall,
+         group_done_s=marks, group_latency_s=np.diff([0.0] + marks).tolist(),
+         measured_skip=1 - stats["refined"] / stats["windows"],
+         gate=stats, buckets=[_bucket(need, engine.buckets)
+                              for need in group_need],
+         peak_mem_bytes=peak, launches=counts_stream, launches_reckoned=want,
+         agreement_with_per_image=stream_agree, agreement_limit=STREAM_AGREE,
+         ok=ok_stream, **_breakdown(prof, wall * 1e3))
+    if not ok_stream:
+        raise AssertionError(f"compact stream: launches {counts_stream} vs "
+                             f"{want}, agreement {stream_agree}")
+
+    # the eval CLI's dataset loop over an in-memory labelled set
+    rs = np.random.RandomState(SEED + 23)
+    dataset = []
+    for i in range(CLI_IMAGES):
+        coarse = rs.randint(0, 256, (IMAGE_HW[0] // 32, IMAGE_HW[1] // 32, 3))
+        img = np.repeat(np.repeat(coarse, 32, 0), 32, 1).astype(np.uint8)
+        label = np.repeat(np.repeat(rs.randint(0, 19, coarse.shape[:2]), 32,
+                                    0), 32, 1).astype(np.uint8)
+        label[rs.rand(*IMAGE_HW) < 0.05] = 255
+        dataset.append(dict(img=img, label=label, img_path=f"synth_{i}.png"))
+    acc = IoUAccumulator(num_classes=cfg["num_classes"],
+                         dataset_keys=["synth"])
+    t0 = time.perf_counter()
+    n_eval = evaluate_dataset(model, test_cfg, dataset,
+                              TestPipeline(IMAGE_HW[::-1], True), acc,
+                              "synth")
+    results = acc.compute()
+    cli_secs = time.perf_counter() - t0
+    if n_eval != CLI_IMAGES or not np.isfinite(list(results.values())).all():
+        raise AssertionError(f"eval loop: {n_eval} images, {results}")
+    emit("compact_eval_cli", model=cfg["name"], images=n_eval,
+         seconds=cli_secs, metrics=results)
+    print(json.dumps(results), flush=True)
+    del model, engine, per_image, imgs, groups, preds, stream_preds
+    torch.cuda.empty_cache()
+    return {"compact_per_image": counts_image, "compact_stream": counts_stream}
+
+
 def _trainable_snapshot(model) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters()
             if p.requires_grad}
@@ -1277,7 +1688,8 @@ def main() -> None:
     phase_build()
     summary = phase_kernels(dev) + phase_kernels_train(dev)
     ln_eva02, eva02_rows = phase_kernels_eva02(dev)
-    summary += eva02_rows + phase_kernels_sam(dev)
+    summary += (eva02_rows + phase_kernels_sam(dev)
+                + phase_kernels_compact(dev))
     ln = summary[0]
     ln["max_abs_err"] = max([ln["max_abs_err"]]
                             + [r["max_abs_err"] for r in ln_eva02])
@@ -1285,6 +1697,7 @@ def main() -> None:
     by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
     by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
     by_path.update(run_paths(dev, sam_config(), "sam", restore=False))
+    by_path.update(phase_compact_path(dev))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(paths.values())

@@ -1,1 +1,2 @@
-"""Host-side data: the synthetic dataset and the prefetching loader."""
+"""Host-side data: the synthetic dataset, the prefetching loader, and the
+eval side's transforms and dataset readers."""

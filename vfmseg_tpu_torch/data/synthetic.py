@@ -4,7 +4,7 @@ Port of vfmseg_tpu/data/synthetic.py (numpy host code, the same draws from
 the same seed): blobby class regions with correlated image colours, so a run
 has a learnable signal. Samples are normalised with the config's mean and
 std (``models/presets.PREPROCESSOR``); the JAX dataset's optional
-augmentation pipeline waits for the port of ``data/transforms.py``.
+augmentation pipeline waits for the train side of ``data/transforms.py``.
 """
 
 from __future__ import annotations

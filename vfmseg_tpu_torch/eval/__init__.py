@@ -1,1 +1,2 @@
-"""Evaluation: the gated slide engine and the per-image predictor."""
+"""Evaluation: the dense and compact gated slide engines, the other
+inference modes, TTA, the predictors, the stream and the IoU metric."""

@@ -5,12 +5,17 @@ the model as one batch; the overlap average sums crops in ascending window
 order and then multiplies by the inverse coverage, as the JAX package does.
 The gate is compute-all + select: every window is refined, and per window
 the gate picks the refined logits or the stage-1 context. NHWC throughout.
+``whole_inference`` and ``slide_inference`` are the single-model modes that
+the other inference modes build on; the compact engine (``compact.py``)
+shares the grid, the gate's mask and the inverse coverage plane.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vfmseg_tpu_torch.ops.resize import resize
@@ -39,6 +44,20 @@ def extract_crops(x: torch.Tensor, boxes: Sequence[Tuple[int, int]],
     ch, cw = crop
     return torch.cat([x[:, y1:y1 + ch, x1:x1 + cw] for (y1, x1) in boxes],
                      dim=0)
+
+
+@functools.lru_cache(maxsize=64)
+def _coverage_inv(boxes: Tuple[Tuple[int, int], ...], crop: Tuple[int, int],
+                  out_hw: Tuple[int, int]) -> np.ndarray:
+    """Per-pixel 1 / coverage of the slide grid as fp32 numpy [H, W, 1],
+    computed on the host (the plane is pure geometry); uncovered pixels stay
+    0. Cached per geometry: callers must not write to it."""
+    count = np.zeros((out_hw[0], out_hw[1], 1), np.float32)
+    ch, cw = crop
+    for (y1, x1) in boxes:
+        count[y1:y1 + ch, x1:x1 + cw] += 1.0
+    return np.where(count > 0, 1.0 / np.maximum(count, 1.0), 0.0).astype(
+        np.float32)
 
 
 def accumulate_crops(crop_logits: torch.Tensor,
@@ -71,6 +90,22 @@ def confident_mask(logits: torch.Tensor, threshold: float) -> torch.Tensor:
     m = x.amax(dim=-1, keepdim=True)
     s = torch.exp(x - m).sum(dim=-1)
     return (s < 1.0 / threshold).float()
+
+
+def whole_inference(logits_fn: Callable[[torch.Tensor], torch.Tensor],
+                    img: torch.Tensor) -> torch.Tensor:
+    """One full-image forward; ``logits_fn`` returns input-sized logits."""
+    return logits_fn(img)
+
+
+def slide_inference(logits_fn: Callable[[torch.Tensor], torch.Tensor],
+                    img: torch.Tensor, crop: Tuple[int, int],
+                    stride: Tuple[int, int]) -> torch.Tensor:
+    """mmseg slide inference, batched: one model call over all crops, then
+    the overlap average."""
+    boxes = compute_slide_grid(tuple(img.shape[1:3]), crop, stride)
+    crop_logits = logits_fn(extract_crops(img, boxes, crop))
+    return accumulate_crops(crop_logits, boxes, tuple(img.shape[1:3]))
 
 
 def ms_slide_inference(

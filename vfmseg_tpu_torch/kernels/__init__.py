@@ -72,9 +72,14 @@ ATTENTION_RELPOS = Kernel("attention_relpos", "vfmseg_attention_relpos",
                           [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P])
 
+# csrc/window_blend.cu: base, delta, img_i, ys, xs, batch, h, w, c, k, ch,
+# cw, dtype, stream
+WINDOW_BLEND = Kernel("window_blend", "vfmseg_window_blend",
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
            ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
-           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_RELPOS)
+           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_RELPOS, WINDOW_BLEND)
 
 
 def launch_counts() -> Dict[str, int]:

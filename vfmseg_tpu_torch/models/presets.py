@@ -9,12 +9,17 @@ and the same MsVFM segmentor on a LoRA EVA02-L backbone
 (configs/dg/gta2citys/dg_lora_eva02_ms_masked.py) in :func:`eva02_config`
 and on a LoRA SAM ViT-H backbone (configs/dg/gta2citys/
 dg_lora_sam_ms_masked.py) in :func:`sam_config`; :func:`config` looks any of
-them up by name. Tests hold each equal to the JAX ``load_config``.
+them up by name, and :func:`apply_cfg_options` applies ``--cfg-options``
+overrides. The CPU smoke config ``smoke_tiny_ms_masked`` is carried too
+(:func:`smoke_tiny_config`), so the two eval CLIs can be compared. Tests
+hold each equal to the JAX ``load_config``.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
+from typing import Iterable
 
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
@@ -113,15 +118,33 @@ def ms_test_cfg() -> dict:
         lr_img_size=(512, 1024), stride=(320, 320), crop_size=(512, 512))
 
 
+def dg_test_data() -> dict:
+    """The evaluation sets of the GTAV -> Cityscapes/BDD100K/Mapillary DG
+    configs (``data.val``, ``data.test``, ``data.test_resize_wh``); no
+    config sets ``data.test_keep_ratio``, which defaults to True."""
+    citys = dict(type="CityscapesDataset", data_root="data/cityscapes",
+                 img_dir="leftImg8bit/val", ann_dir="gtFine/val", key="citys")
+    return dict(
+        val=[dict(citys)],
+        test=[dict(citys),
+              dict(type="BDD100KDataset", data_root="data/bdd100k",
+                   key="bdd"),
+              dict(type="MapillaryDataset", data_root="data/mapillary",
+                   key="map")],
+        test_resize_wh=(2048, 1024),
+    )
+
+
 def headline_config() -> dict:
     """The headline model, test, training and compute settings
-    (dg_lora_dinov2_ms_masked); the datasets and the training pipeline are
-    not carried: the port trains on synthetic batches of ``crop_size``."""
+    (dg_lora_dinov2_ms_masked) and its evaluation sets; the training data
+    is not carried: the port trains on synthetic batches of ``crop_size``."""
     d = DINOV2_DIM
     return dict(
         name="dg_lora_dinov2_ms_masked",
         crop_size=(1024, 1024),
         num_classes=19,
+        data=dg_test_data(),
         preprocessor=dict(PREPROCESSOR),
         model=dict(
             type="MsVFMEncoderDecoder",
@@ -170,9 +193,55 @@ def sam_config() -> dict:
     return cfg
 
 
+def smoke_tiny_config() -> dict:
+    """smoke_tiny_ms_masked (configs/smoke/): the MsVFM scheme on a 4-block,
+    32-wide ViT in fp32, runnable on a CPU; its evaluation part (the
+    training data and schedule are not carried)."""
+    return dict(
+        name="smoke_tiny_ms_masked",
+        crop_size=(128, 128),
+        num_classes=19,
+        model=dict(
+            type="MsVFMEncoderDecoder",
+            backbone=dict(
+                type="LoRABackbone",
+                backbone=dict(
+                    type="DinoVisionTransformer", patch_size=16, embed_dim=32,
+                    depth=4, num_heads=2, mlp_ratio=4, img_size=64,
+                    init_values=1e-05, out_indices=[0, 1, 2, 3]),
+                checkpoint="",
+                Lora_config=dict(r=4, lora_alpha=4, target_modules=["qkv"],
+                                 lora_dropout=0.1),
+            ),
+            decode_head=dict(
+                type="LinearHead", in_channels=[32] * 4, channels=8,
+                dropout_ratio=0.1, num_classes=19, align_corners=False),
+            aux_head=dict(
+                type="VFMHead",
+                transformer=dict(query_dim=16, n_heads=2, d_head=8, depth=1,
+                                 dropout=0.1, mask_ratio=0.2),
+                in_channels=[32] * 4, channels=16, dropout_ratio=0.1,
+                num_classes=19, align_corners=False),
+            detail_loss=1.0,
+            hr_crop_size=(64, 64),
+            crop_coord_divisible=32,
+        ),
+        test_cfg=dict(
+            mode="ms_slide_inference", threshold=0.968, conf=0.8,
+            lr_img_size=(64, 64), stride=(32, 32), crop_size=(64, 64)),
+        data=dict(
+            test=[dict(type="GTADataset", data_root="/tmp/synth_gta",
+                       key="synth")],
+            test_resize_wh=(128, 128),
+        ),
+        compute=dict(dtype="float32", attn_impl="xla"),
+    )
+
+
 CONFIGS = {"dg_lora_dinov2_ms_masked": headline_config,
            "dg_lora_eva02_ms_masked": eva02_config,
-           "dg_lora_sam_ms_masked": sam_config}
+           "dg_lora_sam_ms_masked": sam_config,
+           "smoke_tiny_ms_masked": smoke_tiny_config}
 
 
 def config(name: str) -> dict:
@@ -180,3 +249,41 @@ def config(name: str) -> dict:
     if name not in CONFIGS:
         raise NotImplementedError(f"config {name!r} is not ported")
     return CONFIGS[name]()
+
+
+def get_path(cfg: dict, dotted: str, default=None):
+    """The value at a dotted key path (``data.test_resize_wh``), or
+    ``default`` where the path is missing."""
+    node = cfg
+    for part in dotted.split("."):
+        if not isinstance(node, dict) or part not in node:
+            return default
+        node = node[part]
+    return node
+
+
+def parse_value(raw: str):
+    """A ``--cfg-options`` value: a Python literal where it parses as one,
+    else the string."""
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def apply_cfg_options(cfg: dict, overrides: Iterable[str]) -> dict:
+    """Set each ``key.path=value`` of ``overrides`` in ``cfg`` (in place,
+    making missing dicts on the way), as vfmseg_tpu/core/config.py:131-172
+    does for ``--cfg-options``; returns ``cfg``."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"override {item!r} must look like key.path=value")
+        key, raw = item.split("=", 1)
+        *parents, leaf = key.strip().split(".")
+        node = cfg
+        for part in parents:
+            if not isinstance(node.get(part), dict):
+                node[part] = {}
+            node = node[part]
+        node[leaf] = parse_value(raw.strip())
+    return cfg

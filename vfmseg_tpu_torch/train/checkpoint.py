@@ -40,15 +40,17 @@ def _flat(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_npz_tree(path: str, prefix: str) -> dict:
+def load_npz_tree(path: str, prefix: Optional[str] = None) -> dict:
     """The nested tree under ``prefix`` of an npz written by either
-    package's ``save_pytree``."""
+    package's ``save_pytree``; with no prefix, the whole file's tree."""
     tree: dict = {}
     with np.load(path, allow_pickle=False) as data:
         for key in data.files:
-            head, *mods, leaf = key.split("/")
-            if head != prefix:
-                continue
+            *mods, leaf = key.split("/")
+            if prefix is not None:
+                if not mods or mods[0] != prefix:
+                    continue
+                mods = mods[1:]
             node = tree
             for m in mods:
                 node = node.setdefault(m, {})
