@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths once on one CUDA card and check them:
 the gated inference and the two-scale train step of the headline model
 (LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L and on LoRA
-SAM ViT-H, and the headline through the compact gated engine and the eval
-CLI's dataset loop.
+SAM ViT-H (on B7's route and on the ``pallas_bias`` route), the headline
+through the compact gated engine and the eval CLI's dataset loop, and the
+slide eval of LoRA DINOv2-L with the Mask2Former head.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -43,6 +44,15 @@ Phases, each printing one JSON line:
    fp32 base with k = 30 and 160, pad rows included, and the bf16 base the
    JAX engine blends in at k = 20 and 30), with
    ``index_put_(accumulate=True)`` as the library yardstick.
+6c. kernel_attention_hm_bias / kernel_deform_sample: B5's three bias
+   entries (forward with LSE, dq with the fp32 dbias, dk/dv) at SAM's six
+   path shapes (head dim 80, the bf16 bias ``decomposed_rel_pos_bias_hm``
+   builds) and a ragged Nq != Nk case with a bias broadcast over the heads,
+   against autograd through the fp32 plain version, with SDPA and a float
+   ``attn_mask`` as the yardstick; B8 at the pixel decoder's eval shape in
+   bf16 and fp32 and at a narrow off-path case, coordinates partly outside,
+   against ``sample_plain`` in fp32, with ``F.grid_sample`` as the
+   yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -53,6 +63,11 @@ Phases, each printing one JSON line:
    eva02_main_breakdown / sam_main_breakdown: one more image through
    ``predict`` under ``torch.profiler`` for the kernels' device time,
    against the synchronised wall time of unprofiled images.
+   The same three phases and those of 9-11 run for SAM on the bias route
+   (sam_bias_*: ``compute.attn_impl = "pallas_bias"``), and main_path,
+   card_vs_cpu, main_breakdown (with B8's share) and an eval_cli loop for
+   ``dg_lora_dinov2_mask2former`` (m2f_*: the slide predictor at 512 / 341,
+   18 crops per image; card vs CPU on a 512x1024 image, 3 crops).
 9. train_path / eva02_train_path / sam_train_path: each model at full
    width in training mode (bf16 compute, fp32 master weights, LoRA, both
    heads; EVA02 with drop-path 0.1, LoRA dropout 0.1 in every config),
@@ -130,11 +145,16 @@ from vfmseg_tpu_torch.eval.slide import (
 )
 from vfmseg_tpu_torch.kernels.time_relpos import SHAPES as RELPOS_SHAPES
 from vfmseg_tpu_torch.models import rng
-from vfmseg_tpu_torch.models.build import build_segmentor, compute_dtype
+from vfmseg_tpu_torch.models.build import (
+    build_segmentor,
+    compute_attn_impl,
+    compute_dtype,
+)
 from vfmseg_tpu_torch.models.presets import (
     PREPROCESSOR,
     eva02_config,
     headline_config,
+    mask2former_config,
     sam_config,
 )
 from vfmseg_tpu_torch.ops.attention import (
@@ -155,6 +175,7 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_relpos_hm,
     multi_head_attention,
 )
+from vfmseg_tpu_torch.ops.deform_attn import sample_cuda, sample_plain
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda, layer_norm_plain
 from vfmseg_tpu_torch.ops.resize import resize
 from vfmseg_tpu_torch.ops.rope import (
@@ -195,8 +216,12 @@ TRAIN_CHECK_CROP = (128, 128)
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
 # breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope)
+# SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>)
 KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
                  ("attention_bwd_dq", "attention_bwd_dq_kernel"),
+                 ("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
+                 ("attention_hm_bias_dq", "attention_hm_dq_kernel<80, 1>"),
+                 ("attention_hm_bias_dkv", "attention_hm_dkv_kernel<80, 1>"),
                  ("attention_hm_fwd", "attention_hm_fwd_kernel"),
                  ("attention_hm_dq", "attention_hm_dq_kernel"),
                  ("attention_hm_dkv", "attention_hm_dkv_kernel"),
@@ -205,6 +230,7 @@ KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
                  ("attention_relpos", "attention_relpos_kernel"),
                  ("window_blend", "window_blend_kernel"),
+                 ("deform_sample", "deform_sample_kernel"),
                  ("layer_norm", "layer_norm")]
 
 
@@ -216,18 +242,29 @@ def _counts(**nonzero) -> dict:
 # refine ViT over all 18 crops in one batch (24 blocks; SAM 32), VFMHead
 # decoder (3 blocks, self- and cross-attention); DINOv2 and SAM blocks run 2
 # LayerNorms, EVA02 blocks 3 (norm1, norm2 and the SwiGLU's sub-LN); every
-# SAM block, windowed or global, runs B7 once.
+# SAM block, windowed or global, runs B7 once, or on the bias route
+# (sam_bias: compute.attn_impl = "pallas_bias") B5's bias forward once.
+# Mask2Former (m2f) slides 18 crops of 512 at stride 341 through one ViT
+# batch (24 blocks: 48 LN, 24 B2); its pixel decoder runs 6 layers of 2 LN
+# and 3 levels of B8 each, its decoder 9 layers of 3 LN plus the decoder
+# norm 10 times (the 9 attention masks and the last prediction); its masked
+# attention is plain PyTorch math.
 PER_IMAGE = {
     "dinov2": _counts(layer_norm=48 + 48 + 9, attention_qkv=24 + 24 + 6),
     "eva02": _counts(layer_norm=72 + 72 + 9, attention_qkv_rope=24 + 24,
                      attention_qkv=6),
     "sam": _counts(layer_norm=64 + 64 + 9, attention_relpos=32 + 32,
                    attention_qkv=6),
+    "sam_bias": _counts(layer_norm=64 + 64 + 9,
+                        attention_hm_bias_fwd=32 + 32, attention_qkv=6),
+    "m2f": _counts(layer_norm=48 + 6 * 2 + 9 * 3 + 10, attention_qkv=24,
+                   deform_sample=6 * 3),
 }
 # Each path's launches per train step: one ViT pass over the 2B batch of
 # both scale views (24 blocks; SAM 32), the VFMHead decoder (3 blocks); every
 # attention has a backward kernel except B7, whose backward recomputes
-# through the plain version; every LayerNorm backward is plain torch.
+# through the plain version (the bias route runs B5's three bias entries);
+# every LayerNorm backward is plain torch.
 PER_STEP = {
     "dinov2": _counts(layer_norm=48 + 9, attention_fwd_lse=24 + 6,
                       attention_bwd_dq=24 + 6, attention_bwd_dkv=24 + 6),
@@ -238,6 +275,10 @@ PER_STEP = {
     "sam": _counts(layer_norm=64 + 9, attention_relpos=32,
                    attention_fwd_lse=6, attention_bwd_dq=6,
                    attention_bwd_dkv=6),
+    "sam_bias": _counts(layer_norm=64 + 9, attention_hm_bias_fwd=32,
+                        attention_hm_bias_dq=32, attention_hm_bias_dkv=32,
+                        attention_fwd_lse=6, attention_bwd_dq=6,
+                        attention_bwd_dkv=6),
 }
 
 # The headline's compact gated engine: launches per stage-1 call (the ViT
@@ -317,6 +358,22 @@ HM_SHAPES = [(4, 16, 1025, 1025), (3, 3, 77, 130)]
 # B6's function computed by B5's forward entry with the LSE off, at the
 # shape of a head-major primal over ViT-L's refine batch: (B, H, N)
 B6_SHAPE = (18, 16, 1025)
+# B5 with a bias at SAM's six path shapes (RELPOS_SHAPES: windows and
+# global blocks of stage 1, the refine batch and the train step; head dim
+# 80, q, k, v views of one fused qkv tensor, the bf16 [B, H, N, N] bias that
+# decomposed_rel_pos_bias_hm builds), then a ragged Nq != Nk case off the
+# path with a bias broadcast over the heads (stride 0): (path, B, H, Nq, Nk)
+HM_BIAS_RAGGED = ("off_path_ragged", 3, 3, 77, 130)
+# B8 at the pixel decoder's eval shape: one level of a slide call (18 crops
+# x 8 heads, a 32x32 level, 32 channels) sampled at 4 points x 3072
+# queries; (B, H, W, C, N)
+DEFORM_SHAPE = (144, 32, 32, 32, 12288)
+# a narrow ragged case off the path: 5 channels, 40 samples
+DEFORM_OFF_PATH = (3, 7, 9, 5, 40)
+# B8 against the fp32 plain version on the same inputs: the kernel rounds
+# once to bf16 at the end (|err| <= 2^-9 |ref|; 2^-8 leaves room for the
+# fp32 sums' order), and in fp32 only the order of 7 fp32 operations differs
+DEFORM_TOL = {torch.bfloat16: (1e-6, 2.0 ** -8), torch.float32: (1e-5, 1e-6)}
 # LSE: fp32 sums in another order, fast exp/log against exp/log
 LSE_ATOL = 1e-3
 # dq/dk/dv, as max abs error over max |reference|: P and dS round to bf16
@@ -326,6 +383,15 @@ GRAD_REL = 2e-2
 # PARITY.md's bf16 feature budget (2e-2), widened for 24 blocks + two heads
 DRIFT_Q99 = 5e-2
 ARGMAX_AGREE = 0.98
+# Mask2Former, card (bf16) vs CPU (fp32): each decoder layer attends where
+# sigmoid(mask logit) >= 0.5, so a bf16 mask logit near 0 flips a pixel of
+# the next layer's attention mask and moves that query; with seeded weights
+# the 20 class scores per query are near-uniform, so the argmax over the
+# summed class x mask scores has thin margins. q99 drift 1e-1 (a toy
+# DINOv2 + Mask2Former in bf16 against fp32 on the CPU drifted 7.7e-2),
+# argmax agreement 0.95.
+M2F_DRIFT_Q99 = 1e-1
+M2F_ARGMAX_AGREE = 0.95
 # one train step, bf16 card vs fp32 CPU: each loss entry within 3e-2
 # relative (the same bf16 drift through 24 blocks and two heads); the
 # flattened LoRA gradient within cosine 0.98 of the CPU's (bf16 activations
@@ -419,6 +485,18 @@ def sdpa_bwd_fn(q, k, v, dout, scale):
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
     return lambda: torch.autograd.grad(out, (qs, ks, vs), dout,
+                                       retain_graph=True)
+
+
+def sdpa_bias_bwd_fn(q, k, v, bias, dout, scale):
+    """The library yardstick of the bias route's backward: autograd through
+    one ``F.scaled_dot_product_attention`` call with a float ``attn_mask``,
+    computing dq, dk, dv and dbias."""
+    qs, ks, vs, bs = (t.detach().requires_grad_(True) for t in (q, k, v,
+                                                                 bias))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bs,
+                                         scale=scale)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs, bs), dout,
                                        retain_graph=True)
 
 
@@ -1026,6 +1104,206 @@ def phase_kernels_compact(dev) -> list:
     return [summary]
 
 
+def _bias_inputs(randn, b_, h, nq, nk, grid, d):
+    """q, k, v and the bias of one B5-bias case: on a SAM path, views of
+    one fused qkv tensor and the bf16 bias the block builds from its
+    tables; off the path, token-major tensors and a bias broadcast over the
+    heads."""
+    if grid is not None:
+        q, k, v, _, _, tables = _relpos_inputs(randn, b_, h, grid, d)
+        return q, k, v, decomposed_rel_pos_bias_hm(q, *tables, grid)
+    q = randn(b_, nq, h, d).to(torch.bfloat16).transpose(1, 2)
+    k, v = (randn(b_, nk, h, d).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    bias = (randn(b_, 1, nq, nk) * 0.5).to(torch.bfloat16)
+    return q, k, v, bias.expand(b_, h, nq, nk)
+
+
+def check_headmajor_bias(randn, dev) -> list:
+    """B5's three bias entries (forward with LSE, dq with dbias, dk/dv)
+    against autograd through the fp32 plain version with a random dO."""
+    rows = []
+    cases = [(label, b_, h, g[0] * g[1], g[0] * g[1], g)
+             for label, b_, h, g in RELPOS_SHAPES]
+    cases.append(HM_BIAS_RAGGED + (None,))
+    for label, b_, h, nq, nk, grid in cases:
+        d = 80
+        scale = d ** -0.5
+        q, k, v, bias = _bias_inputs(randn, b_, h, nq, nk, grid, d)
+        dout = randn(b_, h, nq, d).to(torch.bfloat16)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        dbias = torch.empty((b_, h, nq, nk), dtype=torch.float32, device=dev)
+
+        out, lse = attention_hm_fwd(q, k, v, scale, bias=bias)
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+        attention_hm_dq(q, k, v, dout, lse, delta, scale, dq, bias=bias,
+                        dbias=dbias)
+        attention_hm_dkv(q, k, v, dout, lse, delta, scale, dk, dv, bias=bias)
+
+        ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (q, k, v)]
+        ref_bias = bias.float().requires_grad_(True)
+        want_out, want_lse = attention_fwd_lse_plain(*ref, scale=scale,
+                                                     bias=ref_bias)
+        want_out.backward(dout.float().transpose(1, 2))
+        torch.cuda.synchronize()
+        out_err = float((out.float().transpose(1, 2)
+                         - want_out.detach()).abs().max())
+        lse_err = float((lse - want_lse.detach()).abs().max())
+        grad_err = _grad_errors(
+            (t.transpose(1, 2) for t in (dq, dk, dv)), ref, (b_, -1, h, d))
+        grad_err["dbias"] = float((dbias - ref_bias.grad).abs().max()
+                                  / ref_bias.grad.abs().max())
+        ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
+              and max(grad_err.values()) <= GRAD_REL)
+        del ref, ref_bias, want_out, want_lse
+        torch.cuda.empty_cache()
+        plain_in = [t.transpose(1, 2) for t in (q, k, v)]
+        p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale,
+                                               bias=bias)
+        n_ = (nq, nk, nk)
+        # the bias read once (its storage: a broadcast bias is smaller than
+        # its view), and dq's fp32 dbias written once
+        bias_bytes = bias.untyped_storage().nbytes()
+        dbias_bytes = dbias.numel() * 4
+        row = dict(
+            path=label, shape=[b_, h, nq, nk, d], bias_dtype=str(bias.dtype),
+            bias_strides=list(bias.stride()), out_max_abs_err=out_err,
+            lse_max_abs_err=lse_err, grad_rel_err=grad_err, ok=ok,
+            fwd_ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale,
+                                                    bias=bias)),
+            fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
+                *plain_in, scale=scale, bias=bias), reps=3, inner=2),
+            fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=scale), reps=3, inner=3),
+            dq_ms=time_ms(lambda: attention_hm_dq(
+                q, k, v, dout, lse, delta, scale, dq, bias=bias,
+                dbias=dbias)),
+            dkv_ms=time_ms(lambda: attention_hm_dkv(
+                q, k, v, dout, lse, delta, scale, dk, dv, bias=bias)),
+            bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
+                *plain_in, p_out, p_lse, dout.transpose(1, 2), scale=scale,
+                bias=bias), reps=3, inner=2),
+            bwd_library_ms=time_ms(sdpa_bias_bwd_fn(q, k, v, bias, dout,
+                                                    scale), reps=3, inner=3),
+            fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1, d=d,
+                                 extra_bytes=bias_bytes),
+            dq_bound=attn_bound(b_, h, nq, nk, 3, n_ + (nq,), (nq,), 2, d=d,
+                                extra_bytes=bias_bytes + dbias_bytes),
+            dkv_bound=attn_bound(b_, h, nq, nk, 4, n_ + (nq,), (nk, nk), 2,
+                                 d=d, extra_bytes=bias_bytes))
+        emit("kernel_attention_hm_bias", out_atol=ATTN_ATOL,
+             lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
+        if not ok:
+            raise AssertionError(f"B5 bias kernels disagree at {label} "
+                                 f"{(b_, h, nq, nk)}: {row}")
+        rows.append(row)
+        del q, k, v, bias, dout, dq, dk, dv, dbias, out, lse, delta
+        del plain_in, p_out, p_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_deform_sample(dev) -> list:
+    """B8 against ``sample_plain`` in fp32 on the same inputs, at the eval
+    shape in bf16 and fp32 and at a narrow ragged case, with coordinates in
+    [-0.1, 1.1]: taps and whole samples outside the plane read zero."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = []
+    cases = [("eval", DEFORM_SHAPE, torch.bfloat16),
+             ("eval_fp32", DEFORM_SHAPE, torch.float32),
+             ("off_path", DEFORM_OFF_PATH, torch.float32)]
+    for label, (b_, h, w, c, n), dtype in cases:
+        value = torch.randn((b_, h, w, c), generator=gen, device=dev).to(dtype)
+        xn, yn = (torch.rand((b_, n), generator=gen, device=dev) * 1.2 - 0.1
+                  for _ in range(2))
+        got = sample_cuda(value, xn, yn).float()
+        want = sample_plain(value.float(), xn, yn)
+        torch.cuda.synchronize()
+        atol, rtol = DEFORM_TOL[dtype]
+        err = (got - want).abs()
+        ok = bool((err <= atol + rtol * want.abs()).all())
+        outside = ((xn < -0.5 / w) | (xn > 1 + 0.5 / w) | (yn < -0.5 / h)
+                   | (yn > 1 + 0.5 / h))
+        ok = ok and bool((got[outside] == 0).all())
+        # the library call takes [B, C, H, W] and a grid in [-1, 1] of the
+        # value's dtype (built outside its timing)
+        vnchw = value.permute(0, 3, 1, 2)
+        grid = torch.stack([xn * 2 - 1, yn * 2 - 1], -1)[:, None].to(dtype)
+        item = value.element_size()
+        row = dict(
+            path=label, shape=[b_, h, w, c], samples=n, dtype=str(dtype),
+            max_abs_err=float(err.max()), outside_share=float(
+                outside.float().mean()), ok=ok,
+            ms=time_ms(lambda: sample_cuda(value, xn, yn)),
+            plain_ms=time_ms(lambda: sample_plain(value, xn, yn)),
+            library_ms=time_ms(lambda: F.grid_sample(
+                vnchw, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=False)),
+            library_call="F.grid_sample(bilinear, zeros, "
+                         "align_corners=False), grid in the value's dtype",
+            # the value read once, both fp32 coordinates, the output written
+            # once; ~7 fp32 operations a channel of a sample
+            **bound(value.numel() * item + 2 * b_ * n * 4
+                    + b_ * n * c * item, 7 * b_ * n * c, "fp32"))
+        emit("kernel_deform_sample", atol=atol, rtol=rtol, **row)
+        if not ok:
+            raise AssertionError(f"B8 disagrees at {label}: {row}")
+        rows.append(row)
+        del value, xn, yn, got, want, err, vnchw, grid
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels_bias_deform(dev) -> list:
+    """B5's bias entries at SAM's bias route's shapes and B8 at
+    Mask2Former's; returns their summary rows."""
+    randn = _randn(np.random.RandomState(SEED + 29), dev)
+    bias_rows = check_headmajor_bias(randn, dev)
+    deform_rows = check_deform_sample(dev)
+    emit("kernels_bias_deform",
+         hm_bias_ms={r["path"]: dict(fwd=r["fwd_ms"], dq=r["dq_ms"],
+                                     dkv=r["dkv_ms"]) for r in bias_rows},
+         deform_sample_ms={r["path"]: r["ms"] for r in deform_rows})
+    # the summaries time the train step's global blocks (B5-bias) and the
+    # eval shape in bf16 (B8); every shape's numbers are in by_path
+    train_global = next(r for r in bias_rows if r["path"] == "train_global")
+    summary = _train_summaries(
+        [train_global] + [r for r in bias_rows if r is not train_global],
+        ("attention_hm_bias_fwd", "attention_hm_bias_dq",
+         "attention_hm_bias_dkv"),
+        ("vfmseg_tpu_torch/csrc/attention_hm.cu",) * 3,
+        ("vfmseg_tpu/ops/flash_attention.py:71",
+         "vfmseg_tpu/ops/flash_attention.py:278",
+         "vfmseg_tpu/ops/flash_attention.py:344"))
+    summary[1]["max_abs_err"] = max(
+        max(r["grad_rel_err"]["dq"], r["grad_rel_err"]["dbias"])
+        for r in bias_rows)
+    for row, kind in zip(summary, ("fwd", "dq", "dkv")):
+        row["library_call"] = ("F.scaled_dot_product_attention with the "
+                               "float attn_mask" + (
+                                   "" if kind == "fwd" else
+                                   ", autograd for dq, dk, dv, dbias"))
+        if kind != "fwd":
+            row["plain_computes"] = row["library_computes"] = (
+                "dq, dk, dv, dbias")
+        row["by_path"] = {r["path"]: dict(
+            shape=r["shape"], ms=r[f"{kind}_ms"],
+            plain_ms=r["fwd_plain_ms" if kind == "fwd" else "bwd_plain_ms"],
+            library_ms=r["fwd_library_ms" if kind == "fwd"
+                         else "bwd_library_ms"],
+            bound_ms=r[f"{kind}_bound"]["bound_ms"],
+            bound_by=r[f"{kind}_bound"]["bound_by"]) for r in bias_rows}
+    deform = _summary("deform_sample", "vfmseg_tpu_torch/csrc/deform_sample.cu",
+                      "vfmseg_tpu/ops/deform_attn.py:134", deform_rows[0],
+                      max(r["max_abs_err"] for r in deform_rows),
+                      library_call=deform_rows[0]["library_call"])
+    deform["by_path"] = {r["path"]: {key: r[key] for key in (
+        "shape", "samples", "dtype", "ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")} for r in deform_rows}
+    return summary + [deform]
+
+
 def calibrate_logit_scale(model, engine, groups, target: float) -> tuple:
     """The decode head's logit scale at which the gate skips ~``target`` of
     the windows of ``groups`` (image batches), as bench.py:489-566 finds it:
@@ -1097,8 +1375,9 @@ def phase_compact_path(dev) -> dict:
     profiler pass over the stream."""
     cfg = headline_config()
     t0 = time.perf_counter()
-    model = init_params(build_segmentor(cfg["model"],
-                                        dtype=compute_dtype(cfg)), SEED)
+    model = init_params(build_segmentor(
+        cfg["model"], dtype=compute_dtype(cfg),
+        attn_impl=compute_attn_impl(cfg)), SEED)
     build_secs = time.perf_counter() - t0
     test_cfg = dict(cfg["test_cfg"], gate="compact")
     dense_cfg = cfg["test_cfg"]
@@ -1236,7 +1515,15 @@ def phase_compact_path(dev) -> dict:
         raise AssertionError(f"compact stream: launches {counts_stream} vs "
                              f"{want}, agreement {stream_agree}")
 
-    # the eval CLI's dataset loop over an in-memory labelled set
+    phase_eval_cli(model, cfg, test_cfg, "compact_eval_cli")
+    del model, engine, per_image, imgs, groups, preds, stream_preds
+    torch.cuda.empty_cache()
+    return {"compact_per_image": counts_image, "compact_stream": counts_stream}
+
+
+def phase_eval_cli(model, cfg, test_cfg, phase: str) -> None:
+    """The eval CLI's dataset loop (``evaluate_dataset``) over an in-memory
+    labelled set of CLI_IMAGES 1024x2048 images; prints its metrics JSON."""
     rs = np.random.RandomState(SEED + 23)
     dataset = []
     for i in range(CLI_IMAGES):
@@ -1256,12 +1543,9 @@ def phase_compact_path(dev) -> dict:
     cli_secs = time.perf_counter() - t0
     if n_eval != CLI_IMAGES or not np.isfinite(list(results.values())).all():
         raise AssertionError(f"eval loop: {n_eval} images, {results}")
-    emit("compact_eval_cli", model=cfg["name"], images=n_eval,
-         seconds=cli_secs, metrics=results)
+    emit(phase, model=cfg["name"], images=n_eval, seconds=cli_secs,
+         metrics=results)
     print(json.dumps(results), flush=True)
-    del model, engine, per_image, imgs, groups, preds, stream_preds
-    torch.cuda.empty_cache()
-    return {"compact_per_image": counts_image, "compact_stream": counts_stream}
 
 
 def _trainable_snapshot(model) -> dict:
@@ -1273,7 +1557,9 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     dtype = compute_dtype(cfg)
-    model = init_params(build_segmentor(cfg["model"], dtype=dtype), SEED)
+    impl = compute_attn_impl(cfg)
+    model = init_params(build_segmentor(cfg["model"], dtype=dtype,
+                                        attn_impl=impl), SEED)
     state = create_train_state(model, cfg)
     build_secs = time.perf_counter() - t0
     before = _trainable_snapshot(model)
@@ -1341,7 +1627,8 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     if restore:
         # a fresh state from the same seed, restored from the last checkpoint
         fresh = create_train_state(init_params(
-            build_segmentor(cfg["model"], dtype=dtype), SEED), cfg)
+            build_segmentor(cfg["model"], dtype=dtype, attn_impl=impl), SEED),
+            cfg)
         fresh = CheckpointManager(TRAIN_WORK_DIR).restore(fresh)
         got = dict(fresh.model.state_dict())
         mismatch = [n for n, t in model.state_dict().items()
@@ -1411,11 +1698,12 @@ def _breakdown(prof, step_ms: float) -> dict:
     groups, top = _device_kernel_ms(prof)
     if not groups:
         return dict(kernel_ms="not measured (no device time in the profile)",
-                    top_kernels=top, device_ms=None, attention_share=None,
-                    idle_share=None)
+                    top_kernels=top, device_ms=None, kernel_share=None,
+                    attention_share=None, idle_share=None)
     device_ms = sum(groups.values())
     attn = sum(v for k, v in groups.items() if k.startswith("attention"))
     return dict(kernel_ms=groups, top_kernels=top, device_ms=device_ms,
+                kernel_share={k: v / device_ms for k, v in groups.items()},
                 attention_share=attn / device_ms,
                 idle_share=max(1 - device_ms / step_ms, 0.0))
 
@@ -1492,8 +1780,9 @@ def phase_train_card_vs_cpu(dev, cfg, label: str) -> None:
     batch = collate([ds[0], ds[1]])
 
     def one_step(device, dtype):
-        model = init_params(build_segmentor(c["model"], dtype=dtype,
-                                            device=device), SEED)
+        model = init_params(build_segmentor(
+            c["model"], dtype=dtype, device=device,
+            attn_impl=compute_attn_impl(c)), SEED)
         state = create_train_state(model, c)
         t0 = time.perf_counter()
         _, metrics = make_train_step()(state, batch, SEED)
@@ -1558,8 +1847,9 @@ def refined_windows(model, img: torch.Tensor, test_cfg: dict) -> int:
 
 def phase_main_path(dev, cfg, label: str) -> tuple:
     t0 = time.perf_counter()
-    model = init_params(build_segmentor(cfg["model"],
-                                        dtype=compute_dtype(cfg)), SEED)
+    model = init_params(build_segmentor(
+        cfg["model"], dtype=compute_dtype(cfg),
+        attn_impl=compute_attn_impl(cfg)), SEED)
     build_secs = time.perf_counter() - t0
     test_cfg = cfg["test_cfg"]
     predict = make_shape_aware_predict_fn(model, test_cfg)
@@ -1592,8 +1882,9 @@ def phase_main_path(dev, cfg, label: str) -> tuple:
             model, imgs[:1].to(dev))
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("main-path logits are not finite")
-    refined = [refined_windows(model, imgs[i:i + 1].to(dev), test_cfg)
-               for i in range(N_IMAGES)]
+    refined = ([refined_windows(model, imgs[i:i + 1].to(dev), test_cfg)
+                for i in range(N_IMAGES)]
+               if test_cfg["mode"] == "ms_slide_inference" else None)
     steady = latencies[1:]
     emit("main_path" if label == "dinov2" else f"{label}_main_path",
          model=cfg["name"], images=N_IMAGES, image_hw=list(IMAGE_HW),
@@ -1614,9 +1905,9 @@ def phase_card_vs_cpu(model, dev, cfg, label: str) -> None:
     img = synthetic_images(1, CHECK_HW, SEED + 2)
     with torch.inference_mode():
         card = logits_fn(model, img.to(dev)).float().cpu()
-    cpu_model = init_params(build_segmentor(cfg["model"],
-                                            dtype=torch.float32,
-                                            device="cpu"), SEED)
+    cpu_model = init_params(build_segmentor(
+        cfg["model"], dtype=torch.float32, device="cpu",
+        attn_impl=compute_attn_impl(cfg)), SEED)
     t0 = time.perf_counter()
     with torch.inference_mode():
         cpu = logits_fn(cpu_model, img)
@@ -1627,11 +1918,14 @@ def phase_card_vs_cpu(model, dev, cfg, label: str) -> None:
     scale = float(np.quantile(np.abs(cpu.numpy()).ravel(), 0.99))
     drift = float(np.quantile(err, 0.99)) / max(scale, 1e-9)
     agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
-    ok = drift < DRIFT_Q99 and agree >= ARGMAX_AGREE
+    drift_limit, agree_limit = ((M2F_DRIFT_Q99, M2F_ARGMAX_AGREE)
+                                if label == "m2f"
+                                else (DRIFT_Q99, ARGMAX_AGREE))
+    ok = drift < drift_limit and agree >= agree_limit
     emit("card_vs_cpu" if label == "dinov2" else f"{label}_card_vs_cpu",
          model=cfg["name"], image_hw=list(CHECK_HW), q99_rel_drift=drift,
-         drift_limit=DRIFT_Q99, argmax_agreement=agree,
-         agreement_limit=ARGMAX_AGREE, max_abs_err=float(err.max()),
+         drift_limit=drift_limit, argmax_agreement=agree,
+         agreement_limit=agree_limit, max_abs_err=float(err.max()),
          cpu_seconds=cpu_secs, ok=ok)
     if not ok:
         raise AssertionError(f"{label} card vs CPU: q99 drift {drift}, "
@@ -1681,6 +1975,31 @@ def run_paths(dev, cfg, label: str, restore: bool) -> dict:
     return {f"{label}_inference": counts, f"{label}_train": train_counts}
 
 
+def sam_bias_config() -> dict:
+    """dg_lora_sam_ms_masked on the bias route: its config with
+    ``compute.attn_impl = "pallas_bias"`` (``--cfg-options
+    compute.attn_impl=pallas_bias`` on the eval CLI)."""
+    cfg = sam_config()
+    cfg["compute"]["attn_impl"] = "pallas_bias"
+    return cfg
+
+
+def run_m2f_paths(dev) -> dict:
+    """dg_lora_dinov2_mask2former's slide eval at full width: 3 images
+    through the predictor, card vs CPU, a profiled image (B8's share of the
+    device time), and the eval CLI's loop."""
+    t0 = time.perf_counter()
+    cfg = mask2former_config()
+    model, counts = phase_main_path(dev, cfg, "m2f")
+    phase_card_vs_cpu(model, dev, cfg, "m2f")
+    phase_main_breakdown(model, dev, cfg, "m2f")
+    phase_eval_cli(model, cfg, cfg["test_cfg"], "m2f_eval_cli")
+    del model
+    torch.cuda.empty_cache()
+    emit("m2f_paths_done", seconds=time.perf_counter() - t0)
+    return {"m2f_inference": counts}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -1689,7 +2008,7 @@ def main() -> None:
     summary = phase_kernels(dev) + phase_kernels_train(dev)
     ln_eva02, eva02_rows = phase_kernels_eva02(dev)
     summary += (eva02_rows + phase_kernels_sam(dev)
-                + phase_kernels_compact(dev))
+                + phase_kernels_compact(dev) + phase_kernels_bias_deform(dev))
     ln = summary[0]
     ln["max_abs_err"] = max([ln["max_abs_err"]]
                             + [r["max_abs_err"] for r in ln_eva02])
@@ -1697,7 +2016,10 @@ def main() -> None:
     by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
     by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
     by_path.update(run_paths(dev, sam_config(), "sam", restore=False))
+    by_path.update(run_paths(dev, sam_bias_config(), "sam_bias",
+                             restore=False))
     by_path.update(phase_compact_path(dev))
+    by_path.update(run_m2f_paths(dev))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(paths.values())

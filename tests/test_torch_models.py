@@ -17,7 +17,7 @@ import torch
 from vfmseg_tpu.models.build import build_segmentor as jax_build_segmentor
 from vfmseg_tpu.models.segmentors.ms_vfm import MsVFMSegmentor as JaxMsVFM
 from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
-from vfmseg_tpu_torch.models.build import build_segmentor
+from vfmseg_tpu_torch.models.build import build_segmentor, compute_attn_impl
 from vfmseg_tpu_torch.models.presets import config
 from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
 
@@ -84,8 +84,10 @@ def _fill(tree, rng, path=()):
 
 def jax_model_and_variables(cfg, seed=0):
     """The JAX segmentor and seeded variables of its shapes: LoRA B, the
-    BatchNorm statistics and LayerScale are all non-trivial."""
-    model = jax_build_segmentor(cfg["model"], dtype=jnp.float32)
+    BatchNorm statistics and LayerScale are all non-trivial. The model takes
+    the config's ``compute.attn_impl``."""
+    model = jax_build_segmentor(cfg["model"], dtype=jnp.float32,
+                                attn_impl=cfg["compute"]["attn_impl"])
     img = jnp.zeros((1, 128, 128, 3), jnp.float32)
     lab = jnp.zeros((1, 128, 128), jnp.int32)
     rngs = {name: jax.random.PRNGKey(i) for i, name in
@@ -98,7 +100,7 @@ def jax_model_and_variables(cfg, seed=0):
 
 def port_model(cfg, variables):
     model = build_segmentor(cfg["model"], dtype=torch.float32,
-                            device="cpu")
+                            device="cpu", attn_impl=compute_attn_impl(cfg))
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     return model
 
@@ -207,3 +209,73 @@ def test_init_params_is_seeded_and_nontrivial():
     assert lora_b and all(v.abs().sum() > 0 for v in lora_b)
     assert all(v.abs().sum() > 0 for k, v in a.items()
                if k.endswith("running_mean"))
+
+
+# ------------------------------------------------- the builders' surface ----
+
+def _with(cfg, path, value):
+    """``cfg`` with ``value`` set at the ``/``-joined ``path`` of its model
+    section."""
+    node = cfg["model"]
+    *parents, leaf = path.split("/")
+    for part in parents:
+        node = node[part]
+    node[leaf] = value
+    return cfg
+
+
+@pytest.mark.parametrize("family,path,value,error", [
+    ("dinov2", "backbone/backbone/not_a_key", 1, TypeError),
+    ("sam", "backbone/backbone/use_checkpoint", True, TypeError),
+    ("eva02", "backbone/backbone/xattn", True, TypeError),
+    ("dinov2", "decode_head/not_a_key", 1, TypeError),
+    ("dinov2", "aux_head/transformer/not_a_key", 1, TypeError),
+    ("dinov2", "not_a_key", 1, TypeError),
+    ("dinov2", "backbone/backbone/remat", True, NotImplementedError),
+    ("sam", "backbone/backbone/resize_feat", True, NotImplementedError),
+])
+def test_builders_refuse_keys_they_do_not_take(family, path, value, error):
+    """A key that no builder uses or names as ignored raises, and so do the
+    options the port does not implement (remat, resize_feat), where the
+    builders used to drop them silently. The keys the JAX builders ignore
+    by name build: DINOv2's block_chunks, a head's in_index."""
+    with pytest.raises(error):
+        build_segmentor(_with(toy_config(family=family), path, value)["model"],
+                        device="cpu")
+    cfg = _with(toy_config(), "backbone/backbone/block_chunks", 4)
+    build_segmentor(_with(cfg, "decode_head/in_index", [0, 1, 2, 3])["model"],
+                    device="cpu")
+
+
+def test_attn_impl_is_taken_and_checked():
+    """``compute.attn_impl`` reaches the backbone: "pallas_bias" puts every
+    SAM block on the bias route and leaves DINOv2 on its one route (equal
+    features to "auto"); "auto", "pallas" and "xla" take the default route;
+    any other value raises."""
+    cfg = toy_config(family="sam")
+    for impl in ("auto", "pallas", "xla", "pallas_bias"):
+        model = build_segmentor(cfg["model"], device="cpu", attn_impl=impl)
+        assert [blk.attn.bias_route for blk in model.backbone.blocks] == (
+            [impl == "pallas_bias"] * 4)
+    with pytest.raises(ValueError, match="attn_impl"):
+        build_segmentor(cfg["model"], device="cpu", attn_impl="flash")
+    cfg = toy_config()
+    img = torch.from_numpy(_img(5, (1, 64, 64, 3)))
+    feats = []
+    for impl in ("auto", "pallas_bias"):
+        model = init_params(build_segmentor(cfg["model"], device="cpu",
+                                            attn_impl=impl), 3)
+        with torch.no_grad():
+            feats.append(model.backbone(img))
+    for a, b in zip(*feats):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_dinov2_drop_path_rate_reaches_the_blocks():
+    """DINOv2's drop_path_rate goes to the ViT as in the JAX builder: each
+    block's rate grows linearly over the depth to the configured one."""
+    cfg = _with(toy_config(), "backbone/backbone/drop_path_rate", 0.3)
+    model = build_segmentor(cfg["model"], device="cpu")
+    rates = [blk.drop_path_rate for blk in model.backbone.blocks]
+    np.testing.assert_allclose(rates, [0.0, 0.1, 0.2, 0.3], atol=1e-12)
+    assert model.backbone.cfg.drop_path_rate == 0.3

@@ -372,8 +372,11 @@ def _patched_randint(values):
     return lambda *args, **kwargs: jnp.asarray(vals.pop(0), jnp.int32)
 
 
-def _check_train_step(family, seed=2):
+def _check_train_step(family, seed=2, attn_impl="auto"):
+    """One train step of the toy ``family`` segmentor, both packages on the
+    ``attn_impl`` route, held to each other; returns the port's metrics."""
     cfg = deterministic_config(family)
+    cfg["compute"]["attn_impl"] = attn_impl
     jmodel, variables = jax_model_and_variables(cfg, seed=seed)
     batch = _batch()
     trainable, frozen = partition_params(
@@ -446,6 +449,7 @@ def _check_train_step(family, seed=2):
         if "running" in name:
             np.testing.assert_allclose(own[name].numpy(), want.numpy(),
                                        atol=1e-5, rtol=0, err_msg=name)
+    return metrics
 
 
 def test_train_step_matches_jax():

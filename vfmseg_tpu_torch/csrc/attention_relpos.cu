@@ -58,11 +58,6 @@ namespace {
 
 using namespace vfmseg_attn;
 
-// Element strides of one [B, H, N, D] view.
-struct View {
-  int64_t b, h, n;
-};
-
 struct RelposArgs {
   const bf16* q;
   const bf16* k;
@@ -75,18 +70,6 @@ struct RelposArgs {
   float scale;
 };
 
-// Shapes of a head dim D: staged rows padded by 8 elements, 16-byte vectors
-// per row, k=16 chunks of a contraction over d, n=8 tiles across d.
-template <int D>
-struct Dims {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  static constexpr int kRowD = D + 8;
-  static constexpr int kVecs = D / 8;
-  static constexpr int kChunks = D / 16;
-  static constexpr int kTiles = D / 8;
-  static constexpr int kTileElems = kBlock * kRowD;
-};
-
 // Odd row stride of a staged fp32 rel-term row of c entries.
 __host__ __device__ __forceinline__ int odd_stride(int c) { return c | 1; }
 
@@ -94,104 +77,6 @@ template <int D>
 size_t smem_bytes(int kh, int kw) {
   return 3 * sizeof(bf16) * Dims<D>::kTileElems +
          sizeof(float) * kBlock * (odd_stride(kh) + odd_stride(kw));
-}
-
-__device__ __forceinline__ const bf16* at(const bf16* p, const View& s, int b, int h, int row) {
-  return p + b * s.b + h * s.h + static_cast<int64_t>(row) * s.n;
-}
-
-__device__ __forceinline__ bf16* at(bf16* p, const View& s, int b, int h, int row) {
-  return p + b * s.b + h * s.h + static_cast<int64_t>(row) * s.n;
-}
-
-// Copy rows [0, valid) of a 64 x D tile into padded shared memory with 16-byte
-// loads; rows past `valid` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile_d(bf16* dst, const bf16* src, int64_t row_stride,
-                                            int valid, int tid) {
-#pragma unroll
-  for (int i = tid; i < kBlock * Dims<D>::kVecs; i += kThreads) {
-    const int r = i / Dims<D>::kVecs;
-    const int c = (i % Dims<D>::kVecs) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) v = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Dims<D>::kRowD + c) = v;
-  }
-}
-
-// A fragments of this warp's 16 rows of the staged Q tile, one per k=16 chunk
-// of the head dim.
-template <int D>
-__device__ __forceinline__ void load_a_rows_d(uint32_t (&a)[Dims<D>::kChunks][4],
-                                              const bf16* tile, int warp, int g, int t) {
-  constexpr int R = Dims<D>::kRowD;
-  const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int kc = 0; kc < Dims<D>::kChunks; ++kc) {
-    const bf16* p = tile + kc * 16 + 2 * t;
-    a[kc][0] = load_u32(p + r0 * R);
-    a[kc][1] = load_u32(p + (r0 + 8) * R);
-    a[kc][2] = load_u32(p + r0 * R + 8);
-    a[kc][3] = load_u32(p + (r0 + 8) * R + 8);
-  }
-}
-
-// acc[16 x 64] = Q . K^T over the head dim (tile = the staged K tile).
-template <int D>
-__device__ __forceinline__ void mma_scores(float (&acc)[kNTiles][4],
-                                           const uint32_t (&a)[Dims<D>::kChunks][4],
-                                           const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const bf16* r = tile + (nt * 8 + g) * Dims<D>::kRowD + 2 * t;
-#pragma unroll
-    for (int kc = 0; kc < Dims<D>::kChunks; ++kc) {
-      mma_m16n8k16(acc[nt], a[kc], load_u32(r + kc * 16), load_u32(r + kc * 16 + 8));
-    }
-  }
-}
-
-// acc[16 x D] += P . V, with P [16 x 64] given as fp32 C fragments (packed to
-// bf16 here) and the staged V tile's rows the contraction axis.
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[Dims<D>::kTiles][4],
-                                       const float (&p)[kNTiles][4], const bf16* tile, int g,
-                                       int t) {
-  constexpr int R = Dims<D>::kRowD;
-#pragma unroll
-  for (int kc = 0; kc < kKChunks; ++kc) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * kc][0], p[2 * kc][1]);
-    pa[1] = pack_bf16(p[2 * kc][2], p[2 * kc][3]);
-    pa[2] = pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-    pa[3] = pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-    const bf16* r = tile + (kc * 16 + 2 * t) * R + g;
-#pragma unroll
-    for (int dt = 0; dt < Dims<D>::kTiles; ++dt) {
-      const bf16* q = r + dt * 8;
-      mma_m16n8k16(acc[dt], pa, pack_pair(q, q + R), pack_pair(q + 8 * R, q + 9 * R));
-    }
-  }
-}
-
-// Store this warp's 16 x D accumulator rows, scaled per row, as bf16 at
-// base + row * row_stride, skipping rows >= n.
-template <int D>
-__device__ __forceinline__ void store_rows_d(bf16* base, int64_t row_stride, int row0, int n,
-                                             const float (&acc)[Dims<D>::kTiles][4], float s0,
-                                             float s1, int t) {
-#pragma unroll
-  for (int dt = 0; dt < Dims<D>::kTiles; ++dt) {
-    if (row0 < n) {
-      *reinterpret_cast<uint32_t*>(base + row0 * row_stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][0] * s0, acc[dt][1] * s0);
-    }
-    if (row0 + 8 < n) {
-      *reinterpret_cast<uint32_t*>(base + (row0 + 8) * row_stride + dt * 8 + 2 * t) =
-          pack_bf16(acc[dt][2] * s1, acc[dt][3] * s1);
-    }
-  }
 }
 
 // Stage rows [0, valid) of a contiguous [*, c] bf16 rel term as fp32 rows of
@@ -329,8 +214,6 @@ int launch(const RelposArgs& a, int batch, cudaStream_t stream) {
   attention_relpos_kernel<D><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
-
-View view(const long long* s, int i) { return View{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
 
 }  // namespace
 

@@ -9,9 +9,12 @@ them, so one predictor serves any copy of the model (CPU fp32 or CUDA bf16).
 * ``make_logits_fn`` gives ``(model, img) -> input-sized logits`` for the
   MsVFM modes: ``ms_slide_inference`` (the dense gated two-stage slide),
   ``lr_slide_inference``, ``hr_slide_inference`` and
-  ``msfull_slide_inference``. ``whole`` and ``slide`` call a segmentor's
-  ``encode_decode``, which ``MsVFMSegmentor`` has in neither package; they
-  raise ``NotImplementedError``.
+  ``msfull_slide_inference``; and for the encoder-decoder segmentors
+  (``EncoderDecoder``, Mask2Former's ``MaskFormerSegmentor``) ``whole`` and
+  ``slide`` (also taken for ``lr_``/``hr_slide_inference``, as in the JAX
+  package), which call their ``encode_decode``. ``MsVFMSegmentor`` has no
+  ``encode_decode`` in either package, so ``whole`` and ``slide`` raise
+  ``NotImplementedError`` for it.
 * ``make_shape_aware_predict_fn`` gives ``predict(model, img, out_hw)``:
   labels at the label resolution, with optional flip/multi-scale TTA and
   shape bucketing (``pad_multiple``). With ``test_cfg.gate == "compact"``
@@ -25,7 +28,8 @@ them, so one predictor serves any copy of the model (CPU fp32 or CUDA bf16).
 
 Typical use, as ``vfmseg_tpu_torch.tools.test`` does per image::
 
-    model = build_segmentor(cfg["model"], dtype=compute_dtype(cfg))
+    model = build_segmentor(cfg["model"], dtype=compute_dtype(cfg),
+                            attn_impl=compute_attn_impl(cfg))
     predict = make_shape_aware_predict_fn(model, cfg["test_cfg"])
     labels = predict(model, img, out_hw)      # img: NHWC, preprocessed
 """
@@ -48,6 +52,7 @@ from vfmseg_tpu_torch.eval.slide import (
     slide_inference,
 )
 from vfmseg_tpu_torch.eval.tta import tta_logits
+from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
 from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
 from vfmseg_tpu_torch.ops.resize import resize
 
@@ -73,10 +78,20 @@ def make_logits_fn(model, test_cfg: Dict, mode: str) -> Callable:
     (reference inference modes, Ms_VFM_encoder_decoder.py:278-332)."""
     model = unwrap_model(model)
     test_cfg = test_cfg or {}
-    if mode not in MSVFM_MODES or not isinstance(model, MsVFMSegmentor):
+    crop = tuple(test_cfg.get("crop_size", (512, 512)))
+    if not isinstance(model, MsVFMSegmentor):
+        if not isinstance(model, EncoderDecoder) or mode not in (
+                "whole", "slide", "lr_slide_inference", "hr_slide_inference"):
+            raise NotImplementedError(
+                f"mode {mode!r} on {type(model).__name__} is not ported")
+        if mode == "whole":
+            return lambda m, img: m.encode_decode(img)
+        slide_stride = tuple(test_cfg.get("stride", (341, 341)))
+        return lambda m, img: slide_inference(m.encode_decode, img, crop,
+                                              slide_stride)
+    if mode not in MSVFM_MODES:
         raise NotImplementedError(
             f"mode {mode!r} on {type(model).__name__} is not ported")
-    crop = tuple(test_cfg.get("crop_size", (512, 512)))
     stride = tuple(test_cfg.get("stride", (320, 320)))
     lr_size = tuple(test_cfg.get("lr_img_size", (512, 1024)))
 
@@ -211,7 +226,7 @@ def make_shape_aware_predict_fn(model, test_cfg: Dict, tta: bool = False,
                                   flip=True, scales=scales)
 
     @torch.inference_mode()
-    def predict(m: MsVFMSegmentor, img: torch.Tensor,
+    def predict(m, img: torch.Tensor,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
         img, (vh, vw) = _pad_to_min(img, min_hw, multiple=pad_multiple)
         return _finish(logits_fn(m, img)[:, :vh, :vw], tuple(out_hw))

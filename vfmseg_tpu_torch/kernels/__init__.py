@@ -51,19 +51,37 @@ ATTENTION_BWD_DKV = Kernel("attention_bwd_dkv", "vfmseg_attention_bwd_dkv",
                             _I, _I, _I, _I, _I, _I, _I, _F, _P])
 
 # csrc/attention_hm.cu: q, k, v, out, lse (or null), strides (int64 array:
-# batch, head, token of q, k, v, out), batch, heads, nq, nk, scale, stream
+# batch, head, token of q, k, v, out), batch, heads, nq, nk, head_dim, scale,
+# stream
 ATTENTION_HM_FWD = Kernel("attention_hm_fwd", "vfmseg_attention_hm_fwd",
-                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])
+                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
 # csrc/attention_hm.cu: q, k, v, dout, lse, delta, dq, strides (q, k, v,
-# dout, dq), batch, heads, nq, nk, scale, stream
+# dout, dq), batch, heads, nq, nk, head_dim, scale, stream
 ATTENTION_HM_DQ = Kernel("attention_hm_dq", "vfmseg_attention_hm_dq",
-                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                          _P])
+                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _P])
 # csrc/attention_hm.cu: as above with dk, dv in place of dq (strides: q, k,
 # v, dout, dk, dv)
 ATTENTION_HM_DKV = Kernel("attention_hm_dkv", "vfmseg_attention_hm_dkv",
                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _P])
+                           _I, _F, _P])
+# csrc/attention_hm.cu, with an additive bias: q, k, v, bias, out, lse (or
+# null), strides (q, k, v, out, bias), bias_kind (1 bf16, 2 fp32), batch,
+# heads, nq, nk, head_dim, scale, stream
+ATTENTION_HM_BIAS_FWD = Kernel(
+    "attention_hm_bias_fwd", "vfmseg_attention_hm_bias_fwd",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_hm.cu: q, k, v, dout, lse, delta, bias, dq, dbias, strides
+# (q, k, v, dout, dq, bias), bias_kind, batch, heads, nq, nk, head_dim, scale,
+# stream
+ATTENTION_HM_BIAS_DQ = Kernel(
+    "attention_hm_bias_dq", "vfmseg_attention_hm_bias_dq",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_hm.cu: q, k, v, dout, lse, delta, bias, dk, dv, strides (q,
+# k, v, dout, dk, dv, bias), then as above
+ATTENTION_HM_BIAS_DKV = Kernel(
+    "attention_hm_bias_dkv", "vfmseg_attention_hm_bias_dkv",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
 
 # csrc/attention_relpos.cu: q, k, v, rel_h, rel_w, out, strides (int64
 # array: batch, head, token of q, k, v, out), batch, heads, n, kh, kw,
@@ -77,9 +95,16 @@ ATTENTION_RELPOS = Kernel("attention_relpos", "vfmseg_attention_relpos",
 WINDOW_BLEND = Kernel("window_blend", "vfmseg_window_blend",
                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P])
 
+# csrc/deform_sample.cu: value, xn, yn, out, batch, n, h, w, c, dtype (0
+# fp32, 1 bf16), stream
+DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
            ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
-           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_RELPOS, WINDOW_BLEND)
+           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_HM_BIAS_FWD,
+           ATTENTION_HM_BIAS_DQ, ATTENTION_HM_BIAS_DKV, ATTENTION_RELPOS,
+           WINDOW_BLEND, DEFORM_SAMPLE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -3,7 +3,9 @@
 Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
 config surface (configs/_base_/models/lora_*_ms_masked.py) and build the ViT
 core of ``vit.py``; ``EVA2`` builds through ``eva02.py`` and ``SAMViT``
-through ``sam.py``.
+through ``sam.py``. A key that a builder neither uses nor names as ignored
+raises ``TypeError``, and a value the port does not implement raises
+(``check_unported``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from vfmseg_tpu_torch.models.backbones.adapters import (
 )
 from vfmseg_tpu_torch.models.backbones.eva02 import build_eva02
 from vfmseg_tpu_torch.models.backbones.sam import build_sam
-from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
+from vfmseg_tpu_torch.models.backbones.vit import (
+    ViTConfig,
+    VisionTransformer,
+    check_unported,
+)
 
 # the linears of the ported ViT that LoRA may target
 LORA_LINEARS = {"qkv", "q_proj", "k_proj", "v_proj", "proj", "fc1", "fc2"}
@@ -37,18 +43,25 @@ def build_dinov2(
     proj_bias: bool = True,
     ffn_bias: bool = True,
     out_indices: Sequence[int] = (7, 11, 15, 23),
+    drop_path_rate: float = 0.0,
+    block_chunks: int = 0,  # config parity: torch FSDP chunking, as in JAX
     lora: Optional[LoRASpec] = None,
     dtype: torch.dtype = torch.float32,
-    **_unused,
+    attn_impl: str = "auto",
+    remat: bool = False,
+    resize_feat: bool = False,
 ) -> VisionTransformer:
+    del block_chunks
     if ffn_layer != "mlp":
         raise NotImplementedError(f"ffn_layer={ffn_layer!r} is not ported")
+    check_unported(remat=remat, resize_feat=resize_feat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
         out_indices=tuple(out_indices), qkv_bias=qkv_bias,
         proj_bias=proj_bias, ffn_bias=ffn_bias, init_values=init_values,
-        ln_eps=1e-6, dtype=dtype)
+        drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_impl=attn_impl,
+        dtype=dtype)
     return VisionTransformer(cfg, lora=lora)
 
 
@@ -57,20 +70,23 @@ _BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02,
 
 
 def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
-                   dtype: torch.dtype = torch.float32) -> VisionTransformer:
+                   dtype: torch.dtype = torch.float32,
+                   attn_impl: str = "auto") -> VisionTransformer:
     cfg = dict(cfg)
     kind = cfg.pop("type")
     if kind == "LoRABackbone":
         if lora is not None:
             raise ValueError("nested LoRABackbone")
-        return build_lora_backbone(dtype=dtype, **cfg)
+        return build_lora_backbone(dtype=dtype, attn_impl=attn_impl, **cfg)
     if kind not in _BACKBONES:
         raise NotImplementedError(f"backbone type {kind!r} is not ported")
-    return _BACKBONES[kind](lora=lora, dtype=dtype, **cfg)
+    return _BACKBONES[kind](lora=lora, dtype=dtype, attn_impl=attn_impl,
+                            **cfg)
 
 
 def build_lora_backbone(backbone: dict, Lora_config: dict, checkpoint: str = "",
                         dtype: torch.dtype = torch.float32,
+                        attn_impl: str = "auto",
                         **extra) -> VisionTransformer:
     """Reference LoRABackbone (lora_backbone.py:12-24): the inner backbone
     with LoRA on its target linears. ``checkpoint`` is the converted
@@ -87,4 +103,5 @@ def build_lora_backbone(backbone: dict, Lora_config: dict, checkpoint: str = "",
     if unknown:
         raise NotImplementedError(f"LoRA targets {sorted(unknown)} are not "
                                   "linears of the ported ViT")
-    return build_backbone(dict(backbone, **extra), lora=lora, dtype=dtype)
+    return build_backbone(dict(backbone, **extra), lora=lora, dtype=dtype,
+                          attn_impl=attn_impl)

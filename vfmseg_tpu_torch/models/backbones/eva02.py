@@ -16,7 +16,11 @@ from typing import Optional, Sequence
 import torch
 
 from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
-from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
+from vfmseg_tpu_torch.models.backbones.vit import (
+    ViTConfig,
+    VisionTransformer,
+    check_unported,
+)
 
 
 def build_eva02(
@@ -38,12 +42,15 @@ def build_eva02(
     use_abs_pos_emb: bool = True,
     lora: Optional[LoRASpec] = None,
     dtype: torch.dtype = torch.float32,
-    **_unused,  # xattn / use_checkpoint / norm_layer: torch artifacts
+    attn_impl: str = "auto",
+    remat: bool = False,
+    resize_feat: bool = False,
 ) -> VisionTransformer:
     if not (subln and naiveswiglu and use_abs_pos_emb):
         raise NotImplementedError("EVA02 without the sub-LN attention, the "
                                   "SwiGLU or the absolute pos-embed is not "
                                   "ported")
+    check_unported(remat=remat, resize_feat=resize_feat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -51,7 +58,7 @@ def build_eva02(
         ffn_layer="swiglu_eva", init_values=init_values,
         drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_type="split_subln",
         use_rope=rope, rope_pt_seq_len=pt_hw_seq_len,
-        rope_intp_freq=intp_freq, dtype=dtype)
+        rope_intp_freq=intp_freq, attn_impl=attn_impl, dtype=dtype)
     return VisionTransformer(cfg, lora=lora)
 
 

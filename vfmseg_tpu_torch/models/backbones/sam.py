@@ -17,7 +17,11 @@ from typing import Optional, Sequence
 import torch
 
 from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
-from vfmseg_tpu_torch.models.backbones.vit import ViTConfig, VisionTransformer
+from vfmseg_tpu_torch.models.backbones.vit import (
+    ViTConfig,
+    VisionTransformer,
+    check_unported,
+)
 
 
 def build_sam(
@@ -36,11 +40,21 @@ def build_sam(
     pretrain_img_size: int = 1024,
     lora: Optional[LoRASpec] = None,
     dtype: torch.dtype = torch.float32,
-    **_unused,  # attn_impl / remat: TPU options
+    drop_path_rate: float = 0.0,
+    attn_impl: str = "auto",
+    remat: bool = False,
+    resize_feat: bool = False,
 ) -> VisionTransformer:
+    """``attn_impl="pallas_bias"``: every block attends with the
+    materialised rel-pos bias (B5's bias kernels) instead of B7.
+    ``drop_path_rate``: the JAX SAM has no drop-path (its builder drops the
+    key), so only 0 is taken."""
     if not use_abs_pos:
         raise NotImplementedError("SAM without the absolute pos-embed is not "
                                   "ported")
+    if drop_path_rate:
+        raise NotImplementedError("drop-path on SAM's blocks is not ported")
+    check_unported(remat=remat, resize_feat=resize_feat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -49,13 +63,16 @@ def build_sam(
         pos_embed="learned_2d", window_size=window_size or None,
         global_attn_indexes=tuple(global_attn_indexes),
         use_rel_pos=use_rel_pos,
-        rel_pos_pretrain_extent=pretrain_img_size // patch_size, dtype=dtype)
+        rel_pos_pretrain_extent=pretrain_img_size // patch_size,
+        attn_impl=attn_impl, dtype=dtype)
     return VisionTransformer(cfg, lora=lora)
 
 
 def sam_vit_h(img_size: int = 512, lora: Optional[LoRASpec] = None,
-              dtype: torch.dtype = torch.float32) -> VisionTransformer:
-    return build_sam(img_size=img_size, lora=lora, dtype=dtype)
+              dtype: torch.dtype = torch.float32,
+              attn_impl: str = "auto") -> VisionTransformer:
+    return build_sam(img_size=img_size, lora=lora, dtype=dtype,
+                     attn_impl=attn_impl)
 
 
 def sam_tiny_for_tests(img_size: int = 64, depth: int = 4, embed_dim: int = 32,
@@ -63,10 +80,10 @@ def sam_tiny_for_tests(img_size: int = 64, depth: int = 4, embed_dim: int = 32,
                        global_attn_indexes: Sequence[int] = (1, 3),
                        out_indices: Sequence[int] = (0, 1, 2, 3),
                        lora: Optional[LoRASpec] = None,
-                       dtype: torch.dtype = torch.float32
-                       ) -> VisionTransformer:
+                       dtype: torch.dtype = torch.float32,
+                       attn_impl: str = "auto") -> VisionTransformer:
     return build_sam(
         img_size=img_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, window_size=window_size,
         global_attn_indexes=global_attn_indexes, out_indices=out_indices,
-        pretrain_img_size=128, lora=lora, dtype=dtype)
+        pretrain_img_size=128, lora=lora, dtype=dtype, attn_impl=attn_impl)

@@ -27,7 +27,11 @@ drop-path in training, feature maps taken before any final norm at
   vit.py:282-311, 363-385): q, k and v are head-major views of the fused
   qkv output, the decomposed relative-position terms are built from q and
   the block's ``rel_pos_h``/``rel_pos_w`` tables, and the attention adds
-  them to its logits (B7). Windowed blocks partition the normalised tokens
+  them to its logits (B7). With ``attn_impl="pallas_bias"`` (vit.py:291-298)
+  the block instead materialises the ``[B, H, N, N]`` bias from the terms
+  and runs the head-major attention with it (B5's bias kernels, whose dq
+  kernel writes dbias; autograd takes it back through the bias builder to q
+  and the tables). Windowed blocks partition the normalised tokens
   into zero-padded windows around the attention only; the blocks at
   ``global_attn_indexes`` attend over the whole grid with tables sized for
   the pretraining grid, resized to the grid at hand.
@@ -72,10 +76,15 @@ from vfmseg_tpu_torch.ops.rope import (
     vit_rope_tables,
 )
 from vfmseg_tpu_torch.ops.window import (
+    decomposed_rel_pos_bias_hm,
     decomposed_rel_pos_terms_hm,
     window_partition,
     window_unpartition,
 )
+
+
+# the compute.attn_impl values the JAX package takes
+ATTN_IMPLS = ("auto", "pallas", "xla", "pallas_bias")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +121,25 @@ class ViTConfig:
     global_attn_indexes: Tuple[int, ...] = ()
     use_rel_pos: bool = False
     rel_pos_pretrain_extent: int = 64
+    # "auto", "pallas" or "xla": the port's one route (the kernels on CUDA
+    # tensors, the plain versions on the CPU); "pallas_bias": SAM's blocks
+    # attend with the materialised rel-pos bias (ATTN_IMPLS)
+    attn_impl: str = "auto"
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
+                             f"{ATTN_IMPLS}")
+
+
+def check_unported(*, remat: bool, resize_feat: bool) -> None:
+    """Raise for the backbone options the port does not implement:
+    rematerialisation (``remat``, a memory option) and Rein's pyramid
+    resizing of the feature maps (``resize_feat``)."""
+    for name, value in (("remat", remat), ("resize_feat", resize_feat)):
+        if value:
+            raise NotImplementedError(f"{name}=True is not ported")
 
 
 class RopeTables(NamedTuple):
@@ -175,13 +202,16 @@ class Attention(nn.Module):
 
     With ``rel_pos_len`` (SAM), the block's ``[rel_pos_len, head_dim]``
     tables give the decomposed relative-position terms over the ``hw`` grid
-    of the tokens, and q, k, v are head-major views of the qkv output."""
+    of the tokens, and q, k, v are head-major views of the qkv output; the
+    attention adds the terms to its logits (B7), or with
+    ``attn_impl="pallas_bias"`` adds the whole bias built from them (B5)."""
 
     def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec],
                  rel_pos_len: int = 0):
         super().__init__()
         dim = cfg.embed_dim
         self.num_heads = cfg.num_heads
+        self.bias_route = cfg.attn_impl == "pallas_bias"
         self.qkv = make_dense(dim, 3 * dim, cfg.qkv_bias, "qkv", lora,
                               cfg.dtype)
         self.proj = make_dense(dim, dim, cfg.proj_bias, "proj", lora,
@@ -203,9 +233,14 @@ class Attention(nn.Module):
         b, n, c = x.shape
         h = self.num_heads
         q, k, v = qkv.reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        rel_h, rel_w = decomposed_rel_pos_terms_hm(
-            q, self.rel_pos_h.to(q.dtype), self.rel_pos_w.to(q.dtype), hw)
-        out = multi_head_attention_decomposed_hm(q, k, v, rel_h, rel_w)
+        tables = (q, self.rel_pos_h.to(q.dtype), self.rel_pos_w.to(q.dtype),
+                  hw)
+        if self.bias_route:
+            out = multi_head_attention_headmajor(
+                q, k, v, bias=decomposed_rel_pos_bias_hm(*tables))
+        else:
+            out = multi_head_attention_decomposed_hm(
+                q, k, v, *decomposed_rel_pos_terms_hm(*tables))
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 

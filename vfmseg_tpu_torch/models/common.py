@@ -40,19 +40,20 @@ class Dense(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` on NHWC tensors, computing in ``dtype``."""
+    """``nn.Conv2d`` on NHWC tensors, computing in ``dtype``; ``padding``
+    zero-pads every side (1 for flax's ``"SAME"`` at a 3x3 kernel)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True,
+                 stride: int = 1, bias: bool = True, padding: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         bias=bias)
+                         padding=padding, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
                      self.weight.to(self.dtype), _cast(self.bias, self.dtype),
-                     self.stride)
+                     self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 

@@ -34,7 +34,11 @@ BN_MOMENTUM = 0.9  # flax's convention; torch's momentum 0.1
 class LinearHead(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (1024,) * 4,
                  num_classes: int = 19, dropout_ratio: float = 0.1,
-                 dtype: torch.dtype = torch.float32, **_unused):
+                 channels: int = 256, align_corners: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        """``channels`` and ``align_corners``: config parity; the widths
+        follow ``in_channels[0]`` and no resize happens here."""
+        del channels, align_corners
         super().__init__()
         c = in_channels[0]
         self.dtype = dtype

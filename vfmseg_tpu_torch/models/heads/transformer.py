@@ -104,8 +104,7 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, query_dim: int, img_feat_dim: int, n_heads: int = 8,
                  d_head: int = 64, depth: int = 1, dropout: float = 0.0,
-                 mask_ratio: float = 0.0, dtype: torch.dtype = torch.float32,
-                 **_unused):
+                 mask_ratio: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mask_ratio = mask_ratio
         if mask_ratio > 0:

@@ -27,8 +27,11 @@ class VFMHead(nn.Module):
     def __init__(self, transformer: Optional[dict] = None,
                  in_channels: Sequence[int] = (1024,) * 4, channels: int = 256,
                  num_classes: int = 19, dropout_ratio: float = 0.1,
-                 align_corners: bool = False,
-                 dtype: torch.dtype = torch.float32, **_unused):
+                 align_corners: bool = False, attn_impl: str = "auto",
+                 dtype: torch.dtype = torch.float32):
+        """``attn_impl``: the decoder's attention has one route in the port
+        (the kernels on CUDA tensors) whatever the value."""
+        del attn_impl
         super().__init__()
         ch = channels
         self.align_corners = align_corners

@@ -8,9 +8,14 @@ configs/_base_/models/lora_dinov2_ms_masked.py) in :func:`headline_config`,
 and the same MsVFM segmentor on a LoRA EVA02-L backbone
 (configs/dg/gta2citys/dg_lora_eva02_ms_masked.py) in :func:`eva02_config`
 and on a LoRA SAM ViT-H backbone (configs/dg/gta2citys/
-dg_lora_sam_ms_masked.py) in :func:`sam_config`; :func:`config` looks any of
-them up by name, and :func:`apply_cfg_options` applies ``--cfg-options``
-overrides. The CPU smoke config ``smoke_tiny_ms_masked`` is carried too
+dg_lora_sam_ms_masked.py) in :func:`sam_config`; the encoder-decoder configs
+on DINOv2-L, LoRA with the Mask2Former head (dg_lora_dinov2_mask2former),
+LoRA with a LinearHead (dg_lora_dinov2_linearhead) and frozen with the
+Mask2Former head (dg_fzn_dinov2_mask2former_512x512), in
+:func:`mask2former_config`, :func:`linearhead_config` and
+:func:`frozen_mask2former_config`; :func:`config` looks any of them up by
+name, and :func:`apply_cfg_options` applies ``--cfg-options`` overrides.
+The CPU smoke config ``smoke_tiny_ms_masked`` is carried too
 (:func:`smoke_tiny_config`), so the two eval CLIs can be compared. Tests
 hold each equal to the JAX ``load_config``.
 """
@@ -111,6 +116,23 @@ def vfm_aux_head(in_dim: int = 1024, channels: int = 256,
                 num_classes=num_classes, align_corners=False)
 
 
+def mask2former_head(in_dim: int = 1024, num_classes: int = 19) -> dict:
+    """Mask2FormerHead (rein_dinov2_mask2former.py values, learned
+    queries)."""
+    return dict(
+        type="Mask2FormerHead", replace_query_feat=False,
+        in_channels=[in_dim] * 4, strides=[4, 8, 16, 32], feat_channels=256,
+        out_channels=256, num_classes=num_classes, num_queries=100,
+        num_transformer_feat_level=3, align_corners=False,
+        transformer_decoder=dict(num_layers=9),
+        train_cfg=dict(num_points=12544, oversample_ratio=3.0,
+                       importance_sample_ratio=0.75))
+
+
+def slide_test_cfg(crop: int = 512, stride: int = 341) -> dict:
+    return dict(mode="slide", crop_size=(crop, crop), stride=(stride, stride))
+
+
 def ms_test_cfg() -> dict:
     """MsVFM two-stage test cfg (the reference's 0.968 / 0.8 gate)."""
     return dict(
@@ -132,6 +154,31 @@ def dg_test_data() -> dict:
               dict(type="MapillaryDataset", data_root="data/mapillary",
                    key="map")],
         test_resize_wh=(2048, 1024),
+    )
+
+
+def dg_test_data_512() -> dict:
+    """The evaluation sets of the 512x512 GTAV -> Cityscapes dataset base
+    (configs/_base_/datasets/dg_gta2citys_512x512.py): Cityscapes and
+    Mapillary resized to 1024x512 (keep ratio), BDD100K to 1280x720."""
+    data = dg_test_data()
+    data["test"][1]["test_resize_wh"] = (1280, 720)
+    data["test_resize_wh"] = (1024, 512)
+    return data
+
+
+def _training() -> dict:
+    """The optimizer, schedule, PEFT and batch settings every ported DG
+    config shares (configs/_base_/schedules/default_40k.py)."""
+    return dict(
+        optimizer=dict(lr=1e-4, weight_decay=0.05, betas=(0.9, 0.999),
+                       eps=1e-8, poly_power=0.9, warmup_steps=0),
+        schedule=dict(max_iters=40000, val_interval=8000,
+                      checkpoint_interval=4000, max_keep_ckpts=3,
+                      log_interval=50, seed=0),
+        peft=dict(enabled=True, adapter_keywords=["lora"]),
+        batch_size=2,
+        compute=dict(dtype="bfloat16", attn_impl="auto"),
     )
 
 
@@ -158,14 +205,7 @@ def headline_config() -> dict:
             feature_scale=0.5,
         ),
         test_cfg=ms_test_cfg(),
-        optimizer=dict(lr=1e-4, weight_decay=0.05, betas=(0.9, 0.999),
-                       eps=1e-8, poly_power=0.9, warmup_steps=0),
-        schedule=dict(max_iters=40000, val_interval=8000,
-                      checkpoint_interval=4000, max_keep_ckpts=3,
-                      log_interval=50, seed=0),
-        peft=dict(enabled=True, adapter_keywords=["lora"]),
-        batch_size=2,
-        compute=dict(dtype="bfloat16", attn_impl="auto"),
+        **_training(),
     )
 
 
@@ -190,6 +230,70 @@ def sam_config() -> dict:
     m["backbone"] = lora_sam(img_size=512)
     m["decode_head"].update(in_channels=[SAM_DIM] * 4, channels=320)
     m["aux_head"].update(in_channels=[SAM_DIM] * 4)
+    return cfg
+
+
+def mask2former_config() -> dict:
+    """dg_lora_dinov2_mask2former: LoRA DINOv2-L (its own LoRA wrapper,
+    LoraBackboneEncoderDecoder) with the Mask2Former head at 512x512 crops,
+    slide eval at 512 / 341 (configs/_base_/models/
+    lora_dinov2_mask2former.py over the 512x512 dataset base). DINOv2 leaves
+    its four maps at 1/16, so the pixel decoder's three levels are all
+    32x32 at a 512 crop."""
+    return dict(
+        name="dg_lora_dinov2_mask2former",
+        crop_size=(512, 512),
+        num_classes=19,
+        data=dg_test_data_512(),
+        preprocessor=dict(PREPROCESSOR),
+        model=dict(
+            type="LoraBackboneEncoderDecoder",
+            checkpoint=DINOV2_CHECKPOINT,
+            Lora_config=dict(r=32, lora_alpha=32, target_modules=["qkv"],
+                             lora_dropout=0.1),
+            backbone=dinov2_l(img_size=512),
+            decode_head=mask2former_head(DINOV2_DIM),
+        ),
+        test_cfg=slide_test_cfg(),
+        **_training(),
+    )
+
+
+def linearhead_config() -> dict:
+    """dg_lora_dinov2_linearhead: the single-scale LoRA DINOv2-L baseline,
+    an EncoderDecoder with a LinearHead at 512x512 crops, slide eval at
+    512 / 341; the headline's data and training settings."""
+    cfg = headline_config()
+    cfg.update(name="dg_lora_dinov2_linearhead", crop_size=(512, 512),
+               test_cfg=slide_test_cfg())
+    cfg["model"] = dict(
+        type="EncoderDecoder",
+        backbone=dict(
+            type="LoRABackbone",
+            backbone=dict(type="DinoVisionTransformer", patch_size=16,
+                          embed_dim=1024, depth=24, num_heads=16, mlp_ratio=4,
+                          img_size=512, init_values=1e-05),
+            checkpoint=DINOV2_CHECKPOINT,
+            Lora_config=dict(r=32, lora_alpha=32, target_modules=["qkv"],
+                             lora_dropout=0.1),
+        ),
+        decode_head=dict(type="LinearHead", in_channels=[DINOV2_DIM] * 4,
+                         channels=256, dropout_ratio=0.1, num_classes=19,
+                         align_corners=False),
+    )
+    return cfg
+
+
+def frozen_mask2former_config() -> dict:
+    """dg_fzn_dinov2_mask2former_512x512: a frozen DINOv2-L
+    (FrozenBackboneEncoderDecoder) with the Mask2Former head; only the head
+    trains (no adapter keywords)."""
+    cfg = mask2former_config()
+    cfg["name"] = "dg_fzn_dinov2_mask2former_512x512"
+    cfg["model"] = dict(type="FrozenBackboneEncoderDecoder",
+                        backbone=dinov2_l(img_size=512),
+                        decode_head=mask2former_head(DINOV2_DIM))
+    cfg["peft"] = dict(enabled=True, adapter_keywords=[])
     return cfg
 
 
@@ -241,6 +345,9 @@ def smoke_tiny_config() -> dict:
 CONFIGS = {"dg_lora_dinov2_ms_masked": headline_config,
            "dg_lora_eva02_ms_masked": eva02_config,
            "dg_lora_sam_ms_masked": sam_config,
+           "dg_lora_dinov2_mask2former": mask2former_config,
+           "dg_lora_dinov2_linearhead": linearhead_config,
+           "dg_fzn_dinov2_mask2former_512x512": frozen_mask2former_config,
            "smoke_tiny_ms_masked": smoke_tiny_config}
 
 

@@ -1,1 +1,1 @@
-"""Segmentors: MsVFM inference methods."""
+"""Segmentors: MsVFM, the plain encoder-decoder and Mask2Former's."""

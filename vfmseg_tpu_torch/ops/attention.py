@@ -4,20 +4,24 @@ with its backward.
 Port of vfmseg_tpu/ops/attention.py:31-57 (``xla_attention``), :101-158
 (``xla_attention_decomposed_hm``, ``multi_head_attention_decomposed_hm``),
 :194-235 (``multi_head_attention_qkv_tm``, with its ``rope_cs``), :238-269
-(``multi_head_attention_headmajor`` without the bias branch) and :272-314
+(``multi_head_attention_headmajor``, its bias branch included) and :272-314
 (``multi_head_attention``), whose TPU kernels are ``flash_attention_qkv_tm``
 with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
-``_flash_hm`` and ``flash_attention_relpos_hm`` with ``_flash_relpos_hm``
-(vfmseg_tpu/ops/flash_attention.py:1579-1663, 1775-1814, 1940-1977).
+``_flash_hm``, ``flash_attention(bias=)`` with ``_flash_bias`` and
+``flash_attention_relpos_hm`` with ``_flash_relpos_hm``
+(vfmseg_tpu/ops/flash_attention.py:1579-1663, 1775-1814, 2002-2042,
+1940-1977).
 
 * :func:`attention_plain` is the plain PyTorch version: fp32 logits and
   softmax, probabilities cast to v's dtype before the product with v.
   :func:`attention_fwd_lse_plain` adds the log-sum-exp of the scaled logits,
   and :func:`attention_bwd_plain` is the backward that recomputes the
-  probabilities from it, on whole tensors. :func:`attention_qkv_rope_plain`
-  rotates q and k by RoPE first. :func:`attention_decomposed_plain` adds
-  SAM's decomposed rel-pos bias from its two k-separable terms.
-* Kernels, on bf16 views with head dim 64 (B7: 64 or 80):
+  probabilities from it, on whole tensors; each takes an optional additive
+  ``[B, H, Nq, Nk]`` bias, whose gradient the backward then returns too.
+  :func:`attention_qkv_rope_plain` rotates q and k by RoPE first.
+  :func:`attention_decomposed_plain` adds SAM's decomposed rel-pos bias from
+  its two k-separable terms.
+* Kernels, on bf16 views with head dim 64 (B5 and B7: 64 or 80):
 
   - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2), and
     :func:`attention_qkv_rope_tm`, its RoPE variant (EVA02 inference);
@@ -27,15 +31,17 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
     over ``[B, N, H*64]`` views of one stride pair;
   - :func:`attention_hm_fwd`, :func:`attention_hm_dq` and
     :func:`attention_hm_dkv` (``csrc/attention_hm.cu``, B5), general
-    attention over ``[B, H, N, 64]`` views with their own strides and
-    Nq != Nk;
+    attention over ``[B, H, N, D]`` views with their own strides and
+    Nq != Nk, with an optional additive bias (then the dq kernel also
+    writes the fp32 dbias);
   - :func:`attention_relpos_hm` (``csrc/attention_relpos.cu``, B7), SAM's
     attention with the rel-pos bias rebuilt in the kernel from its terms.
 * :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`,
   :func:`multi_head_attention_decomposed_hm` and :func:`multi_head_attention`
   pick: when grad is enabled and an input requires it, the autograd
   Functions :class:`FusedQKVAttention` / :class:`QKVAttention` (B3 forward,
-  B4 backward on CUDA), :class:`HeadMajorAttention` (B5) or
+  B4 backward on CUDA), :class:`HeadMajorAttention` (B5, with or without a
+  bias) or
   :class:`DecomposedRelPosAttention` (B7 forward, plain recomputed
   backward), with the plain twins on the CPU, as the JAX package takes its
   forward rules under differentiation; otherwise the inference kernels on
@@ -60,6 +66,9 @@ from vfmseg_tpu_torch.kernels import (
     ATTENTION_BWD_DQ,
     ATTENTION_FWD_LSE,
     ATTENTION_HM_DKV,
+    ATTENTION_HM_BIAS_DKV,
+    ATTENTION_HM_BIAS_DQ,
+    ATTENTION_HM_BIAS_FWD,
     ATTENTION_HM_DQ,
     ATTENTION_HM_FWD,
     ATTENTION_QKV,
@@ -68,17 +77,27 @@ from vfmseg_tpu_torch.kernels import (
 )
 from vfmseg_tpu_torch.ops.rope import apply_rope_permuted
 
-HEAD_DIM = 64  # the only head dim the attention kernels take
+HEAD_DIM = 64  # the only head dim B2, B3 and B4 take
+HM_HEAD_DIMS = (64, 80)  # the head dims B5 and B7 are built for
 _INT_MAX = 2**31 - 1
 
 
+def _logits(q, k, scale, bias):
+    """fp32 ``[B, H, Nq, Nk]`` logits: q k^T * scale, plus the bias in
+    fp32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return logits if bias is None else logits + bias.float()
+
+
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v per head. q: [B, Nq, H, D]; k/v:
-    [B, Nk, H, D]. Returns [B, Nq, H, D] in q's dtype."""
+                    scale: Optional[float] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v per head (``xla_attention``). q:
+    [B, Nq, H, D]; k/v: [B, Nk, H, D]; bias: optional, broadcastable to
+    [B, H, Nq, Nk]. Returns [B, Nq, H, D] in q's dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _logits(q, k, scale, bias)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
@@ -100,13 +119,15 @@ def attention_qkv_rope_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, *, scale: Optional[float] = None
+                            v: torch.Tensor, *, scale: Optional[float] = None,
+                            bias: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`attention_plain` and the natural-log LSE of the fp32 scaled
-    logits. Returns (out [B, Nq, H, D] in q's dtype, lse [B, H, Nq] fp32)."""
+    (and biased) logits. Returns (out [B, Nq, H, D] in q's dtype, lse
+    [B, H, Nq] fp32)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _logits(q, k, scale, bias)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.exp(logits - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
@@ -116,24 +137,26 @@ def attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
 
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
-                        dout: torch.Tensor, *, scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dout: torch.Tensor, *, scale: Optional[float] = None,
+                        bias: Optional[torch.Tensor] = None) -> tuple:
     """The backward of :func:`attention_fwd_lse_plain` by the LSE/delta
-    recurrence of the kernels, in fp32 on whole tensors: P = exp(S*scale -
-    lse), delta = rowsum(dO*O), dS = P*(dP - delta)*scale, dq = dS.K,
-    dk = dS^T.Q, dv = P^T.dO. Returns dq, dk, dv in q's dtype."""
+    recurrence of the kernels, in fp32 on whole tensors: P = exp(S*scale +
+    bias - lse), delta = rowsum(dO*O), dbias = P*(dP - delta), dS =
+    dbias*scale, dq = dS.K, dk = dS^T.Q, dv = P^T.dO. Returns dq, dk, dv in
+    q's dtype, and with a bias also dbias, fp32 ``[B, H, Nq, Nk]``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
-    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-                  - lse.float()[..., None])
+    p = torch.exp(_logits(qf, kf, scale, bias) - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     delta = (gf * of).sum(-1).transpose(1, 2)          # [B, H, Nq]
-    ds = p * (dp - delta[..., None]) * scale
+    dbias = p * (dp - delta[..., None])
+    ds = dbias * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    grads = (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype))
+    return grads if bias is None else grads + (dbias,)
 
 
 def _strided_views(fn: str, num_heads: int, *views: torch.Tensor
@@ -376,17 +399,18 @@ def _hm_strides_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _hm_views(fn: str, *views: torch.Tensor, head_dims=(HEAD_DIM,)):
-    """Check bf16 CUDA ``[B, H, N, D]`` views (D in ``head_dims``, one D for
-    all) on one device, unit stride along the head dim, other strides
+def _hm_views(fn: str, *views: torch.Tensor, bias=None):
+    """Check bf16 CUDA ``[B, H, N, D]`` views (D in ``HM_HEAD_DIMS``, one D
+    for all) on one device, unit stride along the head dim, other strides
     multiples of 8 and 16-byte aligned data; return their (batch, head,
-    token) strides as the int64 array the B5 and B7 entries read."""
+    token) strides as the int64 array the B5 and B7 entries read, with the
+    bias's last (``_hm_bias``)."""
     first = views[0]
     for t in views:
-        if (t.dim() != 4 or t.shape[-1] not in head_dims
+        if (t.dim() != 4 or t.shape[-1] not in HM_HEAD_DIMS
                 or t.shape[-1] != first.shape[-1]):
             raise ValueError(f"{fn} takes [B, H, N, D] views with head dim D "
-                             f"in {head_dims}, got {tuple(t.shape)}")
+                             f"in {HM_HEAD_DIMS}, got {tuple(t.shape)}")
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
         if t.dtype != torch.bfloat16:
@@ -403,7 +427,26 @@ def _hm_views(fn: str, *views: torch.Tensor, head_dims=(HEAD_DIM,)):
         raise ValueError(f"{fn}: shape {tuple(first.shape)} exceeds the "
                          f"launch limits")
     vals = [st for t in views for st in t.stride()[:3]]
+    if bias is not None:
+        vals += list(bias.stride()[:3])
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+_BIAS_KINDS = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def _hm_bias(fn: str, bias: torch.Tensor, q: torch.Tensor, nk: int) -> int:
+    """Check a bias view for B5: ``[B, H, Nq, Nk]`` bf16 or fp32 on q's
+    card with unit stride along Nk (any other strides, 0 where it is
+    broadcast); return the entry's bias kind."""
+    b, h, nq, _ = q.shape
+    if (tuple(bias.shape) != (b, h, nq, nk) or bias.dtype not in _BIAS_KINDS
+            or bias.device != q.device or (nk > 1 and bias.stride(-1) != 1)):
+        raise ValueError(f"{fn} needs a bf16 or fp32 bias view of shape "
+                         f"{(b, h, nq, nk)} on {q.device} with unit stride "
+                         f"along Nk, got {bias.dtype} {tuple(bias.shape)} "
+                         f"strides {bias.stride()}")
+    return _BIAS_KINDS[bias.dtype]
 
 
 def _hm_rows(fn: str, t: torch.Tensor, shape) -> None:
@@ -422,59 +465,92 @@ def _hm_out(like: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def attention_hm_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: float, with_lse: bool = True
+                     scale: float, with_lse: bool = True,
+                     bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch B5's forward on bf16 CUDA ``[B, H, Nq, 64]`` q and
-    ``[B, H, Nk, 64]`` k, v views (each with its own strides). Returns (out:
-    a ``[B, H, Nq, 64]`` view of a token-major tensor, lse: contiguous fp32
-    ``[B, H, Nq]`` or None)."""
-    b, h, nq, _ = q.shape
+    """Launch B5's forward on bf16 CUDA ``[B, H, Nq, D]`` q and
+    ``[B, H, Nk, D]`` k, v views (D 64 or 80, each view with its own
+    strides), with an optional bias as ``_hm_bias`` takes it (then through
+    the bias entry). Returns (out: a ``[B, H, Nq, D]`` view of a token-major
+    tensor, lse: contiguous fp32 ``[B, H, Nq]`` or None)."""
+    fn = "attention_hm_fwd"
+    b, h, nq, d = q.shape
     nk = k.shape[2]
     if k.shape != v.shape:
-        raise ValueError("attention_hm_fwd needs k and v of one shape")
+        raise ValueError(f"{fn} needs k and v of one shape")
     out = _hm_out(q, nq)
-    strides = _hm_views("attention_hm_fwd", q, k, v, out)
+    strides = _hm_views(fn, q, k, v, out, bias=bias)
+    kind = _hm_bias(fn, bias, q, nk) if bias is not None else 0
     lse = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0 or nk == 0:
         return out, lse
-    ATTENTION_HM_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     lse.data_ptr() if with_lse else None,
-                     ctypes.addressof(strides), b, h, nq, nk, float(scale),
-                     _stream(q))
+    lse_ptr = lse.data_ptr() if with_lse else None
+    if bias is None:
+        ATTENTION_HM_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), lse_ptr, ctypes.addressof(strides),
+                         b, h, nq, nk, d, float(scale), _stream(q))
+    else:
+        ATTENTION_HM_BIAS_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), out.data_ptr(), lse_ptr,
+                              ctypes.addressof(strides), kind, b, h, nq, nk,
+                              d, float(scale), _stream(q))
     return out, lse
 
 
 def attention_hm_dq(q, k, v, dout, lse, delta, scale: float,
-                    dq: torch.Tensor) -> None:
-    """Launch B5's dq kernel: q, k, v as the forward took them; dout and dq
-    ``[B, H, Nq, 64]`` views; lse and delta contiguous fp32 ``[B, H, Nq]``."""
-    b, h, nq, _ = q.shape
-    strides = _hm_views("attention_hm_dq", q, k, v, dout, dq)
+                    dq: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                    dbias: Optional[torch.Tensor] = None) -> None:
+    """Launch B5's dq kernel: q, k, v (and the bias) as the forward took
+    them; dout and dq ``[B, H, Nq, D]`` views; lse and delta contiguous fp32
+    ``[B, H, Nq]``. With a bias it also writes ``dbias``, a contiguous fp32
+    ``[B, H, Nq, Nk]`` tensor: dL/d(logits), before the scale."""
+    fn = "attention_hm_dq"
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    strides = _hm_views(fn, q, k, v, dout, dq, bias=bias)
     for t in (lse, delta):
-        _hm_rows("attention_hm_dq", t, (b, h, nq))
-    if q.numel() == 0 or k.shape[2] == 0:
+        _hm_rows(fn, t, (b, h, nq))
+    if bias is not None:
+        kind = _hm_bias(fn, bias, q, nk)
+        _hm_rows(fn, dbias, (b, h, nq, nk))
+    if q.numel() == 0 or nk == 0:
         return
-    ATTENTION_HM_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                    ctypes.addressof(strides), b, h, nq, k.shape[2],
-                    float(scale), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    if bias is None:
+        ATTENTION_HM_DQ(*args, dq.data_ptr(), ctypes.addressof(strides), b, h,
+                        nq, nk, d, float(scale), _stream(q))
+    else:
+        ATTENTION_HM_BIAS_DQ(*args, bias.data_ptr(), dq.data_ptr(),
+                             dbias.data_ptr(), ctypes.addressof(strides),
+                             kind, b, h, nq, nk, d, float(scale), _stream(q))
 
 
 def attention_hm_dkv(q, k, v, dout, lse, delta, scale: float,
-                     dk: torch.Tensor, dv: torch.Tensor) -> None:
+                     dk: torch.Tensor, dv: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> None:
     """Launch B5's dk/dv kernel; arguments as :func:`attention_hm_dq`,
-    writing dk and dv, ``[B, H, Nk, 64]`` views."""
-    b, h, nq, _ = q.shape
-    strides = _hm_views("attention_hm_dkv", q, k, v, dout, dk, dv)
+    writing dk and dv, ``[B, H, Nk, D]`` views."""
+    fn = "attention_hm_dkv"
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    strides = _hm_views(fn, q, k, v, dout, dk, dv, bias=bias)
     for t in (lse, delta):
-        _hm_rows("attention_hm_dkv", t, (b, h, nq))
+        _hm_rows(fn, t, (b, h, nq))
+    kind = _hm_bias(fn, bias, q, nk) if bias is not None else 0
     if k.numel() == 0:
         return
-    ATTENTION_HM_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
-                     b, h, nq, k.shape[2], float(scale), _stream(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    if bias is None:
+        ATTENTION_HM_DKV(*args, dk.data_ptr(), dv.data_ptr(),
+                         ctypes.addressof(strides), b, h, nq, nk, d,
+                         float(scale), _stream(q))
+    else:
+        ATTENTION_HM_BIAS_DKV(*args, bias.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), ctypes.addressof(strides), kind,
+                              b, h, nq, nk, d, float(scale), _stream(q))
 
 
 def _hm_layout(t: torch.Tensor) -> torch.Tensor:
@@ -486,38 +562,60 @@ def _tok(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2)  # [B, H, N, D] <-> [B, N, H, D]
 
 
+def _bias_layout(bias: torch.Tensor) -> torch.Tensor:
+    """``bias`` if B5 reads it as it is (unit stride along Nk), else a
+    contiguous copy."""
+    return bias if bias.stride(-1) == 1 else bias.contiguous()
+
+
 class HeadMajorAttention(torch.autograd.Function):
     """Training attention over head-major ``[B, H, N, D]`` views (port of
-    ``_flash_hm_fwd_rule`` / ``_flash_hm_bwd_rule``): B5's forward with the
-    LSE, then its dq and dk/dv kernels, on CUDA; the LSE twins on the CPU.
-    The gradients come back in the layout of q, k and v."""
+    ``_flash_hm_fwd_rule`` / ``_flash_hm_bwd_rule``, and with a
+    ``[B, H, Nq, Nk]`` bias of ``_flash_bias_fwd_rule`` /
+    ``_flash_bias_bwd_rule``): B5's forward with the LSE, then its dq (with
+    the fp32 dbias) and dk/dv kernels, on CUDA; the LSE twins on the CPU.
+    The gradients come back in the layout of q, k and v, and dbias in the
+    bias's dtype, as the JAX rule casts it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, bias, scale):
         if q.is_cuda:
-            out, lse = attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale)
+            if bias is not None:
+                bias = _bias_layout(bias)
+            out, lse = attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale,
+                                        bias=bias)
         else:
             out, lse = attention_fwd_lse_plain(_tok(q), _tok(k), _tok(v),
-                                               scale=scale)
+                                               scale=scale, bias=bias)
             out = _tok(out)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, bias, out, lse = ctx.saved_tensors
         if not q.is_cuda:
             grads = attention_bwd_plain(_tok(q), _tok(k), _tok(v), _tok(out),
-                                        lse, _tok(dout), scale=ctx.scale)
-            return tuple(_tok(g) for g in grads) + (None,)
+                                        lse, _tok(dout), scale=ctx.scale,
+                                        bias=bias)
+            dbias = None if bias is None else grads[3].to(bias.dtype)
+            return tuple(_tok(g) for g in grads[:3]) + (dbias, None)
         q, k, v = map(_hm_layout, (q, k, v))
         dout = _hm_layout(dout)
         delta = (dout.float() * out.float()).sum(-1).contiguous()
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        attention_hm_dq(q, k, v, dout, lse, delta, ctx.scale, dq)
-        attention_hm_dkv(q, k, v, dout, lse, delta, ctx.scale, dk, dv)
-        return dq, dk, dv, None
+        dbias = None
+        if bias is not None:
+            dbias = torch.empty(bias.shape, dtype=torch.float32,
+                                device=bias.device)
+        attention_hm_dq(q, k, v, dout, lse, delta, ctx.scale, dq, bias=bias,
+                        dbias=dbias)
+        attention_hm_dkv(q, k, v, dout, lse, delta, ctx.scale, dk, dv,
+                         bias=bias)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -526,22 +624,31 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 def multi_head_attention_headmajor(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, *,
-                                   scale: Optional[float] = None
+                                   scale: Optional[float] = None,
+                                   bias: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """MHA over head-major ``[B, H, Nq, D]`` q and ``[B, H, Nk, D]`` k/v
-    views; returns ``[B, H, Nq, D]``. Under differentiation
-    :class:`HeadMajorAttention`; otherwise B5's forward without the LSE on
-    CUDA and :func:`attention_plain` on the CPU."""
+    views, with an optional additive bias broadcastable to
+    ``[B, H, Nq, Nk]`` (expanded to it as a view; autograd sums its
+    gradient back over the broadcast dimensions); returns ``[B, H, Nq, D]``.
+    Under differentiation :class:`HeadMajorAttention`; otherwise B5's
+    forward without the LSE on CUDA and :func:`attention_plain` on the
+    CPU."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"attention on {q.device}")
-    if _wants_grad(q, k, v):
-        return HeadMajorAttention.apply(q, k, v, scale)
+    if bias is not None:
+        b, h, nq, _ = q.shape
+        bias = bias.expand(b, h, nq, k.shape[2])
+    if _wants_grad(q, k, v, *(() if bias is None else (bias,))):
+        return HeadMajorAttention.apply(q, k, v, bias, scale)
     if q.is_cuda:
-        return attention_hm_fwd(*map(_hm_layout, (q, k, v)), scale,
-                                with_lse=False)[0]
-    return _tok(attention_plain(_tok(q), _tok(k), _tok(v), scale=scale))
+        return attention_hm_fwd(
+            *map(_hm_layout, (q, k, v)), scale, with_lse=False,
+            bias=None if bias is None else _bias_layout(bias))[0]
+    return _tok(attention_plain(_tok(q), _tok(k), _tok(v), scale=scale,
+                                bias=bias))
 
 
 def attention_decomposed_plain(q: torch.Tensor, k: torch.Tensor,
@@ -568,9 +675,6 @@ def attention_decomposed_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-RELPOS_HEAD_DIMS = (64, 80)  # the head dims B7 is built for
-
-
 def attention_relpos_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         rel_h: torch.Tensor, rel_w: torch.Tensor,
                         scale: float) -> torch.Tensor:
@@ -584,7 +688,7 @@ def attention_relpos_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{fn} needs q, k and v of one shape")
     out = _hm_out(q, q.shape[2])
-    strides = _hm_views(fn, q, k, v, out, head_dims=RELPOS_HEAD_DIMS)
+    strides = _hm_views(fn, q, k, v, out)
     b, h, n, d = q.shape
     kh, kw = rel_h.shape[-1], rel_w.shape[-1]
     for name, t, c in (("rel_h", rel_h, kh), ("rel_w", rel_w, kw)):

@@ -18,7 +18,8 @@ Port of vfmseg_tpu/ops/window.py:19-110 (reference sam_vit.py:301-432):
   ``bias[..., q, i*kw + j] = rel_h[..., q, i] + rel_w[..., q, j]``; the
   attention adds them to its logits (``ops/attention.py``), so no
   ``[B, H, N, N]`` bias exists. :func:`decomposed_rel_pos_bias_hm` builds
-  that bias, for the plain version and the library yardstick only.
+  that bias: the ``attn_impl="pallas_bias"`` route attends with it, and the
+  library yardstick takes it.
 """
 
 from __future__ import annotations

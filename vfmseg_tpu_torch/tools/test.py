@@ -42,7 +42,11 @@ from vfmseg_tpu_torch.eval.evaluator import (
     stream_evaluate,
 )
 from vfmseg_tpu_torch.eval.metrics import CITYSCAPES_CLASSES, IoUAccumulator
-from vfmseg_tpu_torch.models.build import build_segmentor, compute_dtype
+from vfmseg_tpu_torch.models.build import (
+    build_segmentor,
+    compute_attn_impl,
+    compute_dtype,
+)
 from vfmseg_tpu_torch.models.presets import (
     apply_cfg_options,
     config,
@@ -172,7 +176,8 @@ def main(argv=None) -> dict:
     name = os.path.splitext(os.path.basename(args.config))[0]
     cfg = apply_cfg_options(config(name), args.cfg_options)
     model = build_segmentor(cfg["model"], dtype=compute_dtype(cfg),
-                            device=args.device)
+                            device=args.device,
+                            attn_impl=compute_attn_impl(cfg))
     load_weights(model, args.checkpoint, args.backbone)
 
     test_sets = get_path(cfg, "data.test") or get_path(cfg, "data.val") or []

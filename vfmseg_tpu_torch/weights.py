@@ -13,10 +13,14 @@
   parameters and BatchNorm statistics (checkpoints, gradients);
   :func:`flax_name` gives one port name's flax path.
 * :func:`init_params` fills a model from a seed through ``torch.Generator``,
-  with LoRA B, the BatchNorm statistics and SAM's rel-pos tables non-zero
-  and LayerScale well above its 1e-5 init, so that no branch is trivially
-  zero. The draws are made on the CPU and copied to the model's device, so
-  a seed gives the same weights on any device.
+  with LoRA B, the BatchNorm statistics, SAM's rel-pos tables and the
+  kernels of Mask2Former's ``sampling_offsets`` and ``attention_weights``
+  (zero at the JAX init) non-zero and LayerScale well above its 1e-5 init,
+  so that no branch is trivially zero and deformable samples depend on the
+  query. Mask2Former's level embeddings and queries are drawn N(0, 1), its
+  fused attention in-projection as a linear's. The draws are made on the
+  CPU and copied to the model's device, so a seed gives the same weights on
+  any device.
 """
 
 from __future__ import annotations
@@ -34,6 +38,11 @@ from vfmseg_tpu_torch.models.backbones.vit import (
     Attention,
     LayerScale,
     VisionTransformer,
+)
+from vfmseg_tpu_torch.models.heads.mask2former import (
+    Mask2FormerHead,
+    MSDeformAttnPixelDecoder,
+    TorchMHA,
 )
 from vfmseg_tpu_torch.models.heads.transformer import TransformerDecoder
 from vfmseg_tpu_torch.ops.norm import LayerNorm
@@ -185,6 +194,13 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
             normal(mod.rel_pos_w, 0.1)
         if isinstance(mod, TransformerDecoder) and hasattr(mod, "mask_token"):
             normal(mod.mask_token, 1.0)
+        if isinstance(mod, TorchMHA):
+            normal(mod.in_proj_kernel, mod.in_proj_kernel.shape[0] ** -0.5)
+            normal(mod.in_proj_bias, 0.02)
+        if isinstance(mod, (Mask2FormerHead, MSDeformAttnPixelDecoder)):
+            for name in ("level_embed", "query_embed", "query_feat"):
+                if hasattr(mod, name):
+                    normal(getattr(mod, name), 1.0)
         bias = getattr(mod, "bias", None)
         if isinstance(bias, nn.Parameter):
             normal(bias, 0.1 if isinstance(
