@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
    are fp32.
 2. build: the CUDA kernels of ``vfmseg_tpu_torch/csrc`` built by nvcc, one
    process per source started together (or loaded from the build cache),
-   with the build seconds and ptxas' register counts.
+   with the build seconds and ptxas' register counts; B5's fused backward's
+   registers, spills and static shared memory by instantiation.
 3. kernels: the DINOv2 inference kernels (LayerNorm, fused-qkv attention)
    against their plain PyTorch versions on the card, at the shapes the
    inference path gives them, from seeded bf16 inputs (the plain version
@@ -28,9 +29,9 @@ Phases, each printing one JSON line:
 5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (and an odd
    width off the path), the RoPE variant of the inference attention (B2) at
    the EVA02 path's shapes with its tables, and the head-major attention
-   (B5: forward with LSE, dq, dk/dv) at the EVA02 train path's shape over
-   token-major strided views and at a ragged Nq != Nk case, which
-   ``multi_head_attention`` must route to B5.
+   (B5: forward with LSE, the fused backward for dq, dk and dv) at the
+   EVA02 train path's shape over token-major strided views and at a ragged
+   Nq != Nk case, which ``multi_head_attention`` must route to B5.
 6. kernels_sam: the rel-pos attention (B7) at the six shapes of SAM's
    paths (windowed and global blocks of stage 1, the refine batch and the
    train step; head dim 80, q, k, v strided views of one fused qkv tensor,
@@ -44,15 +45,15 @@ Phases, each printing one JSON line:
    fp32 base with k = 30 and 160, pad rows included, and the bf16 base the
    JAX engine blends in at k = 20 and 30), with
    ``index_put_(accumulate=True)`` as the library yardstick.
-6c. kernel_attention_hm_bias / kernel_deform_sample: B5's three bias
-   entries (forward with LSE, dq with the fp32 dbias, dk/dv) at SAM's six
-   path shapes (head dim 80, the bf16 bias ``decomposed_rel_pos_bias_hm``
-   builds) and a ragged Nq != Nk case with a bias broadcast over the heads,
-   against autograd through the fp32 plain version, with SDPA and a float
-   ``attn_mask`` as the yardstick; B8 at the pixel decoder's eval shape in
-   bf16 and fp32 and at a narrow off-path case, coordinates partly outside,
-   against ``sample_plain`` in fp32, with ``F.grid_sample`` as the
-   yardstick.
+6c. kernel_attention_hm_bias / kernel_deform_sample: B5's two bias
+   entries (forward with LSE, the fused backward with dbias in the bias's
+   dtype) at SAM's six path shapes (head dim 80, the bf16 bias
+   ``decomposed_rel_pos_bias_hm`` builds) and a ragged Nq != Nk case with a
+   bias broadcast over the heads, against autograd through the fp32 plain
+   version, with SDPA and a float ``attn_mask`` as the yardstick; B8 at the
+   pixel decoder's eval shape in bf16 and fp32 and at a narrow off-path
+   case, coordinates partly outside, against ``sample_plain`` in fp32, with
+   ``F.grid_sample`` as the yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -117,6 +118,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -165,8 +167,7 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_delta,
     attention_fwd_lse_plain,
     attention_fwd_lse_tm,
-    attention_hm_dkv,
-    attention_hm_dq,
+    attention_hm_bwd,
     attention_hm_fwd,
     attention_plain,
     attention_qkv_rope_plain,
@@ -216,15 +217,15 @@ TRAIN_CHECK_CROP = (128, 128)
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
 # breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope)
-# SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>)
+# SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>);
+# both B5 backward entries end with the dq rounding kernel
 KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
                  ("attention_bwd_dq", "attention_bwd_dq_kernel"),
                  ("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
-                 ("attention_hm_bias_dq", "attention_hm_dq_kernel<80, 1>"),
-                 ("attention_hm_bias_dkv", "attention_hm_dkv_kernel<80, 1>"),
+                 ("attention_hm_bias_bwd", "attention_hm_bwd_kernel<80, 1>"),
                  ("attention_hm_fwd", "attention_hm_fwd_kernel"),
-                 ("attention_hm_dq", "attention_hm_dq_kernel"),
-                 ("attention_hm_dkv", "attention_hm_dkv_kernel"),
+                 ("attention_hm_bwd", "attention_hm_bwd_kernel"),
+                 ("attention_hm_bwd_dq_round", "attention_hm_dq_round_kernel"),
                  ("attention_qkv", "attention_qkv_kernel<false, false>"),
                  ("attention_qkv_rope", "attention_qkv_kernel<false, true>"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
@@ -263,20 +264,19 @@ PER_IMAGE = {
 # Each path's launches per train step: one ViT pass over the 2B batch of
 # both scale views (24 blocks; SAM 32), the VFMHead decoder (3 blocks); every
 # attention has a backward kernel except B7, whose backward recomputes
-# through the plain version (the bias route runs B5's three bias entries);
-# every LayerNorm backward is plain torch.
+# through the plain version (the bias route runs B5's two bias entries, the
+# forward and the fused backward); every LayerNorm backward is plain torch.
 PER_STEP = {
     "dinov2": _counts(layer_norm=48 + 9, attention_fwd_lse=24 + 6,
                       attention_bwd_dq=24 + 6, attention_bwd_dkv=24 + 6),
     "eva02": _counts(layer_norm=72 + 9, attention_fwd_lse=6,
                      attention_bwd_dq=6, attention_bwd_dkv=6,
-                     attention_hm_fwd=24, attention_hm_dq=24,
-                     attention_hm_dkv=24),
+                     attention_hm_fwd=24, attention_hm_bwd=24),
     "sam": _counts(layer_norm=64 + 9, attention_relpos=32,
                    attention_fwd_lse=6, attention_bwd_dq=6,
                    attention_bwd_dkv=6),
     "sam_bias": _counts(layer_norm=64 + 9, attention_hm_bias_fwd=32,
-                        attention_hm_bias_dq=32, attention_hm_bias_dkv=32,
+                        attention_hm_bias_bwd=32,
                         attention_fwd_lse=6, attention_bwd_dq=6,
                         attention_bwd_dkv=6),
 }
@@ -515,13 +515,45 @@ def phase_device() -> dict:
     return dict(smi=smi)
 
 
+def ptxas_by_kernel(log: str, marker: str) -> dict:
+    """ptxas' registers, spills and static shared memory of each compiled
+    kernel whose (mangled) name contains ``marker``, from the build log's
+    ``-Xptxas=-v`` lines."""
+    found, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", ln)
+        if m:
+            name = m.group(1) if marker in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        entry = found.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            entry.update(spill_stores=int(m.group(1)),
+                         spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            entry["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            entry["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return found
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     kernels.library()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in kernels.build_log().splitlines()
+    log = kernels.build_log()
+    ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    emit("build", seconds=round(secs, 3), ptxas=ptxas)
+    # B5's fused backward (dynamic shared memory besides: 81-163 KB by head
+    # dim and bias, set at launch) and its dq rounding kernel
+    emit("build", seconds=round(secs, 3), ptxas=ptxas,
+         attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
+         attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"))
 
 
 def _randn(gen: np.random.RandomState, dev):
@@ -699,49 +731,63 @@ def phase_kernels_train(dev) -> list:
         del q, k, v, dq, dk, dv, dout, out, lse, delta, ref, plain_in
         torch.cuda.empty_cache()
 
-    return _train_summaries(
-        rows, ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv"),
-        ("vfmseg_tpu_torch/csrc/attention_qkv.cu",
+    return _train_summaries(rows, (
+        ("attention_fwd_lse", "fwd", "vfmseg_tpu_torch/csrc/attention_qkv.cu",
+         "vfmseg_tpu/ops/flash_attention.py:684"),
+        ("attention_bwd_dq", "dq", "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
+         "vfmseg_tpu/ops/flash_attention.py:1397"),
+        ("attention_bwd_dkv", "dkv",
          "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
-         "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu"),
-        ("vfmseg_tpu/ops/flash_attention.py:684",
-         "vfmseg_tpu/ops/flash_attention.py:1397",
-         "vfmseg_tpu/ops/flash_attention.py:1444"))
+         "vfmseg_tpu/ops/flash_attention.py:1444")))
 
 
-def _train_summaries(rows, names, sources, replaces) -> list:
-    """Summary rows of a forward, dq and dk/dv triple, timed at the first
-    (the path's) shape; errors are the worst over every shape."""
+# the gradient errors each backward entry answers for
+GRAD_KEYS = {"dq": ("dq",), "dkv": ("dk", "dv"),
+             "bwd": ("dq", "dk", "dv", "dbias")}
+# B5's entries: (name, kind, source, TPU kernel), without and with a bias;
+# the fused backward replaces both TPU backward kernels
+B5_ENTRIES = (
+    ("attention_hm_fwd", "fwd", "vfmseg_tpu_torch/csrc/attention_hm.cu",
+     "vfmseg_tpu/ops/flash_attention.py:71"),
+    ("attention_hm_bwd", "bwd", "vfmseg_tpu_torch/csrc/attention_hm.cu",
+     "vfmseg_tpu/ops/flash_attention.py:278, "
+     "vfmseg_tpu/ops/flash_attention.py:344"))
+B5_BIAS_ENTRIES = tuple((name.replace("hm_", "hm_bias_"), *rest)
+                        for name, *rest in B5_ENTRIES)
+
+
+def _train_summaries(rows, entries) -> list:
+    """Summary rows of a training attention's entries, ``(name, kind,
+    source, replaces)`` with kind "fwd", "dq", "dkv" or "bwd" (the row keys
+    ``{kind}_ms`` and ``{kind}_bound``), timed at the first (the path's)
+    shape; errors are the worst over every shape."""
     path = rows[0]
-
-    def pick(kind):
+    out = []
+    for name, kind, source, replaces in entries:
         b = path[f"{kind}_bound"]
-        return dict(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
-
-    bwd = dict(plain_ms=path["bwd_plain_ms"], library_ms=path["bwd_library_ms"],
-               err_kind="max abs err / max |ref|",
-               plain_computes="dq, dk, dv", library_computes="dq, dk, dv",
-               library_call="autograd through F.scaled_dot_product_attention",
-               shape=path["shape"])
-    return [
-        dict(name=names[0], route="cuda", source=sources[0],
-             replaces=replaces[0],
-             max_abs_err=max(r["out_max_abs_err"] for r in rows),
-             lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows),
-             ms=path["fwd_ms"], plain_ms=path["fwd_plain_ms"],
-             library_ms=path["fwd_library_ms"],
-             library_call="F.scaled_dot_product_attention (no LSE)",
-             shape=path["shape"], **pick("fwd")),
-        dict(name=names[1], route="cuda", source=sources[1],
-             replaces=replaces[1],
-             max_abs_err=max(r["grad_rel_err"]["dq"] for r in rows),
-             ms=path["dq_ms"], **pick("dq"), **bwd),
-        dict(name=names[2], route="cuda", source=sources[2],
-             replaces=replaces[2],
-             max_abs_err=max(max(r["grad_rel_err"]["dk"],
-                                 r["grad_rel_err"]["dv"]) for r in rows),
-             ms=path["dkv_ms"], **pick("dkv"), **bwd),
-    ]
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   ms=path[f"{kind}_ms"], bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"], shape=path["shape"])
+        if kind == "fwd":
+            row.update(
+                max_abs_err=max(r["out_max_abs_err"] for r in rows),
+                lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows),
+                plain_ms=path["fwd_plain_ms"],
+                library_ms=path["fwd_library_ms"],
+                library_call="F.scaled_dot_product_attention (no LSE)")
+        else:
+            row.update(
+                max_abs_err=max(r["grad_rel_err"][g] for r in rows
+                                for g in GRAD_KEYS[kind]
+                                if g in r["grad_rel_err"]),
+                err_kind="max abs err / max |ref|",
+                plain_ms=path["bwd_plain_ms"],
+                library_ms=path["bwd_library_ms"],
+                plain_computes="dq, dk, dv", library_computes="dq, dk, dv",
+                library_call="autograd through "
+                             "F.scaled_dot_product_attention")
+        out.append(row)
+    return out
 
 
 def _rope_tables(n, grid, dev):
@@ -811,8 +857,7 @@ def check_headmajor(randn, dev) -> list:
 
         out, lse = attention_hm_fwd(q, k, v, scale)
         delta = (dout.float() * out.float()).sum(-1).contiguous()
-        attention_hm_dq(q, k, v, dout, lse, delta, scale, dq)
-        attention_hm_dkv(q, k, v, dout, lse, delta, scale, dk, dv)
+        attention_hm_bwd(q, k, v, dout, lse, delta, scale, dq, dk, dv)
 
         ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
                for t in (q, k, v)]
@@ -849,16 +894,13 @@ def check_headmajor(randn, dev) -> list:
             fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
                 *plain_in, scale=scale)),
             fwd_library_ms=time_ms(lambda: sdpa_fwd(q, k, v, scale)),
-            dq_ms=time_ms(lambda: attention_hm_dq(
-                q, k, v, dout, lse, delta, scale, dq)),
-            dkv_ms=time_ms(lambda: attention_hm_dkv(
-                q, k, v, dout, lse, delta, scale, dk, dv)),
+            bwd_ms=time_ms(lambda: attention_hm_bwd(
+                q, k, v, dout, lse, delta, scale, dq, dk, dv)),
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
                 *plain_in, p_out, p_lse, dout.transpose(1, 2), scale=scale)),
             bwd_library_ms=time_ms(sdpa_bwd_fn(q, k, v, dout, scale)),
             fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1),
-            dq_bound=attn_bound(b_, h, nq, nk, 3, n_ + (nq,), (nq,), 2),
-            dkv_bound=attn_bound(b_, h, nq, nk, 4, n_ + (nq,), (nk, nk), 2))
+            bwd_bound=attn_bound(b_, h, nq, nk, 5, n_ + (nq,), n_, 2))
         emit("kernel_attention_headmajor", out_atol=ATTN_ATOL,
              lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
         if not ok:
@@ -879,7 +921,7 @@ def phase_kernels_eva02(dev) -> list:
     emit("kernels_eva02",
          layer_norm_2730_ms=[r["ms"] for r in ln_rows[:2]],
          rope_ms=[r["ms"] for r in rope_rows],
-         headmajor_ms=[dict(fwd=r["fwd_ms"], dq=r["dq_ms"], dkv=r["dkv_ms"])
+         headmajor_ms=[dict(fwd=r["fwd_ms"], bwd=r["bwd_ms"])
                        for r in hm_rows])
     return ln_rows, [
         _summary("attention_qkv_rope",
@@ -888,12 +930,7 @@ def phase_kernels_eva02(dev) -> list:
                  max(r["max_abs_err"] for r in rope_rows),
                  library_computes="attention without the rotation",
                  library_call="F.scaled_dot_product_attention"),
-    ] + _train_summaries(
-        hm_rows, ("attention_hm_fwd", "attention_hm_dq", "attention_hm_dkv"),
-        ("vfmseg_tpu_torch/csrc/attention_hm.cu",) * 3,
-        ("vfmseg_tpu/ops/flash_attention.py:71",
-         "vfmseg_tpu/ops/flash_attention.py:278",
-         "vfmseg_tpu/ops/flash_attention.py:344"))
+    ] + _train_summaries(hm_rows, B5_ENTRIES)
 
 
 def _relpos_inputs(randn, b_, h, grid, d):
@@ -1120,8 +1157,9 @@ def _bias_inputs(randn, b_, h, nq, nk, grid, d):
 
 
 def check_headmajor_bias(randn, dev) -> list:
-    """B5's three bias entries (forward with LSE, dq with dbias, dk/dv)
-    against autograd through the fp32 plain version with a random dO."""
+    """B5's two bias entries (forward with LSE, the fused backward with
+    dbias) against autograd through the fp32 plain version with a random
+    dO."""
     rows = []
     cases = [(label, b_, h, g[0] * g[1], g[0] * g[1], g)
              for label, b_, h, g in RELPOS_SHAPES]
@@ -1132,13 +1170,12 @@ def check_headmajor_bias(randn, dev) -> list:
         q, k, v, bias = _bias_inputs(randn, b_, h, nq, nk, grid, d)
         dout = randn(b_, h, nq, d).to(torch.bfloat16)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        dbias = torch.empty((b_, h, nq, nk), dtype=torch.float32, device=dev)
+        dbias = torch.empty((b_, h, nq, nk), dtype=bias.dtype, device=dev)
 
         out, lse = attention_hm_fwd(q, k, v, scale, bias=bias)
         delta = (dout.float() * out.float()).sum(-1).contiguous()
-        attention_hm_dq(q, k, v, dout, lse, delta, scale, dq, bias=bias,
-                        dbias=dbias)
-        attention_hm_dkv(q, k, v, dout, lse, delta, scale, dk, dv, bias=bias)
+        attention_hm_bwd(q, k, v, dout, lse, delta, scale, dq, dk, dv,
+                         bias=bias, dbias=dbias)
 
         ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
                for t in (q, k, v)]
@@ -1152,7 +1189,7 @@ def check_headmajor_bias(randn, dev) -> list:
         lse_err = float((lse - want_lse.detach()).abs().max())
         grad_err = _grad_errors(
             (t.transpose(1, 2) for t in (dq, dk, dv)), ref, (b_, -1, h, d))
-        grad_err["dbias"] = float((dbias - ref_bias.grad).abs().max()
+        grad_err["dbias"] = float((dbias.float() - ref_bias.grad).abs().max()
                                   / ref_bias.grad.abs().max())
         ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
               and max(grad_err.values()) <= GRAD_REL)
@@ -1163,9 +1200,9 @@ def check_headmajor_bias(randn, dev) -> list:
                                                bias=bias)
         n_ = (nq, nk, nk)
         # the bias read once (its storage: a broadcast bias is smaller than
-        # its view), and dq's fp32 dbias written once
+        # its view), and dbias written once in the bias's dtype
         bias_bytes = bias.untyped_storage().nbytes()
-        dbias_bytes = dbias.numel() * 4
+        dbias_bytes = dbias.numel() * dbias.element_size()
         row = dict(
             path=label, shape=[b_, h, nq, nk, d], bias_dtype=str(bias.dtype),
             bias_strides=list(bias.stride()), out_max_abs_err=out_err,
@@ -1176,11 +1213,9 @@ def check_headmajor_bias(randn, dev) -> list:
                 *plain_in, scale=scale, bias=bias), reps=3, inner=2),
             fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias, scale=scale), reps=3, inner=3),
-            dq_ms=time_ms(lambda: attention_hm_dq(
-                q, k, v, dout, lse, delta, scale, dq, bias=bias,
+            bwd_ms=time_ms(lambda: attention_hm_bwd(
+                q, k, v, dout, lse, delta, scale, dq, dk, dv, bias=bias,
                 dbias=dbias)),
-            dkv_ms=time_ms(lambda: attention_hm_dkv(
-                q, k, v, dout, lse, delta, scale, dk, dv, bias=bias)),
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
                 *plain_in, p_out, p_lse, dout.transpose(1, 2), scale=scale,
                 bias=bias), reps=3, inner=2),
@@ -1188,10 +1223,8 @@ def check_headmajor_bias(randn, dev) -> list:
                                                     scale), reps=3, inner=3),
             fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1, d=d,
                                  extra_bytes=bias_bytes),
-            dq_bound=attn_bound(b_, h, nq, nk, 3, n_ + (nq,), (nq,), 2, d=d,
-                                extra_bytes=bias_bytes + dbias_bytes),
-            dkv_bound=attn_bound(b_, h, nq, nk, 4, n_ + (nq,), (nk, nk), 2,
-                                 d=d, extra_bytes=bias_bytes))
+            bwd_bound=attn_bound(b_, h, nq, nk, 5, n_ + (nq,), n_, 2, d=d,
+                                 extra_bytes=bias_bytes + dbias_bytes))
         emit("kernel_attention_hm_bias", out_atol=ATTN_ATOL,
              lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
         if not ok:
@@ -1262,24 +1295,16 @@ def phase_kernels_bias_deform(dev) -> list:
     bias_rows = check_headmajor_bias(randn, dev)
     deform_rows = check_deform_sample(dev)
     emit("kernels_bias_deform",
-         hm_bias_ms={r["path"]: dict(fwd=r["fwd_ms"], dq=r["dq_ms"],
-                                     dkv=r["dkv_ms"]) for r in bias_rows},
+         hm_bias_ms={r["path"]: dict(fwd=r["fwd_ms"], bwd=r["bwd_ms"])
+                     for r in bias_rows},
          deform_sample_ms={r["path"]: r["ms"] for r in deform_rows})
     # the summaries time the train step's global blocks (B5-bias) and the
     # eval shape in bf16 (B8); every shape's numbers are in by_path
     train_global = next(r for r in bias_rows if r["path"] == "train_global")
     summary = _train_summaries(
         [train_global] + [r for r in bias_rows if r is not train_global],
-        ("attention_hm_bias_fwd", "attention_hm_bias_dq",
-         "attention_hm_bias_dkv"),
-        ("vfmseg_tpu_torch/csrc/attention_hm.cu",) * 3,
-        ("vfmseg_tpu/ops/flash_attention.py:71",
-         "vfmseg_tpu/ops/flash_attention.py:278",
-         "vfmseg_tpu/ops/flash_attention.py:344"))
-    summary[1]["max_abs_err"] = max(
-        max(r["grad_rel_err"]["dq"], r["grad_rel_err"]["dbias"])
-        for r in bias_rows)
-    for row, kind in zip(summary, ("fwd", "dq", "dkv")):
+        B5_BIAS_ENTRIES)
+    for row, kind in zip(summary, ("fwd", "bwd")):
         row["library_call"] = ("F.scaled_dot_product_attention with the "
                                "float attn_mask" + (
                                    "" if kind == "fwd" else

@@ -39,8 +39,7 @@ from vfmseg_tpu_torch.models.backbones.dinov2 import build_backbone
 from vfmseg_tpu_torch.ops import rope
 from vfmseg_tpu_torch.ops.attention import (
     attention_fwd_lse_plain,
-    attention_hm_dkv,
-    attention_hm_dq,
+    attention_hm_bwd,
     attention_hm_fwd,
     attention_qkv_rope_tm,
     multi_head_attention,
@@ -190,9 +189,7 @@ def test_headmajor_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         attention_hm_fwd(q, q, q, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
-        attention_hm_dq(q, q, q, q, rows, rows, 0.125, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        attention_hm_dkv(q, q, q, q, rows, rows, 0.125, q, q)
+        attention_hm_bwd(q, q, q, q, rows, rows, 0.125, q, q, q)
 
 
 def test_lora_target_aliases_equal_jax():

@@ -35,8 +35,7 @@ from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.backbones import sam
 from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
 from vfmseg_tpu_torch.ops.attention import (
-    attention_hm_dkv,
-    attention_hm_dq,
+    attention_hm_bwd,
     attention_hm_fwd,
     attention_plain,
     multi_head_attention_headmajor,
@@ -109,14 +108,12 @@ def test_bias_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
     rows = torch.zeros(1, 2, 8)
     bias = torch.zeros(1, 2, 8, 8, dtype=torch.bfloat16)
-    dbias = torch.zeros(1, 2, 8, 8)
+    dbias = torch.zeros(1, 2, 8, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         attention_hm_fwd(q, q, q, 0.1, bias=bias)
     with pytest.raises(ValueError, match="CUDA"):
-        attention_hm_dq(q, q, q, q, rows, rows, 0.1, q, bias=bias,
-                        dbias=dbias)
-    with pytest.raises(ValueError, match="CUDA"):
-        attention_hm_dkv(q, q, q, q, rows, rows, 0.1, q, q, bias=bias)
+        attention_hm_bwd(q, q, q, q, rows, rows, 0.1, q, q, q, bias=bias,
+                         dbias=dbias)
 
 
 LORA = dict(rank=4, alpha=8.0, targets=("qkv",))

@@ -55,33 +55,25 @@ ATTENTION_BWD_DKV = Kernel("attention_bwd_dkv", "vfmseg_attention_bwd_dkv",
 # stream
 ATTENTION_HM_FWD = Kernel("attention_hm_fwd", "vfmseg_attention_hm_fwd",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_hm.cu: q, k, v, dout, lse, delta, dq, strides (q, k, v,
-# dout, dq), batch, heads, nq, nk, head_dim, scale, stream
-ATTENTION_HM_DQ = Kernel("attention_hm_dq", "vfmseg_attention_hm_dq",
-                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _P])
-# csrc/attention_hm.cu: as above with dk, dv in place of dq (strides: q, k,
-# v, dout, dk, dv)
-ATTENTION_HM_DKV = Kernel("attention_hm_dkv", "vfmseg_attention_hm_dkv",
-                          [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _P])
+# csrc/attention_hm.cu, the fused backward: q, k, v, dout, lse, delta, dq_acc
+# (a zeroed fp32 [B, H, nq, D] workspace), dq, dk, dv, strides (q, k, v, dout,
+# dq, dk, dv), batch, heads, nq, nk, head_dim, scale, stream; one call
+# launches the backward and the kernel that rounds dq_acc into dq
+ATTENTION_HM_BWD = Kernel("attention_hm_bwd", "vfmseg_attention_hm_bwd",
+                          [_P] * 11 + [_I] * 5 + [_F, _P])
 # csrc/attention_hm.cu, with an additive bias: q, k, v, bias, out, lse (or
 # null), strides (q, k, v, out, bias), bias_kind (1 bf16, 2 fp32), batch,
 # heads, nq, nk, head_dim, scale, stream
 ATTENTION_HM_BIAS_FWD = Kernel(
     "attention_hm_bias_fwd", "vfmseg_attention_hm_bias_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_hm.cu: q, k, v, dout, lse, delta, bias, dq, dbias, strides
-# (q, k, v, dout, dq, bias), bias_kind, batch, heads, nq, nk, head_dim, scale,
-# stream
-ATTENTION_HM_BIAS_DQ = Kernel(
-    "attention_hm_bias_dq", "vfmseg_attention_hm_bias_dq",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_hm.cu: q, k, v, dout, lse, delta, bias, dk, dv, strides (q,
-# k, v, dout, dk, dv, bias), then as above
-ATTENTION_HM_BIAS_DKV = Kernel(
-    "attention_hm_bias_dkv", "vfmseg_attention_hm_bias_dkv",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P])
+# csrc/attention_hm.cu, the fused backward with a bias: q, k, v, dout, lse,
+# delta, bias, dq_acc, dq, dk, dv, dbias (contiguous, the bias's dtype),
+# strides (q, k, v, dout, dq, dk, dv, bias), bias_kind, batch, heads, nq, nk,
+# head_dim, scale, stream
+ATTENTION_HM_BIAS_BWD = Kernel(
+    "attention_hm_bias_bwd", "vfmseg_attention_hm_bias_bwd",
+    [_P] * 13 + [_I] * 6 + [_F, _P])
 
 # csrc/attention_relpos.cu: q, k, v, rel_h, rel_w, out, strides (int64
 # array: batch, head, token of q, k, v, out), batch, heads, n, kh, kw,
@@ -102,9 +94,8 @@ DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
 
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
            ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
-           ATTENTION_HM_DQ, ATTENTION_HM_DKV, ATTENTION_HM_BIAS_FWD,
-           ATTENTION_HM_BIAS_DQ, ATTENTION_HM_BIAS_DKV, ATTENTION_RELPOS,
-           WINDOW_BLEND, DEFORM_SAMPLE)
+           ATTENTION_HM_BWD, ATTENTION_HM_BIAS_FWD, ATTENTION_HM_BIAS_BWD,
+           ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -29,11 +29,11 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
     with the LSE, and :func:`attention_bwd_dq_tm` /
     :func:`attention_bwd_dkv_tm` (``csrc/attention_qkv_bwd.cu``, B4), all
     over ``[B, N, H*64]`` views of one stride pair;
-  - :func:`attention_hm_fwd`, :func:`attention_hm_dq` and
-    :func:`attention_hm_dkv` (``csrc/attention_hm.cu``, B5), general
-    attention over ``[B, H, N, D]`` views with their own strides and
-    Nq != Nk, with an optional additive bias (then the dq kernel also
-    writes the fp32 dbias);
+  - :func:`attention_hm_fwd` and :func:`attention_hm_bwd`
+    (``csrc/attention_hm.cu``, B5: a forward and one fused backward),
+    general attention over ``[B, H, N, D]`` views with their own strides and
+    Nq != Nk, with an optional additive bias (then the backward also writes
+    dbias in the bias's dtype);
   - :func:`attention_relpos_hm` (``csrc/attention_relpos.cu``, B7), SAM's
     attention with the rel-pos bias rebuilt in the kernel from its terms.
 * :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`,
@@ -65,11 +65,9 @@ from vfmseg_tpu_torch.kernels import (
     ATTENTION_BWD_DKV,
     ATTENTION_BWD_DQ,
     ATTENTION_FWD_LSE,
-    ATTENTION_HM_DKV,
-    ATTENTION_HM_BIAS_DKV,
-    ATTENTION_HM_BIAS_DQ,
+    ATTENTION_HM_BIAS_BWD,
     ATTENTION_HM_BIAS_FWD,
-    ATTENTION_HM_DQ,
+    ATTENTION_HM_BWD,
     ATTENTION_HM_FWD,
     ATTENTION_QKV,
     ATTENTION_QKV_ROPE,
@@ -498,59 +496,43 @@ def attention_hm_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def attention_hm_dq(q, k, v, dout, lse, delta, scale: float,
-                    dq: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                    dbias: Optional[torch.Tensor] = None) -> None:
-    """Launch B5's dq kernel: q, k, v (and the bias) as the forward took
-    them; dout and dq ``[B, H, Nq, D]`` views; lse and delta contiguous fp32
-    ``[B, H, Nq]``. With a bias it also writes ``dbias``, a contiguous fp32
-    ``[B, H, Nq, Nk]`` tensor: dL/d(logits), before the scale."""
-    fn = "attention_hm_dq"
+def attention_hm_bwd(q, k, v, dout, lse, delta, scale: float,
+                     dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     dbias: Optional[torch.Tensor] = None) -> None:
+    """Launch B5's fused backward: q, k, v (and the bias) as the forward took
+    them; dout and dq ``[B, H, Nq, D]`` views, dk and dv ``[B, H, Nk, D]``
+    views; lse and delta contiguous fp32 ``[B, H, Nq]``. With a bias it also
+    writes ``dbias``, a contiguous ``[B, H, Nq, Nk]`` tensor in the bias's
+    dtype: dL/d(logits), before the scale. dq's fp32 sum over key tiles goes
+    through a zeroed workspace allocated here."""
+    fn = "attention_hm_bwd"
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    strides = _hm_views(fn, q, k, v, dout, dq, bias=bias)
+    strides = _hm_views(fn, q, k, v, dout, dq, dk, dv, bias=bias)
     for t in (lse, delta):
         _hm_rows(fn, t, (b, h, nq))
     if bias is not None:
         kind = _hm_bias(fn, bias, q, nk)
-        _hm_rows(fn, dbias, (b, h, nq, nk))
+        if (dbias is None or dbias.dtype != bias.dtype
+                or tuple(dbias.shape) != (b, h, nq, nk)
+                or not dbias.is_contiguous() or dbias.device != q.device):
+            raise ValueError(f"{fn} needs a contiguous dbias of shape "
+                             f"{(b, h, nq, nk)} in the bias's dtype "
+                             f"{bias.dtype} on {q.device}")
     if q.numel() == 0 or nk == 0:
         return
+    dq_acc = torch.zeros((b, h, nq, d), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
+    outs = (dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if bias is None:
-        ATTENTION_HM_DQ(*args, dq.data_ptr(), ctypes.addressof(strides), b, h,
-                        nq, nk, d, float(scale), _stream(q))
+        ATTENTION_HM_BWD(*args, *outs, ctypes.addressof(strides), b, h, nq,
+                         nk, d, float(scale), _stream(q))
     else:
-        ATTENTION_HM_BIAS_DQ(*args, bias.data_ptr(), dq.data_ptr(),
-                             dbias.data_ptr(), ctypes.addressof(strides),
-                             kind, b, h, nq, nk, d, float(scale), _stream(q))
-
-
-def attention_hm_dkv(q, k, v, dout, lse, delta, scale: float,
-                     dk: torch.Tensor, dv: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None) -> None:
-    """Launch B5's dk/dv kernel; arguments as :func:`attention_hm_dq`,
-    writing dk and dv, ``[B, H, Nk, D]`` views."""
-    fn = "attention_hm_dkv"
-    b, h, nq, d = q.shape
-    nk = k.shape[2]
-    strides = _hm_views(fn, q, k, v, dout, dk, dv, bias=bias)
-    for t in (lse, delta):
-        _hm_rows(fn, t, (b, h, nq))
-    kind = _hm_bias(fn, bias, q, nk) if bias is not None else 0
-    if k.numel() == 0:
-        return
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr())
-    if bias is None:
-        ATTENTION_HM_DKV(*args, dk.data_ptr(), dv.data_ptr(),
-                         ctypes.addressof(strides), b, h, nq, nk, d,
-                         float(scale), _stream(q))
-    else:
-        ATTENTION_HM_BIAS_DKV(*args, bias.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), ctypes.addressof(strides), kind,
-                              b, h, nq, nk, d, float(scale), _stream(q))
+        ATTENTION_HM_BIAS_BWD(*args, bias.data_ptr(), *outs, dbias.data_ptr(),
+                              ctypes.addressof(strides), kind, b, h, nq, nk,
+                              d, float(scale), _stream(q))
 
 
 def _hm_layout(t: torch.Tensor) -> torch.Tensor:
@@ -572,8 +554,9 @@ class HeadMajorAttention(torch.autograd.Function):
     """Training attention over head-major ``[B, H, N, D]`` views (port of
     ``_flash_hm_fwd_rule`` / ``_flash_hm_bwd_rule``, and with a
     ``[B, H, Nq, Nk]`` bias of ``_flash_bias_fwd_rule`` /
-    ``_flash_bias_bwd_rule``): B5's forward with the LSE, then its dq (with
-    the fp32 dbias) and dk/dv kernels, on CUDA; the LSE twins on the CPU.
+    ``_flash_bias_bwd_rule``): B5's forward with the LSE, then its fused
+    backward (dq, dk, dv, and dbias in the bias's dtype), on CUDA; the LSE
+    twins on the CPU.
     The gradients come back in the layout of q, k and v, and dbias in the
     bias's dtype, as the JAX rule casts it."""
 
@@ -607,14 +590,10 @@ class HeadMajorAttention(torch.autograd.Function):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         dbias = None
         if bias is not None:
-            dbias = torch.empty(bias.shape, dtype=torch.float32,
+            dbias = torch.empty(bias.shape, dtype=bias.dtype,
                                 device=bias.device)
-        attention_hm_dq(q, k, v, dout, lse, delta, ctx.scale, dq, bias=bias,
-                        dbias=dbias)
-        attention_hm_dkv(q, k, v, dout, lse, delta, ctx.scale, dk, dv,
-                         bias=bias)
-        if dbias is not None:
-            dbias = dbias.to(bias.dtype)
+        attention_hm_bwd(q, k, v, dout, lse, delta, ctx.scale, dq, dk, dv,
+                         bias=bias, dbias=dbias)
         return dq, dk, dv, dbias, None
 
 
