@@ -22,10 +22,12 @@ Phases, each printing one JSON line:
    inference path gives them, from seeded bf16 inputs (the plain version
    runs in fp32), plus one fp32 LayerNorm and one odd-head attention case
    off the path.
-4. kernels_train: the training attention kernels (B3 forward with LSE, B4
-   dq and dk/dv) at the DINOv2 train path's shapes plus a ragged odd-head
-   case, against ``attention_fwd_lse_plain`` and autograd through the fp32
-   plain attention with a random dO.
+4. kernels_train: the training attention kernels (B3 forward with LSE, and
+   its backward, B4's function, through ``attention_bwd_tm`` on B5's fused
+   backward over [B, H, N, 64] views of the token-major tensors) at the
+   DINOv2 train path's shapes plus a ragged odd-head case, with fused qkv
+   and with three tensors, against ``attention_fwd_lse_plain`` and autograd
+   through the fp32 plain attention with a random dO.
 5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (and an odd
    width off the path), the RoPE variant of the inference attention (B2) at
    the EVA02 path's shapes with its tables, and the head-major attention
@@ -50,10 +52,11 @@ Phases, each printing one JSON line:
    dtype) at SAM's six path shapes (head dim 80, the bf16 bias
    ``decomposed_rel_pos_bias_hm`` builds) and a ragged Nq != Nk case with a
    bias broadcast over the heads, against autograd through the fp32 plain
-   version, with SDPA and a float ``attn_mask`` as the yardstick; B8 at the
-   pixel decoder's eval shape in bf16 and fp32 and at a narrow off-path
-   case, coordinates partly outside, against ``sample_plain`` in fp32, with
-   ``F.grid_sample`` as the yardstick.
+   version, with SDPA and a float ``attn_mask`` as the yardstick, then the
+   same six shapes with an fp32 bias (off the path: SAM builds bf16); B8
+   at the pixel decoder's eval shape in bf16 and fp32 and at a narrow
+   off-path case, coordinates partly outside, against ``sample_plain`` in
+   fp32, with ``F.grid_sample`` as the yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -160,11 +163,9 @@ from vfmseg_tpu_torch.models.presets import (
     sam_config,
 )
 from vfmseg_tpu_torch.ops.attention import (
-    attention_bwd_dkv_tm,
-    attention_bwd_dq_tm,
     attention_bwd_plain,
+    attention_bwd_tm,
     attention_decomposed_plain,
-    attention_delta,
     attention_fwd_lse_plain,
     attention_fwd_lse_tm,
     attention_hm_bwd,
@@ -216,12 +217,11 @@ TRAIN_CHECK_CROP = (128, 128)
 
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
-# breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope)
+# breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope);
 # SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>);
-# both B5 backward entries end with the dq rounding kernel
-KERNEL_GROUPS = [("attention_bwd_dkv", "attention_bwd_dkv_kernel"),
-                 ("attention_bwd_dq", "attention_bwd_dq_kernel"),
-                 ("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
+# both B5 backward entries end with the dq rounding kernel, and B3's
+# backward (B4's function) runs on B5's fused backward without a bias
+KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_hm_bias_bwd", "attention_hm_bwd_kernel<80, 1>"),
                  ("attention_hm_fwd", "attention_hm_fwd_kernel"),
                  ("attention_hm_bwd", "attention_hm_bwd_kernel"),
@@ -265,20 +265,19 @@ PER_IMAGE = {
 # both scale views (24 blocks; SAM 32), the VFMHead decoder (3 blocks); every
 # attention has a backward kernel except B7, whose backward recomputes
 # through the plain version (the bias route runs B5's two bias entries, the
-# forward and the fused backward); every LayerNorm backward is plain torch.
+# forward and the fused backward); B3's backward is B5's fused backward
+# (attention_hm_bwd) over token-major views; every LayerNorm backward is
+# plain torch.
 PER_STEP = {
     "dinov2": _counts(layer_norm=48 + 9, attention_fwd_lse=24 + 6,
-                      attention_bwd_dq=24 + 6, attention_bwd_dkv=24 + 6),
+                      attention_hm_bwd=24 + 6),
     "eva02": _counts(layer_norm=72 + 9, attention_fwd_lse=6,
-                     attention_bwd_dq=6, attention_bwd_dkv=6,
-                     attention_hm_fwd=24, attention_hm_bwd=24),
+                     attention_hm_fwd=24, attention_hm_bwd=24 + 6),
     "sam": _counts(layer_norm=64 + 9, attention_relpos=32,
-                   attention_fwd_lse=6, attention_bwd_dq=6,
-                   attention_bwd_dkv=6),
+                   attention_fwd_lse=6, attention_hm_bwd=6),
     "sam_bias": _counts(layer_norm=64 + 9, attention_hm_bias_fwd=32,
                         attention_hm_bias_bwd=32,
-                        attention_fwd_lse=6, attention_bwd_dq=6,
-                        attention_bwd_dkv=6),
+                        attention_fwd_lse=6, attention_hm_bwd=6),
 }
 
 # The headline's compact gated engine: launches per stage-1 call (the ViT
@@ -549,9 +548,11 @@ def phase_build() -> None:
     log = kernels.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    # B5's fused backward (dynamic shared memory besides: 81-163 KB by head
-    # dim and bias, set at launch) and its dq rounding kernel
+    # B5's forward and fused backward (dynamic shared memory besides: 48-132
+    # and 81-163 KB by head dim and bias, set at launch) and its dq rounding
+    # kernel
     emit("build", seconds=round(secs, 3), ptxas=ptxas,
+         attention_hm_fwd_ptxas=ptxas_by_kernel(log, "attention_hm_fwd"),
          attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
          attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"))
 
@@ -688,9 +689,9 @@ def phase_kernels_train(dev) -> list:
             return t.reshape(b_, n, h, 64)
 
         out, lse = attention_fwd_lse_tm(q, k, v, h, scale)
-        delta = attention_delta(out, dout, h)
-        attention_bwd_dq_tm(q, k, v, dout, lse, delta, h, scale, dq)
-        attention_bwd_dkv_tm(q, k, v, dout, lse, delta, h, scale, dk, dv)
+        before = kernels.ATTENTION_HM_BWD.launches
+        attention_bwd_tm(q, k, v, out, lse, dout, h, scale, dq, dk, dv)
+        bwd_launches = kernels.ATTENTION_HM_BWD.launches - before
 
         ref = [heads(t.float()).requires_grad_(True) for t in (q, k, v)]
         want_out, want_lse = attention_fwd_lse_plain(*ref, scale=scale)
@@ -701,49 +702,60 @@ def phase_kernels_train(dev) -> list:
         lse_err = float((lse - want_lse).abs().max())
         grad_err = _grad_errors((dq, dk, dv), ref, (b_, n, e))
         ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
-              and max(grad_err.values()) <= GRAD_REL)
+              and max(grad_err.values()) <= GRAD_REL and bwd_launches == 1)
         plain_in = [heads(t) for t in (q, k, v)]
         p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale)
         hq, hk, hv, hdo = (_hm(t, h) for t in (q, k, v, dout))
         row = dict(
             shape=[b_, n, h, 64], fused_qkv=fused, out_max_abs_err=out_err,
-            lse_max_abs_err=lse_err, grad_rel_err=grad_err, ok=ok,
+            lse_max_abs_err=lse_err, grad_rel_err=grad_err,
+            bwd_launches=bwd_launches, ok=ok,
             fwd_ms=time_ms(lambda: attention_fwd_lse_tm(q, k, v, h, scale)),
             fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
                 *plain_in, scale=scale)),
             fwd_library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
-            dq_ms=time_ms(lambda: attention_bwd_dq_tm(
-                q, k, v, dout, lse, delta, h, scale, dq)),
-            dkv_ms=time_ms(lambda: attention_bwd_dkv_tm(
-                q, k, v, dout, lse, delta, h, scale, dk, dv)),
+            bwd_ms=time_ms(lambda: attention_bwd_tm(
+                q, k, v, out, lse, dout, h, scale, dq, dk, dv)),
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
                 *plain_in, p_out, p_lse, heads(dout), scale=scale)),
             bwd_library_ms=time_ms(sdpa_bwd_fn(hq, hk, hv, hdo, scale)),
             fwd_bound=attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 1),
-            dq_bound=attn_bound(b_, h, n, n, 3, (n, n, n, n), (n,), 2),
-            dkv_bound=attn_bound(b_, h, n, n, 4, (n, n, n, n), (n, n), 2))
+            bwd_bound=attn_bound(b_, h, n, n, 5, (n, n, n, n), (n, n, n), 2))
         emit("kernel_attention_train", out_atol=ATTN_ATOL, lse_atol=LSE_ATOL,
              grad_rel=GRAD_REL, **row)
         if not ok:
             raise AssertionError(f"training attention kernels disagree at "
                                  f"{(b_, n, h)}: {row}")
         rows.append(row)
-        del q, k, v, dq, dk, dv, dout, out, lse, delta, ref, plain_in
+        del q, k, v, dq, dk, dv, dout, out, lse, ref, plain_in
         torch.cuda.empty_cache()
 
+    # B4's function (B3's backward) runs on B5's fused backward: its numbers
+    # ride on that kernel's summary row (``b4_function``), timed at the
+    # path's shape through attention_bwd_tm (delta, the zeroed dq workspace,
+    # the fused kernel and the dq rounding); errors are the worst over every
+    # shape
+    path = rows[0]
+    b4 = dict(
+        replaces=B4_REPLACES, shape=path["shape"],
+        computed_by="attention_bwd_tm -> attention_hm_bwd over [B, H, N, 64] "
+                    "views, csrc/attention_hm.cu",
+        max_abs_err=max(r["grad_rel_err"][g] for r in rows
+                        for g in ("dq", "dk", "dv")),
+        err_kind="max abs err / max |ref|", ms=path["bwd_ms"],
+        plain_ms=path["bwd_plain_ms"], library_ms=path["bwd_library_ms"],
+        library_call="autograd through F.scaled_dot_product_attention",
+        bound_ms=path["bwd_bound"]["bound_ms"],
+        bound_by=path["bwd_bound"]["bound_by"])
+    emit("kernel_b4_on_hm_bwd", grad_rel=GRAD_REL, **b4)
     return _train_summaries(rows, (
         ("attention_fwd_lse", "fwd", "vfmseg_tpu_torch/csrc/attention_qkv.cu",
-         "vfmseg_tpu/ops/flash_attention.py:684"),
-        ("attention_bwd_dq", "dq", "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
-         "vfmseg_tpu/ops/flash_attention.py:1397"),
-        ("attention_bwd_dkv", "dkv",
-         "vfmseg_tpu_torch/csrc/attention_qkv_bwd.cu",
-         "vfmseg_tpu/ops/flash_attention.py:1444")))
+         "vfmseg_tpu/ops/flash_attention.py:684"),)), b4
 
 
-# the gradient errors each backward entry answers for
-GRAD_KEYS = {"dq": ("dq",), "dkv": ("dk", "dv"),
-             "bwd": ("dq", "dk", "dv", "dbias")}
+# B4's TPU kernels, whose function B5's fused backward computes
+B4_REPLACES = ("vfmseg_tpu/ops/flash_attention.py:1397, "
+               "vfmseg_tpu/ops/flash_attention.py:1444")
 # B5's entries: (name, kind, source, TPU kernel), without and with a bias;
 # the fused backward replaces both TPU backward kernels
 B5_ENTRIES = (
@@ -758,7 +770,7 @@ B5_BIAS_ENTRIES = tuple((name.replace("hm_", "hm_bias_"), *rest)
 
 def _train_summaries(rows, entries) -> list:
     """Summary rows of a training attention's entries, ``(name, kind,
-    source, replaces)`` with kind "fwd", "dq", "dkv" or "bwd" (the row keys
+    source, replaces)`` with kind "fwd" or "bwd" (the row keys
     ``{kind}_ms`` and ``{kind}_bound``), timed at the first (the path's)
     shape; errors are the worst over every shape."""
     path = rows[0]
@@ -777,9 +789,8 @@ def _train_summaries(rows, entries) -> list:
                 library_call="F.scaled_dot_product_attention (no LSE)")
         else:
             row.update(
-                max_abs_err=max(r["grad_rel_err"][g] for r in rows
-                                for g in GRAD_KEYS[kind]
-                                if g in r["grad_rel_err"]),
+                max_abs_err=max(max(r["grad_rel_err"].values())
+                                for r in rows),
                 err_kind="max abs err / max |ref|",
                 plain_ms=path["bwd_plain_ms"],
                 library_ms=path["bwd_library_ms"],
@@ -1156,10 +1167,48 @@ def _bias_inputs(randn, b_, h, nq, nk, grid, d):
     return q, k, v, bias.expand(b_, h, nq, nk)
 
 
+def _bias_case(q, k, v, bias, dout, scale):
+    """B5's two bias entries (forward with LSE, the fused backward with
+    dbias) on one case, against autograd through the fp32 plain version;
+    returns the kernels' tensors and the errors."""
+    b_, h, nq, d = q.shape
+    nk = k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dbias = torch.empty((b_, h, nq, nk), dtype=bias.dtype, device=q.device)
+    out, lse = attention_hm_fwd(q, k, v, scale, bias=bias)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    attention_hm_bwd(q, k, v, dout, lse, delta, scale, dq, dk, dv,
+                     bias=bias, dbias=dbias)
+
+    ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
+           for t in (q, k, v)]
+    ref_bias = bias.float().requires_grad_(True)
+    want_out, want_lse = attention_fwd_lse_plain(*ref, scale=scale,
+                                                 bias=ref_bias)
+    want_out.backward(dout.float().transpose(1, 2))
+    torch.cuda.synchronize()
+    out_err = float((out.float().transpose(1, 2)
+                     - want_out.detach()).abs().max())
+    lse_err = float((lse - want_lse.detach()).abs().max())
+    grad_err = _grad_errors(
+        (t.transpose(1, 2) for t in (dq, dk, dv)), ref, (b_, -1, h, d))
+    grad_err["dbias"] = float((dbias.float() - ref_bias.grad).abs().max()
+                              / ref_bias.grad.abs().max())
+    ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
+          and max(grad_err.values()) <= GRAD_REL)
+    kernel = dict(out=out, lse=lse, delta=delta, dq=dq, dk=dk, dv=dv,
+                  dbias=dbias)
+    return kernel, dict(out_max_abs_err=out_err, lse_max_abs_err=lse_err,
+                        grad_rel_err=grad_err, ok=ok)
+
+
 def check_headmajor_bias(randn, dev) -> list:
     """B5's two bias entries (forward with LSE, the fused backward with
     dbias) against autograd through the fp32 plain version with a random
-    dO."""
+    dO, at SAM's six path shapes with the bf16 bias its blocks build and a
+    ragged head-broadcast case (timed beside their plain versions, SDPA and
+    their bounds); then the six shapes again with an fp32 bias (kernel
+    times only)."""
     rows = []
     cases = [(label, b_, h, g[0] * g[1], g[0] * g[1], g)
              for label, b_, h, g in RELPOS_SHAPES]
@@ -1169,32 +1218,10 @@ def check_headmajor_bias(randn, dev) -> list:
         scale = d ** -0.5
         q, k, v, bias = _bias_inputs(randn, b_, h, nq, nk, grid, d)
         dout = randn(b_, h, nq, d).to(torch.bfloat16)
-        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        dbias = torch.empty((b_, h, nq, nk), dtype=bias.dtype, device=dev)
-
-        out, lse = attention_hm_fwd(q, k, v, scale, bias=bias)
-        delta = (dout.float() * out.float()).sum(-1).contiguous()
-        attention_hm_bwd(q, k, v, dout, lse, delta, scale, dq, dk, dv,
-                         bias=bias, dbias=dbias)
-
-        ref = [t.float().transpose(1, 2).contiguous().requires_grad_(True)
-               for t in (q, k, v)]
-        ref_bias = bias.float().requires_grad_(True)
-        want_out, want_lse = attention_fwd_lse_plain(*ref, scale=scale,
-                                                     bias=ref_bias)
-        want_out.backward(dout.float().transpose(1, 2))
-        torch.cuda.synchronize()
-        out_err = float((out.float().transpose(1, 2)
-                         - want_out.detach()).abs().max())
-        lse_err = float((lse - want_lse.detach()).abs().max())
-        grad_err = _grad_errors(
-            (t.transpose(1, 2) for t in (dq, dk, dv)), ref, (b_, -1, h, d))
-        grad_err["dbias"] = float((dbias.float() - ref_bias.grad).abs().max()
-                                  / ref_bias.grad.abs().max())
-        ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
-              and max(grad_err.values()) <= GRAD_REL)
-        del ref, ref_bias, want_out, want_lse
+        kern, errs = _bias_case(q, k, v, bias, dout, scale)
         torch.cuda.empty_cache()
+        lse, delta = kern["lse"], kern["delta"]
+        dq, dk, dv, dbias = (kern[n] for n in ("dq", "dk", "dv", "dbias"))
         plain_in = [t.transpose(1, 2) for t in (q, k, v)]
         p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale,
                                                bias=bias)
@@ -1205,8 +1232,7 @@ def check_headmajor_bias(randn, dev) -> list:
         dbias_bytes = dbias.numel() * dbias.element_size()
         row = dict(
             path=label, shape=[b_, h, nq, nk, d], bias_dtype=str(bias.dtype),
-            bias_strides=list(bias.stride()), out_max_abs_err=out_err,
-            lse_max_abs_err=lse_err, grad_rel_err=grad_err, ok=ok,
+            bias_strides=list(bias.stride()), **errs,
             fwd_ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale,
                                                     bias=bias)),
             fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
@@ -1227,12 +1253,42 @@ def check_headmajor_bias(randn, dev) -> list:
                                  extra_bytes=bias_bytes + dbias_bytes))
         emit("kernel_attention_hm_bias", out_atol=ATTN_ATOL,
              lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
-        if not ok:
+        if not row["ok"]:
             raise AssertionError(f"B5 bias kernels disagree at {label} "
                                  f"{(b_, h, nq, nk)}: {row}")
         rows.append(row)
-        del q, k, v, bias, dout, dq, dk, dv, dbias, out, lse, delta
+        del q, k, v, bias, dout, kern, dq, dk, dv, dbias, lse, delta
         del plain_in, p_out, p_lse
+        torch.cuda.empty_cache()
+
+    for label, b_, h, grid in RELPOS_SHAPES:
+        d = 80
+        scale = d ** -0.5
+        nq = grid[0] * grid[1]
+        q, k, v, bias = _bias_inputs(randn, b_, h, nq, nq, grid, d)
+        # fp32 values off bf16's grid
+        bias = bias.float() + randn(*bias.shape) * 1e-2
+        dout = randn(b_, h, nq, d).to(torch.bfloat16)
+        kern, errs = _bias_case(q, k, v, bias, dout, scale)
+        lse, delta = kern["lse"], kern["delta"]
+        dq, dk, dv, dbias = (kern[n] for n in ("dq", "dk", "dv", "dbias"))
+        n_ = (nq, nq, nq)
+        row = dict(
+            path=label, shape=[b_, h, nq, nq, d], bias_dtype=str(bias.dtype),
+            **errs,
+            fwd_ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale,
+                                                    bias=bias)),
+            bwd_ms=time_ms(lambda: attention_hm_bwd(
+                q, k, v, dout, lse, delta, scale, dq, dk, dv, bias=bias,
+                dbias=dbias)),
+            fwd_bound=attn_bound(b_, h, nq, nq, 2, n_, (nq,), 1, d=d,
+                                 extra_bytes=bias.numel() * 4))
+        emit("kernel_attention_hm_bias_fp32", out_atol=ATTN_ATOL,
+             lse_atol=LSE_ATOL, grad_rel=GRAD_REL, **row)
+        if not row["ok"]:
+            raise AssertionError(f"B5 fp32-bias kernels disagree at {label} "
+                                 f"{(b_, h, nq, nq)}: {row}")
+        del q, k, v, bias, dout, kern, dq, dk, dv, dbias, lse, delta
         torch.cuda.empty_cache()
     return rows
 
@@ -2030,7 +2086,9 @@ def main() -> None:
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    summary = phase_kernels(dev) + phase_kernels_train(dev)
+    summary = phase_kernels(dev)
+    train_rows, b4 = phase_kernels_train(dev)
+    summary += train_rows
     ln_eva02, eva02_rows = phase_kernels_eva02(dev)
     summary += (eva02_rows + phase_kernels_sam(dev)
                 + phase_kernels_compact(dev) + phase_kernels_bias_deform(dev))
@@ -2038,6 +2096,9 @@ def main() -> None:
     ln["max_abs_err"] = max([ln["max_abs_err"]]
                             + [r["max_abs_err"] for r in ln_eva02])
     ln["ms_at_2730"] = ln_eva02[0]["ms"]
+    hm_bwd = next(r for r in summary if r["name"] == "attention_hm_bwd")
+    hm_bwd["replaces"] += ", " + B4_REPLACES
+    hm_bwd["b4_function"] = b4
     by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
     by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
     by_path.update(run_paths(dev, sam_config(), "sam", restore=False))

@@ -23,9 +23,9 @@ from vfmseg_tpu.ops.resize import resize as jax_resize
 from vfmseg_tpu_torch import kernels
 from vfmseg_tpu_torch.kernels import build as kbuild
 from vfmseg_tpu_torch.ops.attention import (
-    attention_bwd_dkv_tm,
-    attention_bwd_dq_tm,
+    _heads_hm,
     attention_fwd_lse_tm,
+    attention_hm_bwd,
     attention_plain,
     attention_qkv_tm,
     multi_head_attention,
@@ -184,11 +184,17 @@ class TestKernelPath:
             attention_qkv_tm(q, q, q, 1, 0.125)
         with pytest.raises(ValueError, match="CUDA"):
             attention_fwd_lse_tm(q, q, q, 1, 0.125)
+        # B3's backward on CUDA: B5's fused backward over the [B, H, N, 64]
+        # views of the token-major tensors
         lse = torch.zeros(1, 1, 8)
+        hq = _heads_hm(q, 1)
         with pytest.raises(ValueError, match="CUDA"):
-            attention_bwd_dq_tm(q, q, q, q, lse, lse, 1, 0.125, q)
+            attention_hm_bwd(hq, hq, hq, hq, lse, lse, 0.125, hq, hq, hq)
+        qkv = torch.zeros(1, 8, 3 * 64, dtype=torch.bfloat16)
+        thirds = [_heads_hm(qkv[..., i * 64:(i + 1) * 64], 1)
+                  for i in range(3)]
         with pytest.raises(ValueError, match="CUDA"):
-            attention_bwd_dkv_tm(q, q, q, q, lse, lse, 1, 0.125, q, q)
+            attention_hm_bwd(*thirds, hq, lse, lse, 0.125, *thirds)
 
     def test_cpu_path_launches_nothing(self):
         counts = kernels.launch_counts()

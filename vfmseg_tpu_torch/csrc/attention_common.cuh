@@ -1,11 +1,11 @@
 // Tile constants and mma.sync helpers shared by the attention kernels
-// (attention_qkv.cu, attention_qkv_bwd.cu, attention_hm.cu,
-// attention_relpos.cu).
+// (attention_qkv.cu, attention_relpos.cu; attention_hm.cu takes the tile
+// constants and the strided views, and multiplies with wgmma).
 //
 // The kernels work in tiles of 64 rows staged in shared memory with rows
 // padded by 8 elements (72 at head dim 64), and multiply with bf16
 // mma.sync.m16n8k16 and fp32 accumulators. The first helpers are fixed at
-// head dim 64 (B2-B4); the templated ones below take any multiple of 16. The
+// head dim 64 (B2, B3); the templated ones below take any multiple of 16. The
 // fragment layouts below are the PTX ones for that instruction, with
 // g = lane / 4 and t = lane % 4:
 //
@@ -196,8 +196,7 @@ __device__ __forceinline__ bf16* at(bf16* p, const View& s, int b, int h, int ro
 }
 
 // The same tiles and products at any head dim D that is a multiple of 16
-// (64, or SAM's 80), for the head-major kernels (attention_hm.cu,
-// attention_relpos.cu). Rows of D = 80 bf16 (160 bytes) are staged with 8
+// (64, or SAM's 80), for the rel-pos kernel (attention_relpos.cu). Rows of D = 80 bf16 (160 bytes) are staged with 8
 // elements of padding, which keeps the fragment loads free of bank conflicts.
 
 // Shapes of a head dim D: staged rows padded by 8 elements, 16-byte vectors

@@ -10,7 +10,12 @@
 // entry, cross-attention at unmatched lengths) and, with has_bias, by the VJP
 // _flash_bias of flash_attention(bias=) (impl="pallas_bias": SAM's blocks with
 // the materialised rel-pos bias, inference and training). The TPU's two
-// backward kernels become one kernel here.
+// backward kernels become one kernel here. The forward with the LSE off
+// computes the function of _fwd_kernel_hm_tav (_flash_forward_hm_tav), and
+// the backward without a bias that of _bwd_dq_kernel_qkv and
+// _bwd_dkv_kernel_qkv (_flash_backward_qkv_tm, the VJP of
+// flash_attention_qkv_tm), whose token-major q, k, v and d(qkv) thirds it
+// reads as [B, H, N, 64] views.
 //
 // For every batch item b and head h, with q_h [Nq, D], k_h and v_h [Nk, D]
 // and bias_h [Nq, Nk] (zero without a bias):
@@ -23,12 +28,11 @@
 //
 // Numerics are the TPU kernels' B5 numerics, not B3's: the scale multiplies the
 // fp32 logits and the bias is added after it (flash_attention.py:316-318,
-// :385-388), the softmax runs with a natural exp and a running max (the exact
-// softmax of xla_attention, not the TPU primal's no-max exp2 one), and the
-// backward recomputes P from the natural-log LSE with no pre-scaled q (it
-// evaluates exp(x) as 2^(x log2 e), with x's terms folded into one fp32
-// multiply-add). P and dS round to bf16 before their products, which
-// accumulate in fp32.
+// :385-388), the softmax is the exact one of xla_attention with a running max
+// (not the TPU primal's no-max exp2 one), and the backward recomputes P from
+// the natural-log LSE with no pre-scaled q. Both kernels evaluate exp(x) as
+// 2^(x log2 e), with x's terms folded into fp32 multiply-adds. P and dS round
+// to bf16 before their products, which accumulate in fp32.
 //
 // Layout: q, k, v, dO and the outputs are [B, H, N, D] bf16 views with their
 // own element strides (batch, head, token) and unit stride along the head dim,
@@ -40,11 +44,54 @@
 // strides (0 for a dimension it is broadcast over); dbias is contiguous
 // [B, H, Nq, Nk] in the bias's dtype.
 //
-// The forward: the tiles, fragments and products of B3 (attention_common.cuh),
-// one block of 4 warps per (64 queries, head, batch item), bf16
-// mma.sync.m16n8k16 with fp32 accumulators, P re-packed in registers as the A
-// operand of P.V; each thread reads the bias of the scores it owns straight
-// from device memory. Ragged tiles are zero-filled and keys >= Nk masked.
+// Both kernels run blocks of two consumer warpgroups (256 threads), multiply
+// with wgmma.m64nNk16 (bf16 in, fp32 accumulators; no product is left on
+// mma.sync), and feed it from shared-memory tiles filled by cp.async.
+//
+// The forward, and what bounds it. It needs two products of 2*Nq*Nk*D
+// operations per head on q, k, v and out: at N = 1025 and D = 64 ~N/2
+// operations a byte, above the card's ~295 operations-a-byte ridge, so without
+// a bias the tensor cores bound it. With a bias each score reads 2 (bf16) or 4
+// bias bytes against 4*D operations, ~160 or ~80 operations a byte at D = 80:
+// the bias's bytes bound it. The design:
+//
+// * A block owns 128 queries of one (head, batch item), 64 per warpgroup, and
+//   loops over the key tiles of 64. Each warpgroup's Q slab is loaded once.
+//   The K tile, the V tile and the 128 x 64 bias tile of a key step go
+//   through a ring of two stages: the next step's cp.async copies are in
+//   flight while the current one is multiplied. Every stream is read once
+//   from device memory per block, the bias once in all. Shared memory is
+//   dynamic (48-132 KB by head dim and bias), so the launch sets the kernel's
+//   limit. The launch bounds hold a thread to 128 registers so that two
+//   blocks share a SM (with a bf16 bias or none; an fp32 bias tile leaves
+//   room for one): on an H100 one block a SM ran slower at every path
+//   shape, and deeper rings (a third K/V stage, or a third bias stage in
+//   unpadded, swizzled tiles) gained nothing or spilled; keeping the
+//   previous step's P.V in flight during the softmax at D = 64 ran slower.
+// * S = Q.K^T is wgmma from shared memory with both operands K-major. The
+//   softmax runs in registers on the m64n64 accumulator (each thread holds two
+//   rows, 16w + g and 16w + g + 8, of warp w in its warpgroup, and columns
+//   2t, 2t + 1 of each 8 keys; a row's max and sum reduce over the 4 threads
+//   of a quad). P is rounded to bf16 and re-packed as the register A operand
+//   of O += P.V (a 64 x 16 slab of the accumulator is the A fragment of one
+//   k16 step), with V an MN-major B operand of the same tile.
+// * The online softmax is exact, in fp32, in log2 units: the scores are
+//   y = s * scale * log2 e (+ bias * log2 e), the running max m is taken over
+//   y, and p = 2^(y - m) by ex2 with scale, log2 e and the max folded into one
+//   FFMA when there is no bias; O and the row sums rescale by 2^(m_old -
+//   m_new). O is divided by the row sum once at the end, and lse = (m +
+//   log2(sum)) * ln 2 is written in natural log, as the backward reads it.
+// * The bias tile is copied once into the ring in copies of 16 bytes (8, 4 or
+//   2 where the view's rows are less aligned, as SAM's window bias of 196-
+//   element rows), and each thread reads its scores' pairs from shared memory
+//   in fragment order. Its rows are kFwdBiasPitch = 72 elements apart, which
+//   keeps those reads free of bank conflicts in bf16 (4-byte pairs, rows 36
+//   words = 4 banks apart) and in fp32 (8-byte pairs, rows 72 words = 8 banks
+//   apart within each half warp).
+// * Ragged tiles. Rows past Nq or Nk are zero-filled on load; keys >= Nk are
+//   masked to -inf (the first key tile always holds a real key, so the running
+//   max is finite after it); query rows >= Nq are never stored, lse included.
+//   A warpgroup whose 64 rows all lie past Nq only helps with the copies.
 //
 // The backward, and what bounds it. It needs five products of 2*Nq*Nk*D
 // operations per head (S, dP, dV, dK, dQ) on a few N*D vectors of bytes: ~N/2
@@ -54,10 +101,10 @@
 // operations a byte at D = 80, under the ridge, so the bias's bytes bound it.
 // The design, one kernel per bias kind and head dim:
 //
-// * One pass over the scores. A block is two warpgroups (256 threads) that own
-//   128 keys of one (head, batch item), 64 each, and loop over the query tiles
-//   of 64. Per tile each warpgroup computes S^T = K.Q^T and dP^T = V.dO^T once
-//   for its keys; P and dS stay in registers, dV += P^T.dO and dK += dS^T.Q
+// * One pass over the scores. A block is two warpgroups that own 128 keys of
+//   one (head, batch item), 64 each, and loop over the query tiles of 64. Per
+//   tile each warpgroup computes S^T = K.Q^T and dP^T = V.dO^T once for its
+//   keys; P and dS stay in registers, dV += P^T.dO and dK += dS^T.Q
 //   accumulate in registers and are written once at the end. dS^T is staged in
 //   shared memory as bf16 and is the operand of dQ_part = dS.K over all 128
 //   keys, each warpgroup computing half of dQ's columns; each thread adds its
@@ -76,34 +123,31 @@
 //   are in flight while the current one is multiplied. Shared memory is dynamic
 //   (81-163 KB by head dim and bias, above the 48 KB default), so the launch
 //   sets the kernel's limit.
-// * wgmma. All five products are wgmma.m64nNk16 with bf16 in and fp32 out:
-//   S^T and dP^T with K, V (A) and Q, dO (B) K-major from shared memory; dV
-//   and dK with P^T and dS^T as register A operands (the accumulator-to-A
-//   re-pack: a 64 x 16 slab of an m64n64 accumulator is the A fragment of one
-//   k16 step) and dO, Q as MN-major (transposed) B operands; dQ with the staged
-//   dS^T as a transposed shared-memory A operand and K as a transposed B. No
-//   product is left on mma.sync. Inside a warpgroup the products overlap the
-//   elementwise work: P is computed while dP^T is in flight, and dS while
-//   dV's product is.
-// * Shared-memory layout. Tiles are stored without swizzle as the canonical
-//   "interleaved" wgmma layout: 8 x 8 core matrices of 8 rows of 16 bytes, 128
-//   contiguous bytes each. So a D = 80 row (160 bytes) is 10 core matrices
-//   along the head dim and needs no split box, and one layout of a Q, dO or K
-//   tile serves both as a K-major operand (contraction over d) and as an
-//   MN-major one (contraction over the rows): only the descriptor's leading-
-//   and stride-byte offsets trade places. A quarter warp's cp.async fills one
-//   core matrix (8 rows x 16 bytes), so the copies are free of bank conflicts.
+// * wgmma. S^T and dP^T with K, V (A) and Q, dO (B) K-major from shared
+//   memory; dV and dK with P^T and dS^T as register A operands and dO, Q as
+//   MN-major (transposed) B operands; dQ with the staged dS^T as a transposed
+//   shared-memory A operand and K as a transposed B. Inside a warpgroup the
+//   products overlap the elementwise work: P is computed while dP^T is in
+//   flight, and dS while dV's product is.
 // * The bias. Each bias tile is read once, into the ring, by cp.async copies
-//   of 16 bytes (8 or 4 where the view's strides or Nk leave rows less
-//   aligned; 2-byte plain copies for an odd bf16 row). Each thread rounds its
-//   dbias scores to the bias's dtype and writes them in place over the bias
-//   values it read; the tile then leaves with vector stores of up to 16 bytes
-//   while the dK and dQ products run. The row pitch (136 bf16 or 132 fp32)
-//   keeps the fragment-ordered reads and writes free of bank conflicts.
+//   as in the forward. Each thread rounds its dbias scores to the bias's dtype
+//   and writes them in place over the bias values it read; the tile then
+//   leaves with vector stores of up to 16 bytes while the dK and dQ products
+//   run. The row pitch (136 bf16 or 132 fp32) keeps the fragment-ordered reads
+//   and writes free of bank conflicts.
 // * Ragged tiles. Rows past Nq or Nk are zero-filled on load; query rows >= Nq
 //   and keys >= Nk get P = dS = 0, so they add nothing to dq, dk or dv; padded
 //   rows and key columns are never stored, dbias's included (Nk = 196 in SAM's
 //   windows is ragged).
+//
+// Shared-memory layout of both kernels. Tiles are stored without swizzle as
+// the canonical "interleaved" wgmma layout: 8 x 8 core matrices of 8 rows of
+// 16 bytes, 128 contiguous bytes each. So a D = 80 row (160 bytes) is 10 core
+// matrices along the head dim and needs no split box, and one layout of a Q,
+// dO, K or V tile serves both as a K-major operand (contraction over d) and as
+// an MN-major one (contraction over the rows): only the descriptor's leading-
+// and stride-byte offsets trade places. A quarter warp's cp.async fills one
+// core matrix (8 rows x 16 bytes), so the copies are free of bank conflicts.
 
 #include <math.h>
 
@@ -118,132 +162,12 @@ using namespace vfmseg_attn;
 // The bias operand: none, bf16 or fp32.
 enum BiasKind { kNoBias = 0, kBiasBf16 = 1, kBiasF32 = 2 };
 
-// The arguments of the forward kernel. Unused pointers are null.
-struct HmArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const void* bias;   // [B, H, Nq, Nk] view, unit stride along Nk
-  bf16* out;
-  float* lse;         // written when non-null
-  View sq, sk, sv, so, sb;
-  int heads, nq, nk;
-  float scale;
-};
-
-// bias[b, h, row, col] as fp32.
 template <int kBias>
-__device__ __forceinline__ float bias_at(const HmArgs& a, int b, int h, int row, int col) {
-  const int64_t off = b * a.sb.b + h * a.sb.h + static_cast<int64_t>(row) * a.sb.n + col;
-  if constexpr (kBias == kBiasBf16) {
-    return __bfloat162float(static_cast<const bf16*>(a.bias)[off]);
-  } else {
-    return static_cast<const float*>(a.bias)[off];
-  }
-}
+using BiasT = typename std::conditional<kBias == kBiasF32, float, bf16>::type;
 
-template <int D, int kBias>
-__global__ void __launch_bounds__(kThreads) attention_hm_fwd_kernel(const HmArgs a) {
-  using Dm = Dims<D>;
-  __shared__ __align__(16) bf16 sq[Dm::kTileElems];
-  __shared__ __align__(16) bf16 sk[Dm::kTileElems];
-  __shared__ __align__(16) bf16 sv[Dm::kTileElems];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  load_tile_d<D>(sq, at(a.q, a.sq, b, h, q0), a.sq.n, a.nq - q0, tid);
-  __syncthreads();
-  uint32_t qa[Dm::kChunks][4];
-  load_a_rows_d<D>(qa, sq, warp, g, t);
-
-  float o[Dm::kTiles][4];
-#pragma unroll
-  for (int i = 0; i < Dm::kTiles; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < a.nk; k0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_d<D>(sk, at(a.k, a.sk, b, h, k0), a.sk.n, a.nk - k0, tid);
-    load_tile_d<D>(sv, at(a.v, a.sv, b, h, k0), a.sv.n, a.nk - k0, tid);
-    __syncthreads();
-
-    float s[kNTiles][4];
-    mma_scores<D>(s, qa, sk, g, t);  // S = Q.K^T, 16 rows x 64 keys
-
-    // Online softmax with a natural exp: logits scaled in fp32, the bias
-    // added, masked keys at -inf; the first tile always holds a real key, so
-    // m is finite after it (the bias is finite).
-    const int valid = a.nk - k0;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int row = row0 + 8 * (e >> 1);
-        float x = -INFINITY;
-        if (col < valid) {
-          x = s[nt][e] * a.scale;
-          if constexpr (kBias != kNoBias) {
-            if (row < a.nq) x += bias_at<kBias>(a, b, h, row, k0 + col);
-          }
-        }
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = __expf(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < Dm::kTiles; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-    mma_pv<D>(o, s, sv, g, t);  // O += P.V
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  store_rows_d<D>(at(a.out, a.so, b, h, 0), a.so.n, row0, a.nq, o, 1.f / l[0], 1.f / l[1], t);
-  if (a.lse != nullptr && t == 0) {
-    float* lrow = a.lse + (static_cast<int64_t>(b) * a.heads + h) * a.nq;
-    if (row0 < a.nq) lrow[row0] = m[0] + logf(l[0]);
-    if (row0 + 8 < a.nq) lrow[row0 + 8] = m[1] + logf(l[1]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The fused backward.
+// Both kernels run blocks of kGroups consumer warpgroups.
+constexpr int kGroups = 2;
+constexpr int kBlockThreads = 128 * kGroups;
 
 // Asynchronous copy of `bytes` (4, 8 or 16) from global to shared memory;
 // only the first `valid` bytes are read and the rest is zero-filled.
@@ -314,8 +238,8 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
 }
 
 // wgmma.m64nNk16, bf16 in, fp32 accumulators: d (+)= A.B, N = 32, 40 or 64
-// with both operands in shared memory (the dQ halves, S^T and dP^T), 64 or
-// 80 with A from registers (dV and dK).
+// with both operands in shared memory (the dQ halves, S^T and dP^T, the
+// forward's S), 64 or 80 with A from registers (dV and dK, the forward's O).
 // SS: A and B from shared memory (kTransA / kTransB: 0 K-major, 1 MN-major);
 // RS: A from registers (the mma.m16n8k16 A fragment of each warp's 16 rows).
 // `accumulate` 0 ignores d's old value.
@@ -394,12 +318,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
-// The backward's block: kBwdGroups consumer warpgroups, each owning 64 of
-// the block's kBwdKeys keys.
-constexpr int kBwdGroups = 2;
-constexpr int kBwdKeys = kBlock * kBwdGroups;
-constexpr int kBwdThreads = 128 * kBwdGroups;
-
 // The byte offset of (row, 16-byte column chunk) in a tile of kRows rows
 // stored as core matrices: chunk-major, then 8-row group, then row within
 // the group.
@@ -408,11 +326,325 @@ __device__ __forceinline__ int core_off(int row, int chunk) {
   return ((chunk * (kRows / 8) + (row >> 3)) << 7) + ((row & 7) << 4);
 }
 
-// Between core matrices of a tile: 128 bytes to the next 8 rows; to the next
-// 8 columns, 1024 in a 64-row Q or dO tile and kKColBytes in a K or V tile.
+// Between core matrices of a tile: 128 bytes to the next 8 rows, and
+// kColBytes<kRows> to the next 8 columns in a tile of kRows rows.
 constexpr uint32_t kRowGroupBytes = 128;
-constexpr uint32_t kQColBytes = kBlock * 16;
-constexpr uint32_t kKColBytes = kBwdKeys * 16;
+template <int kRows>
+constexpr uint32_t kColBytes = kRows * 16;
+
+// Queue rows [0, valid) of a kRows x D tile of a view (rows `row_stride`
+// elements apart) into its core-matrix layout; later rows are zero-filled.
+// Eight consecutive threads fill one core matrix.
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_async(unsigned char* tile, const bf16* src,
+                                                int64_t row_stride, int valid, int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kCopies = kRows * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kCopies + kBlockThreads - 1) / kBlockThreads; ++it) {
+    const int i = it * kBlockThreads + tid;
+    if (kCopies % kBlockThreads != 0 && i >= kCopies) break;
+    const int chunk = (i >> 3) % kChunks;
+    const int row = ((i >> 3) / kChunks) * 8 + (i & 7);
+    const bool ok = row < valid;
+    cp_async<16>(tile + core_off<kRows>(row, chunk),
+                 ok ? src + row * row_stride + chunk * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// Queue a kRows x kCols bias tile, whose first element is `src` and whose
+// rows are `row_stride` elements apart, into rows kPitch elements apart, in
+// copies of kVec bytes; rows >= rows_valid and columns >= cols_valid are
+// zero-filled.
+template <typename T, int kRows, int kCols, int kPitch, int kVec>
+__device__ __forceinline__ void load_bias_vec(unsigned char* tile, const T* src, int64_t row_stride,
+                                              int rows_valid, int cols_valid, int tid) {
+  constexpr int kPer = kVec / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int kPerRow = kCols / kPer;
+#pragma unroll 4
+  for (int i = tid; i < kRows * kPerRow; i += kBlockThreads) {
+    const int row = i / kPerRow;
+    const int col = (i % kPerRow) * kPer;
+    const bool ok = row < rows_valid && col < cols_valid;
+    T* dst = reinterpret_cast<T*>(tile) + row * kPitch + col;
+    const T* s = ok ? src + row * row_stride + col : src;
+    if constexpr (kVec >= 4) {
+      cp_async<kVec>(dst, s, ok ? kVec : 0);
+    } else {
+      *dst = ok ? *s : T(0.f);
+    }
+  }
+}
+
+// The same with the copy width `vec` (16, 8, 4 or 2 bytes) chosen at run time.
+template <typename T, int kRows, int kCols, int kPitch>
+__device__ __forceinline__ void load_bias_async(unsigned char* tile, const T* src,
+                                                int64_t row_stride, int rows_valid,
+                                                int cols_valid, int vec, int tid) {
+  if (vec == 16) {
+    load_bias_vec<T, kRows, kCols, kPitch, 16>(tile, src, row_stride, rows_valid, cols_valid, tid);
+  } else if (vec == 8) {
+    load_bias_vec<T, kRows, kCols, kPitch, 8>(tile, src, row_stride, rows_valid, cols_valid, tid);
+  } else if (vec == 4) {
+    load_bias_vec<T, kRows, kCols, kPitch, 4>(tile, src, row_stride, rows_valid, cols_valid, tid);
+  } else if constexpr (sizeof(T) == 2) {
+    load_bias_vec<T, kRows, kCols, kPitch, 2>(tile, src, row_stride, rows_valid, cols_valid, tid);
+  }
+}
+
+// The widest copy (16, 8, 4 or 2 bytes, at least one element) that keeps
+// every row chunk of a [B, H, Nq, Nk] view with unit stride along Nk aligned:
+// it divides the data pointer, each stride and the row length in bytes.
+int vec_bytes(const void* p, int elem, const View& s, int nk) {
+  int w = 16;
+  while (w > elem) {
+    const int64_t e = elem;
+    if (reinterpret_cast<uintptr_t>(p) % w == 0 && (s.b * e) % w == 0 && (s.h * e) % w == 0 &&
+        (s.n * e) % w == 0 && (nk * e) % w == 0) {
+      break;
+    }
+    w /= 2;
+  }
+  return w;
+}
+
+// ---------------------------------------------------------------------------
+// The forward.
+
+// A forward block: kFwdQueries queries, kBlock of them per warpgroup.
+constexpr int kFwdQueries = kBlock * kGroups;
+// Row pitch of the forward's bias tile (kFwdQueries x kBlock keys), in
+// elements: conflict-free fragment-ordered reads in bf16 and fp32.
+constexpr int kFwdBiasPitch = kBlock + 8;
+// Blocks a SM should hold: at most 128 registers a thread.
+constexpr int kFwdMinBlocks = 2;
+
+// The arguments of the forward kernel. Unused pointers are null; bias_vec:
+// the bytes of one bias copy (16, 8, 4 or 2), the widest that the view's
+// alignment allows.
+struct HmArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const void* bias;   // [B, H, Nq, Nk] view, unit stride along Nk
+  bf16* out;
+  float* lse;         // written when non-null
+  View sq, sk, sv, so, sb;
+  int heads, nq, nk;
+  float scale;
+  int bias_vec;
+};
+
+// Shared memory of the forward, in bytes: the block's Q tile, then two ring
+// stages of (K tile, V tile, bias tile).
+template <int D, int kBias>
+struct FwdSmem {
+  static constexpr int kKTile = kBlock * D * 2;
+  static constexpr int kBiasBytes =
+      kBias == kNoBias ? 0
+                       : kFwdQueries * kFwdBiasPitch * static_cast<int>(sizeof(BiasT<kBias>));
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kFwdQueries * D * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKTile;
+  static constexpr int kBiasOff = 2 * kKTile;
+  static constexpr int kStage = kBiasOff + kBiasBytes;
+  static constexpr int kStages = 2;
+  static constexpr int kBytes = kRing + kStages * kStage;
+  static_assert(kKTile % 128 == 0 && kBiasBytes % 128 == 0, "tiles must stay 128-byte aligned");
+};
+
+// Queue one ring stage of the forward: the K and V tiles and the bias tile
+// at key k0 for the block's queries from q0.
+template <int D, int kBias>
+__device__ __forceinline__ void load_fwd_stage(unsigned char* st, const HmArgs& a, int b, int h,
+                                               int q0, int k0, int tid) {
+  using L = FwdSmem<D, kBias>;
+  load_tile_async<D, kBlock>(st + L::kK, at(a.k, a.sk, b, h, k0), a.sk.n, a.nk - k0, tid);
+  load_tile_async<D, kBlock>(st + L::kV, at(a.v, a.sv, b, h, k0), a.sv.n, a.nk - k0, tid);
+  if constexpr (kBias != kNoBias) {
+    using T = BiasT<kBias>;
+    const T* src = static_cast<const T*>(a.bias) + b * a.sb.b + h * a.sb.h +
+                   static_cast<int64_t>(q0) * a.sb.n + k0;
+    load_bias_async<T, kFwdQueries, kBlock, kFwdBiasPitch>(st + L::kBiasOff, src, a.sb.n,
+                                                           a.nq - q0, a.nk - k0, a.bias_vec, tid);
+  }
+}
+
+template <int D, int kBias>
+__global__ void __launch_bounds__(kBlockThreads, kFwdMinBlocks)
+    attention_hm_fwd_kernel(const HmArgs a) {
+  using L = FwdSmem<D, kBias>;
+  using T = BiasT<kBias>;
+  constexpr int kAcc = D / 2;  // registers of a 64 x D accumulator
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int q0 = blockIdx.x * kFwdQueries;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // This thread's query rows in the block's tile: ql0 and ql0 + 8.
+  const int ql0 = wg * kBlock + warp * 16 + g;
+  const int n_tiles = (a.nk + kBlock - 1) / kBlock;
+  const float scale_log2 = a.scale * kLog2e;
+  const bool active = q0 + wg * kBlock < a.nq;
+  const uint32_t q_rows = wg * (kBlock / 8) * kRowGroupBytes;
+
+  load_tile_async<D, kFwdQueries>(smem + L::kQ, at(a.q, a.sq, b, h, q0), a.sq.n, a.nq - q0, tid);
+  load_fwd_stage<D, kBias>(smem + L::kRing, a, b, h, q0, 0, tid);
+  cp_async_commit();
+
+  float o[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+  // Running max (log2 units) and this thread's part of the row sums.
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlock;
+    unsigned char* st = smem + L::kRing + (it & 1) * L::kStage;
+    // This key tile has landed, and every thread is done with the other stage.
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      load_fwd_stage<D, kBias>(smem + L::kRing + ((it + 1) & 1) * L::kStage, a, b, h, q0,
+                               k0 + kBlock, tid);
+      cp_async_commit();
+    }
+    if (!active) continue;
+
+    // S = Q.K^T: rows are this warpgroup's 64 queries, columns the tile's keys.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<0, 0>(s,
+                     smem_desc(smem + L::kQ + q_rows + kk * 2 * kColBytes<kFwdQueries>,
+                               kColBytes<kFwdQueries>, kRowGroupBytes),
+                     smem_desc(st + L::kK + kk * 2 * kColBytes<kBlock>, kColBytes<kBlock>,
+                               kRowGroupBytes),
+                     1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // The scores in log2 units (with a bias: y = s * scale_log2 + bias * log2 e;
+    // without: s itself, scaled below), keys >= Nk at -inf, and the row max.
+    const int valid = a.nk - k0;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x0 = s[4 * j + 2 * r];
+        float x1 = s[4 * j + 2 * r + 1];
+        if constexpr (kBias != kNoBias) {
+          const T* bp = reinterpret_cast<const T*>(st + L::kBiasOff) +
+                        (ql0 + 8 * r) * kFwdBiasPitch + col;
+          float2 bv;
+          if constexpr (kBias == kBiasBf16) {
+            bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bp));
+          } else {
+            bv = *reinterpret_cast<const float2*>(bp);
+          }
+          x0 = fmaf(x0, scale_log2, bv.x * kLog2e);
+          x1 = fmaf(x1, scale_log2, bv.y * kLog2e);
+        }
+        if (valid < kBlock) {
+          if (col >= valid) x0 = -INFINITY;
+          if (col + 1 >= valid) x1 = -INFINITY;
+        }
+        s[4 * j + 2 * r] = x0;
+        s[4 * j + 2 * r + 1] = x1;
+        mx[r] = fmaxf(mx[r], fmaxf(x0, x1));
+      }
+    }
+    float neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], kBias != kNoBias ? mx[r] : mx[r] * scale_log2);
+      const float alpha = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      neg_m[r] = -m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * r] *= alpha;
+        o[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+    // P = 2^(y - m), one FFMA and one ex2 a score, re-packed as bf16 A
+    // fragments (one per 16 keys).
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = kBias != kNoBias ? exp2_approx(s[4 * j + e] + neg_m[r])
+                                         : exp2_approx(fmaf(s[4 * j + e], scale_log2, neg_m[r]));
+        s[4 * j + e] = p;
+        l[r] += p;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[c][r] = pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
+    }
+
+    // O += P.V (register A, V an MN-major B).
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      wgmma_rs<1>(o, pa[c],
+                  smem_desc(st + L::kV + c * 2 * kRowGroupBytes, kRowGroupBytes, kColBytes<kBlock>),
+                  1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  if (!active) return;
+
+  // out = O / rowsum in bf16, and lse = (m + log2(rowsum)) * ln 2.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q0 + ql0 + 8 * r;
+    if (row >= a.nq) continue;
+    const float inv = 1.f / l[r];
+    bf16* orow = at(a.out, a.so, b, h, row) + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+    if (a.lse != nullptr && t == 0) {
+      a.lse[(static_cast<int64_t>(b) * a.heads + h) * a.nq + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused backward.
+
+// A backward block: kBwdKeys keys, kBlock of them per warpgroup.
+constexpr int kBwdKeys = kBlock * kGroups;
 
 // The arguments of the backward kernel. dq_acc is the fp32 workspace
 // [B, H, Nq, D], zeroed by the caller; bias and dbias are null without a
@@ -440,13 +672,8 @@ struct BwdArgs {
 // elements, which keeps the fragment-ordered accesses free of bank conflicts.
 template <int kBias>
 struct BiasTile {
-  using T = bf16;
-  static constexpr int kPitch = kBwdKeys + 8;
-};
-template <>
-struct BiasTile<kBiasF32> {
-  using T = float;
-  static constexpr int kPitch = kBwdKeys + 4;
+  using T = BiasT<kBias>;
+  static constexpr int kPitch = kBwdKeys + (kBias == kBiasF32 ? 4 : 8);
 };
 
 // Shared memory of the backward, in bytes: K, V and the staged dS^T, then two
@@ -474,65 +701,6 @@ struct BwdSmem {
   static_assert(kQTile % 128 == 0 && kBiasBytes % 128 == 0, "tiles must stay 128-byte aligned");
 };
 
-// Queue rows [0, valid) of a kRows x D tile of a view (rows `row_stride`
-// elements apart) into its core-matrix layout; later rows are zero-filled.
-// Eight consecutive threads fill one core matrix.
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_async(unsigned char* tile, const bf16* src,
-                                                int64_t row_stride, int valid, int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kCopies = kRows * kChunks;
-#pragma unroll
-  for (int it = 0; it < (kCopies + kBwdThreads - 1) / kBwdThreads; ++it) {
-    const int i = it * kBwdThreads + tid;
-    if (kCopies % kBwdThreads != 0 && i >= kCopies) break;
-    const int chunk = (i >> 3) % kChunks;
-    const int row = ((i >> 3) / kChunks) * 8 + (i & 7);
-    const bool ok = row < valid;
-    cp_async<16>(tile + core_off<kRows>(row, chunk),
-                 ok ? src + row * row_stride + chunk * 8 : src, ok ? 16 : 0);
-  }
-}
-
-// Queue the bias tile at (q0, k0) into its padded rows, in copies of kVec
-// bytes; rows >= Nq and keys >= Nk are zero-filled.
-template <int kBias, int kVec>
-__device__ __forceinline__ void load_bias_vec(unsigned char* tile, const BwdArgs& a, int b,
-                                              int h, int q0, int k0, int tid) {
-  using T = typename BiasTile<kBias>::T;
-  constexpr int kPer = kVec / static_cast<int>(sizeof(T));  // elements a copy
-  constexpr int kPerRow = kBwdKeys / kPer;
-  const T* base = static_cast<const T*>(a.bias) + b * a.sb.b + h * a.sb.h +
-                  static_cast<int64_t>(q0) * a.sb.n + k0;
-#pragma unroll 4
-  for (int i = tid; i < kBlock * kPerRow; i += kBwdThreads) {
-    const int row = i / kPerRow;
-    const int col = (i % kPerRow) * kPer;
-    const bool ok = q0 + row < a.nq && k0 + col < a.nk;
-    T* dst = reinterpret_cast<T*>(tile) + row * BiasTile<kBias>::kPitch + col;
-    const T* src = ok ? base + row * a.sb.n + col : base;
-    if constexpr (kVec >= 4) {
-      cp_async<kVec>(dst, src, ok ? kVec : 0);
-    } else {
-      *dst = ok ? *src : T(0.f);
-    }
-  }
-}
-
-template <int kBias>
-__device__ __forceinline__ void load_bias_async(unsigned char* tile, const BwdArgs& a, int b,
-                                                int h, int q0, int k0, int tid) {
-  if (a.bias_vec == 16) {
-    load_bias_vec<kBias, 16>(tile, a, b, h, q0, k0, tid);
-  } else if (a.bias_vec == 8) {
-    load_bias_vec<kBias, 8>(tile, a, b, h, q0, k0, tid);
-  } else if (a.bias_vec == 4) {
-    load_bias_vec<kBias, 4>(tile, a, b, h, q0, k0, tid);
-  } else if constexpr (kBias == kBiasBf16) {
-    load_bias_vec<kBias, 2>(tile, a, b, h, q0, k0, tid);
-  }
-}
-
 // Write the staged dbias tile (rows < Nq, keys < Nk) to dbias[b, h, q0:, k0:]
 // in stores of kVec bytes.
 template <int kBias, int kVec>
@@ -548,7 +716,7 @@ __device__ __forceinline__ void store_dbias_vec(const unsigned char* tile, const
                                                           uint16_t>::type>::type>::type;
   T* base = static_cast<T*>(a.dbias) + (bh * a.nq + q0) * a.nk + k0;
 #pragma unroll 4
-  for (int i = tid; i < kBlock * kPerRow; i += kBwdThreads) {
+  for (int i = tid; i < kBlock * kPerRow; i += kBlockThreads) {
     const int row = i / kPerRow;
     const int col = (i % kPerRow) * kPer;
     if (q0 + row < a.nq && k0 + col < a.nk) {
@@ -589,16 +757,23 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const BwdArgs& a, 
     cp_async<4>(st + (tid < kBlock ? L::kLse : L::kDelta) + r * 4, ok ? rows + r : rows,
                 ok ? 4 : 0);
   }
-  if constexpr (kBias != kNoBias) load_bias_async<kBias>(st + L::kBiasOff, a, b, h, q0, k0, tid);
+  if constexpr (kBias != kNoBias) {
+    using T = BiasT<kBias>;
+    const T* src = static_cast<const T*>(a.bias) + b * a.sb.b + h * a.sb.h +
+                   static_cast<int64_t>(q0) * a.sb.n + k0;
+    load_bias_async<T, kBlock, kBwdKeys, BiasTile<kBias>::kPitch>(st + L::kBiasOff, src, a.sb.n,
+                                                                  a.nq - q0, a.nk - k0,
+                                                                  a.bias_vec, tid);
+  }
 }
 
 template <int D, int kBias>
-__global__ void __launch_bounds__(kBwdThreads) attention_hm_bwd_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(kBlockThreads) attention_hm_bwd_kernel(const BwdArgs a) {
   using L = BwdSmem<D, kBias>;
   using T = typename BiasTile<kBias>::T;
   constexpr int kP = BiasTile<kBias>::kPitch;
   constexpr int kAcc = D / 2;               // registers of a 64 x D accumulator
-  constexpr int kDqN = D / kBwdGroups;      // the dQ columns of a warpgroup
+  constexpr int kDqN = D / kGroups;      // the dQ columns of a warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x;
@@ -660,15 +835,15 @@ __global__ void __launch_bounds__(kBwdThreads) attention_hm_bwd_kernel(const Bwd
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       wgmma_ss<0, 0>(s,
-                     smem_desc(sk + key_rows + kk * 2 * kKColBytes, kKColBytes, kRowGroupBytes),
-                     smem_desc(st + L::kQ + kk * 2 * kQColBytes, kQColBytes, kRowGroupBytes), 1);
+                     smem_desc(sk + key_rows + kk * 2 * kColBytes<kBwdKeys>, kColBytes<kBwdKeys>, kRowGroupBytes),
+                     smem_desc(st + L::kQ + kk * 2 * kColBytes<kBlock>, kColBytes<kBlock>, kRowGroupBytes), 1);
     }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       wgmma_ss<0, 0>(dp,
-                     smem_desc(sv + key_rows + kk * 2 * kKColBytes, kKColBytes, kRowGroupBytes),
-                     smem_desc(st + L::kDo + kk * 2 * kQColBytes, kQColBytes, kRowGroupBytes),
+                     smem_desc(sv + key_rows + kk * 2 * kColBytes<kBwdKeys>, kColBytes<kBwdKeys>, kRowGroupBytes),
+                     smem_desc(st + L::kDo + kk * 2 * kColBytes<kBlock>, kColBytes<kBlock>, kRowGroupBytes),
                      1);
     }
     wgmma_commit();
@@ -711,7 +886,7 @@ __global__ void __launch_bounds__(kBwdThreads) attention_hm_bwd_kernel(const Bwd
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       wgmma_rs<1>(dv, pa[c],
-                  smem_desc(st + L::kDo + c * 2 * kRowGroupBytes, kRowGroupBytes, kQColBytes), 1);
+                  smem_desc(st + L::kDo + c * 2 * kRowGroupBytes, kRowGroupBytes, kColBytes<kBlock>), 1);
     }
     wgmma_commit();
 
@@ -759,13 +934,13 @@ __global__ void __launch_bounds__(kBwdThreads) attention_hm_bwd_kernel(const Bwd
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       wgmma_rs<1>(dk, da[c],
-                  smem_desc(st + L::kQ + c * 2 * kRowGroupBytes, kRowGroupBytes, kQColBytes), 1);
+                  smem_desc(st + L::kQ + c * 2 * kRowGroupBytes, kRowGroupBytes, kColBytes<kBlock>), 1);
     }
-    const int dq_cols = wg * (kDqN / 8) * kKColBytes;
+    const int dq_cols = wg * (kDqN / 8) * kColBytes<kBwdKeys>;
 #pragma unroll
     for (int c = 0; c < kBwdKeys / 16; ++c) {
-      wgmma_ss<1, 1>(dq, smem_desc(sds + c * 2 * kQColBytes, kQColBytes, kRowGroupBytes),
-                     smem_desc(sk + dq_cols + c * 2 * kRowGroupBytes, kRowGroupBytes, kKColBytes),
+      wgmma_ss<1, 1>(dq, smem_desc(sds + c * 2 * kColBytes<kBlock>, kColBytes<kBlock>, kRowGroupBytes),
+                     smem_desc(sk + dq_cols + c * 2 * kRowGroupBytes, kRowGroupBytes, kColBytes<kBwdKeys>),
                      1);
     }
     wgmma_commit();
@@ -848,45 +1023,32 @@ HmArgs fwd_args(const void* q, const void* k, const void* v, void* out, void* ls
   return a;
 }
 
-template <int D>
-void launch_fwd_d(int bias_kind, const HmArgs& a, dim3 grid, cudaStream_t stream) {
-  if (bias_kind == kNoBias) attention_hm_fwd_kernel<D, kNoBias><<<grid, kThreads, 0, stream>>>(a);
-  if (bias_kind == kBiasBf16) {
-    attention_hm_fwd_kernel<D, kBiasBf16><<<grid, kThreads, 0, stream>>>(a);
-  }
-  if (bias_kind == kBiasF32) attention_hm_fwd_kernel<D, kBiasF32><<<grid, kThreads, 0, stream>>>(a);
-}
-
-// Launch the forward over a grid of (query tiles, heads, batch); returns a
+// The forward over a grid of (query blocks, heads, batch); returns a
 // cudaError_t.
-int launch_fwd(int head_dim, int bias_kind, const HmArgs& a, int batch, void* stream) {
-  if (bias_kind < kNoBias || bias_kind > kBiasF32) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.nq + kBlock - 1) / kBlock, a.heads, batch);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) {
-    launch_fwd_d<64>(bias_kind, a, grid, s);
-  } else if (head_dim == 80) {
-    launch_fwd_d<80>(bias_kind, a, grid, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D, int kBias>
+int launch_fwd_kernel(const HmArgs& a, int batch, cudaStream_t stream) {
+  constexpr int kBytes = FwdSmem<D, kBias>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(attention_hm_fwd_kernel<D, kBias>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.nq + kFwdQueries - 1) / kFwdQueries, a.heads, batch);
+  attention_hm_fwd_kernel<D, kBias><<<grid, kBlockThreads, kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The widest copy (16, 8, 4 or 2 bytes, at least one element) that keeps
-// every row chunk of a [B, H, Nq, Nk] view with unit stride along Nk aligned:
-// it divides the data pointer, each stride and the row length in bytes.
-int vec_bytes(const void* p, int elem, const View& s, int nk) {
-  int w = 16;
-  while (w > elem) {
-    const int64_t e = elem;
-    if (reinterpret_cast<uintptr_t>(p) % w == 0 && (s.b * e) % w == 0 && (s.h * e) % w == 0 &&
-        (s.n * e) % w == 0 && (nk * e) % w == 0) {
-      break;
-    }
-    w /= 2;
-  }
-  return w;
+template <int D>
+int launch_fwd_d(int bias_kind, const HmArgs& a, int batch, cudaStream_t stream) {
+  if (bias_kind == kNoBias) return launch_fwd_kernel<D, kNoBias>(a, batch, stream);
+  if (bias_kind == kBiasBf16) return launch_fwd_kernel<D, kBiasBf16>(a, batch, stream);
+  return launch_fwd_kernel<D, kBiasF32>(a, batch, stream);
+}
+
+int launch_fwd(int head_dim, int bias_kind, const HmArgs& a, int batch, void* stream) {
+  if (bias_kind < kNoBias || bias_kind > kBiasF32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return launch_fwd_d<64>(bias_kind, a, batch, s);
+  if (head_dim == 80) return launch_fwd_d<80>(bias_kind, a, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The fused backward, then the dq rounding; returns a cudaError_t.
@@ -898,7 +1060,7 @@ int launch_bwd_kernel(const BwdArgs& a, bf16* dq, const View& sdq, int batch,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.nk + kBwdKeys - 1) / kBwdKeys, a.heads, batch);
-  attention_hm_bwd_kernel<D, kBias><<<grid, kBwdThreads, kBytes, stream>>>(a);
+  attention_hm_bwd_kernel<D, kBias><<<grid, kBlockThreads, kBytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t total = static_cast<int64_t>(batch) * a.heads * a.nq * (D / 8);
@@ -987,6 +1149,7 @@ extern "C" int vfmseg_attention_hm_bias_fwd(const void* q, const void* k, const 
   HmArgs a = fwd_args(q, k, v, out, lse, strides, heads, nq, nk, scale);
   a.bias = bias;
   a.sb = view(strides, 4);
+  a.bias_vec = vec_bytes(bias, bias_kind == kBiasF32 ? 4 : 2, a.sb, nk);
   return launch_fwd(head_dim, bias_kind, a, batch, stream);
 }
 

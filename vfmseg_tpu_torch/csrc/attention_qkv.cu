@@ -19,7 +19,7 @@
 //   _flash_forward_qkv with with_lse=True, reached through
 //   _flash_qkv_tm_fwd_rule), the training forward. It also writes, per batch
 //   item, head and query row, lse = log(sum_k exp(q.k * scale)) in fp32 and
-//   natural log, which the backward kernels (attention_qkv_bwd.cu) read.
+//   natural log, which the fused backward (attention_hm.cu) reads.
 //
 // For every batch item b and head h:
 //

@@ -40,16 +40,6 @@ ATTENTION_QKV_ROPE = Kernel("attention_qkv_rope", "vfmseg_attention_qkv_rope",
 # stride_n, scale, stream
 ATTENTION_FWD_LSE = Kernel("attention_fwd_lse", "vfmseg_attention_qkv_fwd_lse",
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_qkv_bwd.cu: q, k, v, dout, lse, delta, dq, batch, n, heads,
-# stride_b, stride_n, gstride_b, gstride_n, scale, stream
-ATTENTION_BWD_DQ = Kernel("attention_bwd_dq", "vfmseg_attention_bwd_dq",
-                          [_P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_qkv_bwd.cu: as above with dk, dv in place of dq
-ATTENTION_BWD_DKV = Kernel("attention_bwd_dkv", "vfmseg_attention_bwd_dkv",
-                           [_P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _P])
-
 # csrc/attention_hm.cu: q, k, v, out, lse (or null), strides (int64 array:
 # batch, head, token of q, k, v, out), batch, heads, nq, nk, head_dim, scale,
 # stream
@@ -93,9 +83,9 @@ DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
-           ATTENTION_BWD_DQ, ATTENTION_BWD_DKV, ATTENTION_HM_FWD,
-           ATTENTION_HM_BWD, ATTENTION_HM_BIAS_FWD, ATTENTION_HM_BIAS_BWD,
-           ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
+           ATTENTION_HM_FWD, ATTENTION_HM_BWD, ATTENTION_HM_BIAS_FWD,
+           ATTENTION_HM_BIAS_BWD, ATTENTION_RELPOS, WINDOW_BLEND,
+           DEFORM_SAMPLE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
 """Device time of B5's backward at its path shapes, through the autograd
-Function the training paths take.
+Functions the training paths take.
 
 Usage, from the root of a checkout with a CUDA card:
 ``python3 -m vfmseg_tpu_torch.kernels.time_hm_bwd``
@@ -8,9 +8,12 @@ For each shape (``SHAPES``: EVA02's head-major training attention over both
 scale views; SAM's train-step global and windowed blocks on the
 ``pallas_bias`` route, q, k, v views of one fused qkv tensor with a bf16
 ``[B, H, N, N]`` bias; a ragged Nq != Nk case off the path with a bf16 bias
-broadcast over the heads), the same seeded inputs in every checkout: one
-forward through ``multi_head_attention_headmajor`` (``HeadMajorAttention``)
-with q, k, v and the bias requiring grad, then
+broadcast over the heads; B3's backward, B4's function, at DINOv2's train
+shape off one fused qkv tensor), the same seeded inputs in every checkout:
+one forward through ``multi_head_attention_headmajor``
+(``HeadMajorAttention``) with q, k, v and the bias requiring grad (for B4's
+function through ``multi_head_attention_qkv_tm``, ``FusedQKVAttention``,
+with the fused qkv requiring grad), then
 
 * ``bwd_ms``: ``torch.autograd.grad(out, inputs, dout, retain_graph=True)``,
   CUDA events around 10 back-to-back calls, the median of 10 such windows
@@ -47,15 +50,19 @@ from vfmseg_tpu_torch import kernels
 from vfmseg_tpu_torch.ops.attention import (
     attention_plain,
     multi_head_attention_headmajor,
+    multi_head_attention_qkv_tm,
 )
 
 # (path, B, H, Nq, Nk, head dim, bias): EVA02's ViT over both scale views of
 # the train step; SAM's train step (4 global blocks over 4 views of 32x32,
-# 28 windowed blocks over 36 windows of 14x14); a ragged case off the path
+# 28 windowed blocks over 36 windows of 14x14); a ragged case off the path;
+# DINOv2's ViT over both scale views off its fused qkv ("qkv_tm": B3's
+# forward, and its backward, B4's function)
 SHAPES = [("eva02_train", 4, 16, 1025, 1025, 64, None),
           ("sam_train_global", 4, 16, 1024, 1024, 80, "bf16"),
           ("sam_train_window", 36, 16, 196, 196, 80, "bf16"),
-          ("ragged_heads_bias", 3, 3, 77, 130, 80, "bf16_heads")]
+          ("ragged_heads_bias", 3, 3, 77, 130, 80, "bf16_heads"),
+          ("dinov2_train_qkv", 4, 16, 1025, 1025, 64, "qkv_tm")]
 INNER = 10
 REPS = 10
 
@@ -104,8 +111,12 @@ def device_ms(fn) -> dict:
 def views(leaves, b, h, nq, nk, d, bias_kind):
     """The [B, H, N, D] q, k, v views and the bias view the paths hand to
     the attention, from the leaves: SAM's one fused [B, N, 3, H, D] qkv
-    tensor (``bias_kind`` "bf16") or three token-major [B, N, H*D]
-    projections, then the bias's [B, H or 1, Nq, Nk] tensor."""
+    tensor (``bias_kind`` "bf16"), DINOv2's fused [B, N, 3*H*D] qkv tensor
+    ("qkv_tm"), or three token-major [B, N, H*D] projections, then the
+    bias's [B, H or 1, Nq, Nk] tensor."""
+    if bias_kind == "qkv_tm":
+        q, k, v = leaves[0].reshape(b, nq, 3, h, d).permute(2, 0, 3, 1, 4)
+        return q, k, v, None
     if bias_kind == "bf16":
         q, k, v = leaves[0].permute(2, 0, 3, 1, 4)
     else:
@@ -125,6 +136,8 @@ def leaves_and_dout(b, h, nq, nk, d, bias_kind, dev):
 
     if bias_kind == "bf16":
         leaves = [randn(b, nq, 3, h, d), randn(b, h, nq, nk, scale=0.5)]
+    elif bias_kind == "qkv_tm":
+        leaves = [randn(b, nq, 3 * h * d)]
     else:
         leaves = [randn(b, n, h * d) for n in (nq, nk, nk)]
         if bias_kind == "bf16_heads":
@@ -137,7 +150,13 @@ def time_shape(path, b, h, nq, nk, d, bias_kind, dev) -> dict:
     shape = (b, h, nq, nk, d, bias_kind)
     leaves, dout = leaves_and_dout(*shape, dev)
     q, k, v, bias = views(leaves, *shape)
-    out = multi_head_attention_headmajor(q, k, v, scale=scale, bias=bias)
+    if bias_kind == "qkv_tm":
+        # token-major [B, N, H*D] out and dO, seen as [B, H, N, D]
+        out = multi_head_attention_qkv_tm(leaves[0], h, scale=scale)
+        out = out.reshape(b, nq, h, d).transpose(1, 2)
+        dout = dout.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        out = multi_head_attention_headmajor(q, k, v, scale=scale, bias=bias)
     before = kernels.launch_counts()
     got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
     after = kernels.launch_counts()

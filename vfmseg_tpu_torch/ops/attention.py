@@ -26,22 +26,22 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
   - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2), and
     :func:`attention_qkv_rope_tm`, its RoPE variant (EVA02 inference);
   - :func:`attention_fwd_lse_tm` (same file, B3), the training forward
-    with the LSE, and :func:`attention_bwd_dq_tm` /
-    :func:`attention_bwd_dkv_tm` (``csrc/attention_qkv_bwd.cu``, B4), all
-    over ``[B, N, H*64]`` views of one stride pair;
+    with the LSE, over ``[B, N, H*64]`` views of one stride pair;
   - :func:`attention_hm_fwd` and :func:`attention_hm_bwd`
-    (``csrc/attention_hm.cu``, B5: a forward and one fused backward),
-    general attention over ``[B, H, N, D]`` views with their own strides and
-    Nq != Nk, with an optional additive bias (then the backward also writes
-    dbias in the bias's dtype);
+    (``csrc/attention_hm.cu``, B5: a forward and one fused backward, both on
+    wgmma), general attention over ``[B, H, N, D]`` views with their own
+    strides and Nq != Nk, with an optional additive bias (then the backward
+    also writes dbias in the bias's dtype). The backward also computes B4's
+    function, B3's backward, on ``[B, H, N, 64]`` views of the token-major
+    tensors (:func:`attention_bwd_tm`);
   - :func:`attention_relpos_hm` (``csrc/attention_relpos.cu``, B7), SAM's
     attention with the rel-pos bias rebuilt in the kernel from its terms.
 * :func:`multi_head_attention_qkv_tm`, :func:`multi_head_attention_headmajor`,
   :func:`multi_head_attention_decomposed_hm` and :func:`multi_head_attention`
   pick: when grad is enabled and an input requires it, the autograd
   Functions :class:`FusedQKVAttention` / :class:`QKVAttention` (B3 forward,
-  B4 backward on CUDA), :class:`HeadMajorAttention` (B5, with or without a
-  bias) or
+  B5's fused backward on CUDA), :class:`HeadMajorAttention` (B5, with or
+  without a bias) or
   :class:`DecomposedRelPosAttention` (B7 forward, plain recomputed
   backward), with the plain twins on the CPU, as the JAX package takes its
   forward rules under differentiation; otherwise the inference kernels on
@@ -62,8 +62,6 @@ from typing import Optional, Tuple
 import torch
 
 from vfmseg_tpu_torch.kernels import (
-    ATTENTION_BWD_DKV,
-    ATTENTION_BWD_DQ,
     ATTENTION_FWD_LSE,
     ATTENTION_HM_BIAS_BWD,
     ATTENTION_HM_BIAS_FWD,
@@ -75,7 +73,7 @@ from vfmseg_tpu_torch.kernels import (
 )
 from vfmseg_tpu_torch.ops.rope import apply_rope_permuted
 
-HEAD_DIM = 64  # the only head dim B2, B3 and B4 take
+HEAD_DIM = 64  # the only head dim B2 and B3 take
 HM_HEAD_DIMS = (64, 80)  # the head dims B5 and B7 are built for
 _INT_MAX = 2**31 - 1
 
@@ -264,56 +262,16 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor,
         b, n, num_heads, f // num_heads).sum(-1).transpose(1, 2).contiguous()
 
 
-def _check_bwd(fn: str, q, k, v, dout, lse, delta, num_heads, grads):
-    b, n, stride_b, stride_n = _strided_views(fn, num_heads, q, k, v)
-    _, _, gstride_b, gstride_n = _strided_views(fn, num_heads, *grads)
-    _strided_views(fn, num_heads, dout)
-    if grads[0].shape != q.shape:
-        raise ValueError(f"{fn} needs gradients of q's shape")
-    if not dout.is_contiguous():
-        raise ValueError(f"{fn} needs a contiguous dout")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (t.dtype != torch.float32 or t.shape != (b, num_heads, n)
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"{fn} needs a contiguous fp32 {name} of shape "
-                             f"{(b, num_heads, n)} on {q.device}")
-    return b, n, stride_b, stride_n, gstride_b, gstride_n
-
-
-def attention_bwd_dq_tm(q, k, v, dout, lse, delta, num_heads: int,
-                        scale: float, dq: torch.Tensor) -> None:
-    """Launch the dq kernel of B4. q, k, v as the forward took them; dout
-    contiguous bf16 ``[B, N, H*64]``; lse and delta fp32 ``[B, H, N]``.
-    Writes dq, a bf16 ``[B, N, H*64]`` view (a third of d(qkv) qualifies)."""
-    b, n, sb, sn, gb, gn = _check_bwd("attention_bwd_dq_tm", q, k, v, dout,
-                                      lse, delta, num_heads, (dq,))
-    if q.numel() == 0:
-        return
-    ATTENTION_BWD_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), b, n, num_heads, sb, sn, gb, gn,
-                     float(scale), _stream(q))
-
-
-def attention_bwd_dkv_tm(q, k, v, dout, lse, delta, num_heads: int,
-                         scale: float, dk: torch.Tensor,
-                         dv: torch.Tensor) -> None:
-    """Launch the dk/dv kernel of B4; arguments as
-    :func:`attention_bwd_dq_tm`, writing dk and dv (two views of one
-    stride pair)."""
-    b, n, sb, sn, gb, gn = _check_bwd("attention_bwd_dkv_tm", q, k, v, dout,
-                                      lse, delta, num_heads, (dk, dv))
-    if q.numel() == 0:
-        return
-    ATTENTION_BWD_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), b, n, num_heads, sb, sn,
-                      gb, gn, float(scale), _stream(q))
-
-
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, f = t.shape
     return t.reshape(b, n, num_heads, f // num_heads)
+
+
+def _heads_hm(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The ``[B, H, N, D]`` view of a ``[B, N, H*D]`` view with unit feature
+    stride, with no copy: a third of a fused ``[B, N, 3*H*D]`` tensor gives
+    strides (N*3*H*D, D, 3*H*D, 1)."""
+    return _heads(t, num_heads).transpose(1, 2)
 
 
 def _fwd_lse(q, k, v, num_heads, scale):
@@ -326,15 +284,20 @@ def _fwd_lse(q, k, v, num_heads, scale):
     return out.reshape(q.shape), lse
 
 
-def _bwd(q, k, v, out, lse, dout, num_heads, scale, dq, dk, dv):
-    """B4 on CUDA, :func:`attention_bwd_plain` on the CPU; writes dq, dk,
-    dv (``[B, N, H*D]`` views)."""
+def attention_bwd_tm(q, k, v, out, lse, dout, num_heads: int, scale: float,
+                     dq: torch.Tensor, dk: torch.Tensor,
+                     dv: torch.Tensor) -> None:
+    """B3's backward (B4's function) over ``[B, N, H*D]`` views: B5's fused
+    backward on CUDA, :func:`attention_bwd_plain` on the CPU; writes dq, dk,
+    dv (the thirds of d(qkv) qualify). On CUDA every view is read as the
+    ``[B, H, N, D]`` view of itself that :func:`_heads_hm` makes, with no
+    copy; one that B5 cannot read as it is raises."""
     dout = dout.contiguous()
     if q.is_cuda:
         delta = attention_delta(out, dout, num_heads)
-        attention_bwd_dq_tm(q, k, v, dout, lse, delta, num_heads, scale, dq)
-        attention_bwd_dkv_tm(q, k, v, dout, lse, delta, num_heads, scale, dk,
-                             dv)
+        attention_hm_bwd(*(_heads_hm(t, num_heads)
+                           for t in (q, k, v, dout)), lse, delta, scale,
+                         *(_heads_hm(t, num_heads) for t in (dq, dk, dv)))
         return
     grads = attention_bwd_plain(*(_heads(t, num_heads)
                                   for t in (q, k, v, out)), lse,
@@ -350,7 +313,7 @@ def _thirds(qkv: torch.Tensor):
 
 class FusedQKVAttention(torch.autograd.Function):
     """Training attention off a fused qkv ``[B, N, 3*H*D]``: B3 forward,
-    B4 backward writing d(qkv)'s thirds in place (port of
+    B5's fused backward writing d(qkv)'s thirds in place (port of
     ``_flash_qkv_tm_fwd_rule`` / ``_flash_qkv_tm_bwd_rule``); the plain
     versions on the CPU."""
 
@@ -365,8 +328,8 @@ class FusedQKVAttention(torch.autograd.Function):
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
         dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
-        _bwd(*_thirds(qkv), out, lse, dout, ctx.num_heads, ctx.scale,
-             *_thirds(dqkv))
+        attention_bwd_tm(*_thirds(qkv), out, lse, dout, ctx.num_heads,
+                         ctx.scale, *_thirds(dqkv))
         return dqkv, None, None
 
 
@@ -386,7 +349,8 @@ class QKVAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         grads = torch.empty((3,) + tuple(q.shape), dtype=q.dtype,
                             device=q.device)
-        _bwd(q, k, v, out, lse, dout, ctx.num_heads, ctx.scale, *grads)
+        attention_bwd_tm(q, k, v, out, lse, dout, ctx.num_heads, ctx.scale,
+                         *grads)
         return grads[0], grads[1], grads[2], None, None
 
 
@@ -785,8 +749,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """MHA over [B, N, H, D] q and [B, Nk, H, D] k/v; returns [B, N, H, D].
 
     Matched shapes (the decoder's self- and cross-attention at equal
-    lengths) run on the same kernels as the ViT (B2, or B3/B4 under
-    differentiation), read from three separate tensors. Other shapes run on
+    lengths) run on the same kernels as the ViT (B2, or under
+    differentiation B3 and B5's fused backward), read from three separate
+    tensors. Other shapes run on
     B5 through :func:`multi_head_attention_headmajor` on CUDA or under
     differentiation, as the JAX package takes ``flash_attention`` there;
     otherwise the plain version."""
