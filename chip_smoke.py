@@ -15,19 +15,26 @@ Phases, each printing one JSON line:
    are fp32.
 2. build: the CUDA kernels of ``vfmseg_tpu_torch/csrc`` built by nvcc, one
    process per source started together (or loaded from the build cache),
-   with the build seconds and ptxas' register counts; B5's fused backward's
-   registers, spills and static shared memory by instantiation.
+   with the build seconds and ptxas' register counts; registers, spills and
+   static shared memory by instantiation of B2/B3's warp-specialised
+   kernel and of B5's forward and fused backward, and any wgmma ptxas
+   serialised.
 3. kernels: the DINOv2 inference kernels (LayerNorm, fused-qkv attention)
    against their plain PyTorch versions on the card, at the shapes the
    inference path gives them, from seeded bf16 inputs (the plain version
-   runs in fp32), plus one fp32 LayerNorm and one odd-head attention case
-   off the path.
+   runs in fp32), plus one fp32 LayerNorm and four attention cases off the
+   path (an odd head count, an idle second slab, a tail after one step, a
+   single 16-key step); the attention's device ms by the profiler beside
+   SDPA's.
 4. kernels_train: the training attention kernels (B3 forward with LSE, and
    its backward, B4's function, through ``attention_bwd_tm`` on B5's fused
    backward over [B, H, N, 64] views of the token-major tensors) at the
-   DINOv2 train path's shapes plus a ragged odd-head case, with fused qkv
-   and with three tensors, against ``attention_fwd_lse_plain`` and autograd
-   through the fp32 plain attention with a random dO.
+   DINOv2 train path's shapes plus ragged cases off the path, with fused
+   qkv and with three tensors, against ``attention_fwd_lse_plain`` and
+   autograd through the fp32 plain attention with a random dO; B3's device
+   ms by the profiler beside the faster of the two PyTorch calls that also
+   return the LSE (``_scaled_dot_product_flash_attention`` and
+   ``_scaled_dot_product_cudnn_attention``), each reported.
 5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (and an odd
    width off the path), the RoPE variant of the inference attention (B2) at
    the EVA02 path's shapes with its tables, and the head-major attention
@@ -148,6 +155,11 @@ from vfmseg_tpu_torch.eval.slide import (
     confident_mask,
     extract_crops,
 )
+from vfmseg_tpu_torch.kernels.time_hm_bwd import device_ms as profiled_ms
+from vfmseg_tpu_torch.kernels.time_qkv_fwd import (
+    lse_agreement,
+    lse_library_calls,
+)
 from vfmseg_tpu_torch.kernels.time_relpos import SHAPES as RELPOS_SHAPES
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.build import (
@@ -217,7 +229,8 @@ TRAIN_CHECK_CROP = (128, 128)
 
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
-# breakdowns; B2, B2-RoPE and B3 are one template (kWithLse, kRope);
+# breakdowns; B2 and B3 are one template (kWithLse), B2-RoPE a kernel of
+# its own;
 # SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>);
 # both B5 backward entries end with the dq rounding kernel, and B3's
 # backward (B4's function) runs on B5's fused backward without a bias
@@ -226,9 +239,9 @@ KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_hm_fwd", "attention_hm_fwd_kernel"),
                  ("attention_hm_bwd", "attention_hm_bwd_kernel"),
                  ("attention_hm_bwd_dq_round", "attention_hm_dq_round_kernel"),
-                 ("attention_qkv", "attention_qkv_kernel<false, false>"),
-                 ("attention_qkv_rope", "attention_qkv_kernel<false, true>"),
-                 ("attention_fwd_lse", "attention_qkv_kernel<true, false>"),
+                 ("attention_qkv", "attention_qkv_kernel<false>"),
+                 ("attention_qkv_rope", "attention_qkv_rope_kernel"),
+                 ("attention_fwd_lse", "attention_qkv_kernel<true>"),
                  ("attention_relpos", "attention_relpos_kernel"),
                  ("window_blend", "window_blend_kernel"),
                  ("deform_sample", "deform_sample_kernel"),
@@ -333,9 +346,13 @@ LN_EVA02_CASES = [((18 * 1025, 2730), 1e-6, torch.bfloat16),
                   ((3, 77, 341), 1e-6, torch.bfloat16),
                   ((4 * 1025, 2730), 1e-6, torch.float32)]
 # (B, N, H, fused qkv?) of every attention on the DINOv2 inference path,
-# then an odd head count with both tiles ragged; head dim 64
+# then cases off the path: an odd head count with both tiles ragged, a
+# single key step whose second 64-row slab lies past N, a 16-key tail right
+# after the first step, and N = 16 (one step, a 16-key box); head dim 64
+OFF_PATH_ATTN_SHAPES = [(2, 77, 3, True), (2, 64, 2, True),
+                        (2, 144, 2, False), (3, 16, 1, False)]
 ATTN_SHAPES = [(1, 2049, 16, True), (18, 1025, 16, True),
-               (18, 1024, 8, False), (2, 77, 3, True)]
+               (18, 1024, 8, False), *OFF_PATH_ATTN_SHAPES]
 # (B, N, H, (gh, gw)) of the RoPE attention: EVA02's stage 1 (32x64 grid)
 # and refine batch (32x32), then a ragged odd-head case (4x19 grid); each
 # with the cls token's identity row
@@ -348,9 +365,10 @@ LN_TOL = {torch.bfloat16: (3e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
 # the rotated q and k also round to bf16 in both versions, in another order
 ATTN_ATOL = 1e-2
 # (B, N, H, fused qkv?) of the DINOv2 training attention: the ViT over both
-# scale views, the decoder, and one ragged odd-head case off the path
+# scale views, the decoder, and ragged cases off the path (an odd head count,
+# then the three single-step and tail cases above)
 TRAIN_ATTN_SHAPES = [(4, 1025, 16, True), (2, 1024, 8, False),
-                     (3, 77, 3, True)]
+                     (3, 77, 3, True), *OFF_PATH_ATTN_SHAPES[1:]]
 # (B, H, Nq, Nk) of the head-major attention: EVA02's ViT over both scale
 # views, then a ragged Nq != Nk case
 HM_SHAPES = [(4, 16, 1025, 1025), (3, 3, 77, 130)]
@@ -548,10 +566,16 @@ def phase_build() -> None:
     log = kernels.build_log()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
-    # B5's forward and fused backward (dynamic shared memory besides: 48-132
-    # and 81-163 KB by head dim and bias, set at launch) and its dq rounding
+    # B2/B3's warp-specialised kernel (its 384 threads at 168 registers,
+    # which setmaxnreg moves to the consumers; 129 KB of dynamic shared
+    # memory besides) and ptxas' word on any wgmma it had to serialise; B5's
+    # forward and fused backward (dynamic shared memory besides: 48-132 and
+    # 81-163 KB by head dim and bias, set at launch) and its dq rounding
     # kernel
     emit("build", seconds=round(secs, 3), ptxas=ptxas,
+         attention_qkv_ptxas=ptxas_by_kernel(log, "attention_qkv_kernel"),
+         wgmma_warnings=[ln.strip() for ln in log.splitlines()
+                         if "wgmma" in ln and "warning" in ln.lower()],
          attention_hm_fwd_ptxas=ptxas_by_kernel(log, "attention_hm_fwd"),
          attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
          attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"))
@@ -639,9 +663,13 @@ def phase_kernels(dev) -> list:
         row = dict(
             shape=[b_, n, h, 64], fused_qkv=fused, max_abs_err=max_abs, ok=ok,
             ms=time_ms(lambda: attention_qkv_tm(q, k, v, h, scale)),
+            device_ms=profiled_ms(lambda: attention_qkv_tm(
+                q, k, v, h, scale))["device_ms"],
             plain_ms=time_ms(lambda: attention_plain(
                 heads(q), heads(k), heads(v), scale=scale)),
             library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
+            library_device_ms=profiled_ms(lambda: sdpa_fwd(
+                hq, hk, hv, scale))["device_ms"],
             **attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0))
         emit("kernel_attention_qkv", atol=ATTN_ATOL, **row)
         if not ok:
@@ -659,7 +687,9 @@ def phase_kernels(dev) -> list:
                  max(r["max_abs_err"] for r in ln_rows)),
         _summary("attention_qkv", "vfmseg_tpu_torch/csrc/attention_qkv.cu",
                  "vfmseg_tpu/ops/flash_attention.py:873", attn_rows[1],
-                 max(r["max_abs_err"] for r in attn_rows)),
+                 max(r["max_abs_err"] for r in attn_rows),
+                 device_ms=attn_rows[1]["device_ms"],
+                 library_device_ms=attn_rows[1]["library_device_ms"]),
     ]
 
 
@@ -706,14 +736,32 @@ def phase_kernels_train(dev) -> list:
         plain_in = [heads(t) for t in (q, k, v)]
         p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale)
         hq, hk, hv, hdo = (_hm(t, h) for t in (q, k, v, dout))
+        # the library yardstick: the faster of the single calls that return
+        # the LSE too, among those whose LSE agrees with ours
+        lib_calls = lse_library_calls(hq, hk, hv, scale)
+        libraries = {name: lse_agreement(call, lse)
+                     for name, call in lib_calls.items()}
+        for name, lib in libraries.items():
+            lib.update(ms=time_ms(lib_calls[name]),
+                       device_ms=profiled_ms(lib_calls[name])["device_ms"])
+        same = [name for name, lib in libraries.items()
+                if lib["same_function"]]
+        if not same:
+            raise AssertionError(f"no library call computes B3's function "
+                                 f"at {(b_, n, h)}: {libraries}")
+        lib_name = min(same, key=lambda name: libraries[name]["ms"])
         row = dict(
             shape=[b_, n, h, 64], fused_qkv=fused, out_max_abs_err=out_err,
             lse_max_abs_err=lse_err, grad_rel_err=grad_err,
             bwd_launches=bwd_launches, ok=ok,
             fwd_ms=time_ms(lambda: attention_fwd_lse_tm(q, k, v, h, scale)),
+            fwd_device_ms=profiled_ms(lambda: attention_fwd_lse_tm(
+                q, k, v, h, scale))["device_ms"],
             fwd_plain_ms=time_ms(lambda: attention_fwd_lse_plain(
                 *plain_in, scale=scale)),
-            fwd_library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
+            fwd_library_ms=libraries[lib_name]["ms"],
+            fwd_library_device_ms=libraries[lib_name]["device_ms"],
+            fwd_library_call=lib_name, fwd_libraries=libraries,
             bwd_ms=time_ms(lambda: attention_bwd_tm(
                 q, k, v, out, lse, dout, h, scale, dq, dk, dv)),
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
@@ -786,7 +834,12 @@ def _train_summaries(rows, entries) -> list:
                 lse_max_abs_err=max(r["lse_max_abs_err"] for r in rows),
                 plain_ms=path["fwd_plain_ms"],
                 library_ms=path["fwd_library_ms"],
-                library_call="F.scaled_dot_product_attention (no LSE)")
+                library_call=path.get(
+                    "fwd_library_call",
+                    "F.scaled_dot_product_attention (no LSE)"),
+                **{k: path[f"fwd_{k}"] for k in ("device_ms",
+                                                 "library_device_ms")
+                   if f"fwd_{k}" in path})
         else:
             row.update(
                 max_abs_err=max(max(r["grad_rel_err"].values())
@@ -936,7 +989,7 @@ def phase_kernels_eva02(dev) -> list:
                        for r in hm_rows])
     return ln_rows, [
         _summary("attention_qkv_rope",
-                 "vfmseg_tpu_torch/csrc/attention_qkv.cu",
+                 "vfmseg_tpu_torch/csrc/attention_qkv_rope.cu",
                  "vfmseg_tpu/ops/flash_attention.py:873", rope_rows[1],
                  max(r["max_abs_err"] for r in rope_rows),
                  library_computes="attention without the rotation",

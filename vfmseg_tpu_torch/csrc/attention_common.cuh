@@ -1,11 +1,12 @@
 // Tile constants and mma.sync helpers shared by the attention kernels
-// (attention_qkv.cu, attention_relpos.cu; attention_hm.cu takes the tile
-// constants and the strided views, and multiplies with wgmma).
+// (attention_qkv_rope.cu, attention_relpos.cu; attention_hm.cu takes the
+// tile constants and the strided views, and attention_qkv.cu the constants,
+// both multiplying with wgmma from hopper_common.cuh).
 //
-// The kernels work in tiles of 64 rows staged in shared memory with rows
-// padded by 8 elements (72 at head dim 64), and multiply with bf16
+// The mma.sync kernels work in tiles of 64 rows staged in shared memory with
+// rows padded by 8 elements (72 at head dim 64), and multiply with bf16
 // mma.sync.m16n8k16 and fp32 accumulators. The first helpers are fixed at
-// head dim 64 (B2, B3); the templated ones below take any multiple of 16. The
+// head dim 64 (B2-RoPE); the templated ones below take any multiple of 16. The
 // fragment layouts below are the PTX ones for that instruction, with
 // g = lane / 4 and t = lane % 4:
 //

@@ -30,8 +30,8 @@ LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
 # scale, stream
 ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_qkv.cu: q, k, v, out, cos, sin, batch, n, heads, stride_b,
-# stride_n, scale, stream
+# csrc/attention_qkv_rope.cu: q, k, v, out, cos, sin, batch, n, heads,
+# stride_b, stride_n, scale, stream
 ATTENTION_QKV_ROPE = Kernel("attention_qkv_rope", "vfmseg_attention_qkv_rope",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                              _P])

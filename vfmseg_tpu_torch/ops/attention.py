@@ -23,10 +23,13 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
   its two k-separable terms.
 * Kernels, on bf16 views with head dim 64 (B5 and B7: 64 or 80):
 
-  - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2), and
-    :func:`attention_qkv_rope_tm`, its RoPE variant (EVA02 inference);
-  - :func:`attention_fwd_lse_tm` (same file, B3), the training forward
-    with the LSE, over ``[B, N, H*64]`` views of one stride pair;
+  - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2) and
+    :func:`attention_fwd_lse_tm` (same kernel template, B3), the inference
+    forward and the training forward with the LSE, over ``[B, N, H*64]``
+    views of one stride pair: a warp-specialised kernel whose producer warp
+    TMA-loads the views as they are, with no transpose or copy;
+  - :func:`attention_qkv_rope_tm` (``csrc/attention_qkv_rope.cu``), B2's
+    RoPE variant (EVA02 inference);
   - :func:`attention_hm_fwd` and :func:`attention_hm_bwd`
     (``csrc/attention_hm.cu``, B5: a forward and one fused backward, both on
     wgmma), general attention over ``[B, H, N, D]`` views with their own
@@ -158,20 +161,33 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _strided_views(fn: str, num_heads: int, *views: torch.Tensor
                    ) -> Tuple[int, int, int, int]:
     """Check bf16 CUDA ``[B, N, H*64]`` views of one shape and one stride
-    pair, unit stride along features, 16-byte aligned rows; return
-    (B, N, stride_b, stride_n)."""
-    first = views[0]
+    pair on one device (:func:`qkv_view_geometry`); return (B, N, stride_b,
+    stride_n)."""
     for t in views:
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
+        if t.device != views[0].device:
+            raise ValueError(f"{fn} needs its tensors on one device")
+    return qkv_view_geometry(fn, num_heads, *views)
+
+
+def qkv_view_geometry(fn: str, num_heads: int, *views: torch.Tensor
+                      ) -> Tuple[int, int, int, int]:
+    """The geometry B2 and B3 read ``[B, N, H*64]`` bf16 views with: (B, N,
+    stride_b, stride_n) in elements, shared by every view, after checking
+    what a TMA tensor map needs of them: unit stride along features, a
+    16-byte aligned start (the k and v thirds of a fused qkv start H*128
+    bytes after q) and row strides of whole 16 bytes (the batch stride only
+    when B > 1). The kernels' maps run over dims (64, H, N, B) with element
+    strides (1, 64, stride_n, stride_b) from each view's start."""
+    first = views[0]
+    for t in views:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{fn} takes bf16, got {t.dtype}")
         if (t.dim() != 3 or t.shape != first.shape
                 or t.stride() != first.stride()):
             raise ValueError(f"{fn} needs views of one [B, N, F] shape and "
                              f"one stride")
-        if t.device != first.device:
-            raise ValueError(f"{fn} needs its tensors on one device")
         if t.data_ptr() % 16:
             raise ValueError(f"{fn} needs 16-byte aligned tensors")
     b, n, f = first.shape
@@ -197,7 +213,10 @@ def attention_qkv_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      num_heads: int, scale: float) -> torch.Tensor:
     """Launch the inference kernel (B2). q, k, v: bf16 CUDA ``[B, N, H*64]``
     views with equal shapes and strides, unit stride along features, and
-    16-byte aligned rows (the thirds of one fused qkv tensor qualify).
+    16-byte aligned rows (the thirds of one fused qkv tensor qualify). The
+    kernel reads each view through a TMA tensor map over (64, H, N, B) with
+    byte strides (128, 2*stride_n, 2*stride_b), encoded on each call; a map
+    that ``cuTensorMapEncodeTiled`` refuses raises :class:`KernelLaunchError`.
     Returns a new contiguous ``[B, N, H*64]`` bf16 tensor."""
     b, n, stride_b, stride_n = _strided_views("attention_qkv_tm", num_heads,
                                               q, k, v)
@@ -213,7 +232,7 @@ def attention_qkv_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_qkv_rope_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor,
                           num_heads: int, scale: float) -> torch.Tensor:
-    """Launch the RoPE variant of the inference kernel: q, k, v as
+    """Launch B2's RoPE variant (``csrc/attention_qkv_rope.cu``): q, k, v as
     :func:`attention_qkv_tm` takes them, in the evens|odds layout; cos, sin:
     contiguous fp32 ``[N, 64]`` tables on the same card."""
     b, n, stride_b, stride_n = _strided_views("attention_qkv_rope_tm",
@@ -236,9 +255,10 @@ def attention_qkv_rope_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_fwd_lse_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int, scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the training forward (B3) on views as :func:`attention_qkv_tm`
-    takes them. Returns (out: contiguous bf16 ``[B, N, H*64]``, lse:
-    contiguous fp32 ``[B, H, N]``)."""
+    """Launch the training forward (B3), B2's kernel writing the LSE too,
+    on views as :func:`attention_qkv_tm` takes them. Returns (out:
+    contiguous bf16 ``[B, N, H*64]``, lse: contiguous fp32 ``[B, H, N]``,
+    natural log)."""
     b, n, stride_b, stride_n = _strided_views("attention_fwd_lse_tm",
                                               num_heads, q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
