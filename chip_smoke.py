@@ -44,8 +44,12 @@ Phases, each printing one JSON line:
 6. kernels_sam: the rel-pos attention (B7) at the six shapes of SAM's
    paths (windowed and global blocks of stage 1, the refine batch and the
    train step; head dim 80, q, k, v strided views of one fused qkv tensor,
-   rel terms from ``decomposed_rel_pos_terms_hm``) and at a head-dim-64
-   case off the path, against ``attention_decomposed_plain``; then B5's
+   rel terms from ``decomposed_rel_pos_terms_hm``) and at six cases off the
+   path that reach the kernel's other branches (``RELPOS_OFF_PATH``: odd
+   kw, a 16-key tail, head dim 64, a whole masked step, a grid too wide
+   for the warp-specialised kernel, contiguous q, k, v with one or more
+   heads), against ``attention_decomposed_plain``;
+   then B5's
    forward entry with the LSE off, which computes B6's function, timed at
    (18, 16, 1025) against ``attention_plain``, SDPA and its bound.
 6b. kernels_compact: the window blend (B9) against ``blend_windows_plain``,
@@ -61,9 +65,11 @@ Phases, each printing one JSON line:
    bias broadcast over the heads, against autograd through the fp32 plain
    version, with SDPA and a float ``attn_mask`` as the yardstick, then the
    same six shapes with an fp32 bias (off the path: SAM builds bf16); B8
-   at the pixel decoder's eval shape in bf16 and fp32 and at a narrow
-   off-path case, coordinates partly outside, against ``sample_plain`` in
-   fp32, with ``F.grid_sample`` as the yardstick.
+   at the pixel decoder's eval shape in bf16 and fp32 and at off-path cases
+   (5 channels in fp32 and bf16, 64 channels, 36 channels on a value 8
+   bytes off a 16-byte boundary in bf16 and fp32: every access width),
+   coordinates partly outside, against ``sample_plain`` in fp32, with
+   ``F.grid_sample`` as the yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -242,7 +248,7 @@ KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_qkv", "attention_qkv_kernel<false>"),
                  ("attention_qkv_rope", "attention_qkv_rope_kernel"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true>"),
-                 ("attention_relpos", "attention_relpos_kernel"),
+                 ("attention_relpos", "attention_relpos"),
                  ("window_blend", "window_blend_kernel"),
                  ("deform_sample", "deform_sample_kernel"),
                  ("layer_norm", "layer_norm")]
@@ -385,8 +391,12 @@ HM_BIAS_RAGGED = ("off_path_ragged", 3, 3, 77, 130)
 # x 8 heads, a 32x32 level, 32 channels) sampled at 4 points x 3072
 # queries; (B, H, W, C, N)
 DEFORM_SHAPE = (144, 32, 32, 32, 12288)
-# a narrow ragged case off the path: 5 channels, 40 samples
+# off the path: a narrow ragged case (5 channels, 40 samples: one element
+# an access), 64 channels (8 threads a sample in bf16), and 36 channels on a
+# value whose data starts 8 bytes past a 16-byte boundary (8-byte accesses)
 DEFORM_OFF_PATH = (3, 7, 9, 5, 40)
+DEFORM_WIDE = (6, 16, 16, 64, 1000)
+DEFORM_MISALIGNED = (5, 9, 11, 36, 333)
 # B8 against the fp32 plain version on the same inputs: the kernel rounds
 # once to bf16 at the end (|err| <= 2^-9 |ref|; 2^-8 leaves room for the
 # fp32 sums' order), and in fp32 only the order of 7 fp32 operations differs
@@ -571,14 +581,20 @@ def phase_build() -> None:
     # memory besides) and ptxas' word on any wgmma it had to serialise; B5's
     # forward and fused backward (dynamic shared memory besides: 48-132 and
     # 81-163 KB by head dim and bias, set at launch) and its dq rounding
-    # kernel
+    # kernel; B7's warp-specialised kernel (384 threads, setmaxnreg moving
+    # registers from the producer to the consumers; 200-227 KiB of dynamic
+    # shared memory by grid) and its mma.sync kernel for wide grids; B8's
+    # instantiations by type and access width
     emit("build", seconds=round(secs, 3), ptxas=ptxas,
          attention_qkv_ptxas=ptxas_by_kernel(log, "attention_qkv_kernel"),
          wgmma_warnings=[ln.strip() for ln in log.splitlines()
-                         if "wgmma" in ln and "warning" in ln.lower()],
+                         if "wgmma" in ln and ("warning" in ln.lower()
+                                               or "Performance Loss" in ln)],
          attention_hm_fwd_ptxas=ptxas_by_kernel(log, "attention_hm_fwd"),
          attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
-         attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"))
+         attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"),
+         attention_relpos_ptxas=ptxas_by_kernel(log, "attention_relpos"),
+         deform_sample_ptxas=ptxas_by_kernel(log, "deform_sample"))
 
 
 def _randn(gen: np.random.RandomState, dev):
@@ -1012,14 +1028,35 @@ def _relpos_inputs(randn, b_, h, grid, d):
     return q, k, v, rel_h.contiguous(), rel_w.contiguous(), tables
 
 
+# B7 off SAM's paths, at the kernel's other branches: (path, B, H, grid, head
+# dim). An odd kw (the lookup's wrapping pairs) in one 64-key step with the
+# second consumer idle, at D 64 and 80; an even kw that does not divide the
+# 128-key step (the lookup's 8-byte pairs) with a 16-key tail (N 400); D 64
+# at the windows' 80-key tail; kw 32 (rel_w in registers) with a remainder
+# of 96 keys, a whole masked step (N 224); kh + kw = 200, whose rel rows
+# do not fit beside the pipeline (the mma.sync kernel); and two cases on
+# contiguous [B, H, N, D] q, k, v instead of fused-qkv views: the tensor
+# maps' other dim order (head stride above token stride), and one batch
+# item and one head (the strides of size-1 dims replaced).
+RELPOS_OFF_PATH = [("off_path_d64", 2, 3, (6, 9), 64),
+                   ("off_path_odd_kw", 2, 3, (6, 9), 80),
+                   ("off_path_tail16", 2, 3, (20, 20), 80),
+                   ("off_path_d64_window", 4, 3, (14, 14), 64),
+                   ("off_path_masked_step", 2, 3, (7, 32), 80),
+                   ("off_path_wide_grid", 1, 2, (4, 196), 80),
+                   ("off_path_contiguous", 2, 3, (14, 14), 80),
+                   ("off_path_one_head_contiguous", 1, 1, (32, 32), 80)]
+
+
 def check_relpos(randn) -> list:
     rows = []
-    cases = RELPOS_SHAPES + [("off_path_d64", 2, 3, (6, 9))]
-    for label, b_, h, grid in cases:
-        d = 64 if label == "off_path_d64" else 80
+    cases = [(*shape, 80) for shape in RELPOS_SHAPES] + RELPOS_OFF_PATH
+    for label, b_, h, grid, d in cases:
         n = grid[0] * grid[1]
         scale = d ** -0.5
         q, k, v, rel_h, rel_w, tables = _relpos_inputs(randn, b_, h, grid, d)
+        if label.endswith("_contiguous"):
+            q, k, v = (t.contiguous() for t in (q, k, v))
         got = attention_relpos_hm(q, k, v, rel_h, rel_w, scale).float()
         want = attention_decomposed_plain(q.float(), k.float(), v.float(),
                                           rel_h, rel_w, scale=scale)
@@ -1354,9 +1391,19 @@ def check_deform_sample(dev) -> list:
     rows = []
     cases = [("eval", DEFORM_SHAPE, torch.bfloat16),
              ("eval_fp32", DEFORM_SHAPE, torch.float32),
-             ("off_path", DEFORM_OFF_PATH, torch.float32)]
+             ("off_path", DEFORM_OFF_PATH, torch.float32),
+             ("off_path_bf16", DEFORM_OFF_PATH, torch.bfloat16),
+             ("off_path_c64", DEFORM_WIDE, torch.bfloat16),
+             ("off_path_misaligned", DEFORM_MISALIGNED, torch.bfloat16),
+             ("off_path_misaligned_fp32", DEFORM_MISALIGNED, torch.float32)]
     for label, (b_, h, w, c, n), dtype in cases:
         value = torch.randn((b_, h, w, c), generator=gen, device=dev).to(dtype)
+        if label.startswith("off_path_misaligned"):
+            # a contiguous view whose data starts 8 bytes into its storage
+            skip = 8 // value.element_size()
+            flat = torch.empty(value.numel() + skip, dtype=dtype, device=dev)
+            flat[skip:] = value.reshape(-1)
+            value = flat[skip:].view(b_, h, w, c)
         xn, yn = (torch.rand((b_, n), generator=gen, device=dev) * 1.2 - 0.1
                   for _ in range(2))
         got = sample_cuda(value, xn, yn).float()

@@ -106,13 +106,15 @@ def test_blend_plain_matches_jax_chain(dtype):
     base = _np(3, (2, 48, 80, 19))
     jdt = getattr(jnp, dtype)
     tdt = getattr(torch, dtype)
-    want = _jax_chain(jnp.asarray(base, jdt), jnp.asarray(delta, jdt),
-                      jnp.asarray(img_i), jnp.asarray(ys), jnp.asarray(xs))
+    # read back before the plain blend runs: it adds in place, and in fp32
+    # the torch base shares ``base``'s memory, which JAX may still be reading
+    want = np.asarray(_jax_chain(
+        jnp.asarray(base, jdt), jnp.asarray(delta, jdt), jnp.asarray(img_i),
+        jnp.asarray(ys), jnp.asarray(xs)).astype(jnp.float32))
     got = blend_windows_plain(
         torch.from_numpy(base).to(tdt), torch.from_numpy(delta).to(tdt),
         torch.from_numpy(img_i), torch.from_numpy(ys), torch.from_numpy(xs))
-    np.testing.assert_array_equal(got.float().numpy(),
-                                  np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_blend_routes_by_device():

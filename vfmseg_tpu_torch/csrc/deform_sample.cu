@@ -22,15 +22,25 @@
 // contiguous [B, N, C].
 //
 // What bounds it: the bytes. Each sample does ~7 flops a channel on 4 taps
-// read from a plane that sits in L2 (one pixel-decoder level at a 512 crop is
-// 32 x 32 x 32 channels, 64 KB a head), and writes C values: the output and
-// the coordinates dominate the traffic to device memory.
+// read from a plane that sits in L1 and L2 (one pixel-decoder level at a 512
+// crop is 32 x 32 x 32 channels, 64 KB a head), and writes C values: the
+// output and the coordinates are the traffic to device memory (at the eval
+// level, 12288 samples of 64 bytes a row: 113 MB of output against 9 MB of
+// value).
 //
 // What the design does about it: a gather, which the TPU lacked (its kernel
-// built one-hot interpolation matrices for the MXU instead, :212-228). One warp
-// takes one sample, its lanes the channels: at C = 32 (8 heads of 32) each tap
-// is one contiguous 64-byte row read by the whole warp, and the output row is
-// one 64-byte store. Out-of-range taps are never read.
+// built one-hot interpolation matrices for the MXU instead, :212-228), with
+// every access as wide as the channels allow. A thread takes kVec bytes of a
+// sample's channels (16 bytes: 8 bf16 or 4 fp32; 8, 4 or one element where
+// C * itemsize or the data's alignment is less, chosen by the entry), so at
+// C = 32 bf16 four threads cover a sample and a warp eight samples, whose
+// stores are 512 contiguous bytes. The four taps go through the read-only
+// cache. Blocks are persistent, each over one contiguous run of samples, so
+// a block's samples share a plane, and five blocks a SM keep enough loads in
+// flight; each thread loads its next sample's coordinates before this one's
+// taps. The in-plane predicates stay in fp32, so coordinates far outside
+// never reach an integer conversion, and taps outside the plane are never
+// read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,37 +49,86 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // samples per block
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 256;
+// Blocks a SM: a thread holds one sample's four taps, and occupancy, not
+// more samples a thread, hides the loads' latency (four samples a thread at
+// two blocks a SM ran slower at the eval level)
+constexpr int kMinBlocks = 5;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// A raw access of kBytes.
+template <int kBytes>
+struct Raw;
+template <>
+struct Raw<16> {
+  using U = uint4;
+};
+template <>
+struct Raw<8> {
+  using U = uint2;
+};
+template <>
+struct Raw<4> {
+  using U = unsigned int;
+};
+template <>
+struct Raw<2> {
+  using U = unsigned short;
+};
 
+// An element's bits: fp32 as itself, bf16 as its 16 bits.
 template <typename T>
-__device__ __forceinline__ T from_float(float v);
+struct Bits {
+  using E = float;
+  static __device__ __forceinline__ float to_float(float v) { return v; }
+  static __device__ __forceinline__ float from_float(float v) { return v; }
+};
 template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+struct Bits<__nv_bfloat16> {
+  using E = unsigned short;
+  static __device__ __forceinline__ float to_float(unsigned short v) {
+    return __uint_as_float(static_cast<unsigned int>(v) << 16);
+  }
+  static __device__ __forceinline__ unsigned short from_float(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16(v));
+  }
+};
+
+// kBytes of T as raw bits and as elements.
+template <typename T, int kBytes>
+union Vec {
+  static constexpr int kElems = kBytes / static_cast<int>(sizeof(T));
+  typename Raw<kBytes>::U raw;
+  typename Bits<T>::E e[kElems];
+};
+
+template <typename T, int kBytes>
+__device__ __forceinline__ Vec<T, kBytes> load_tap(const T* p, bool inside) {
+  Vec<T, kBytes> v;
+  v.raw = typename Raw<kBytes>::U();
+  if (inside) v.raw = __ldg(reinterpret_cast<const typename Raw<kBytes>::U*>(p));
+  return v;
 }
 
+// One sample's geometry: the tap rows' first element, the lerp weights and
+// which taps lie inside the plane.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    deform_sample_kernel(const T* __restrict__ value, const float* __restrict__ xn,
-                         const float* __restrict__ yn, T* __restrict__ out, int64_t samples,
-                         int n, int h, int w, int c) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (s >= samples) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t b = s / n;
+struct Taps {
+  const T* r00;
+  float fx, fy;
+  bool i00, i01, i10, i11;
+};
 
-  const float x = xn[s] * static_cast<float>(w) - 0.5f;
-  const float y = yn[s] * static_cast<float>(h) - 0.5f;
+// The taps of the sample at normalised (xn, yn) of batch row b.
+template <typename T>
+__device__ __forceinline__ Taps<T> taps(const T* value, float xn, float yn, int64_t b, int h,
+                                        int w, int c) {
+  Taps<T> tp;
+  const float x = xn * static_cast<float>(w) - 0.5f;
+  const float y = yn * static_cast<float>(h) - 0.5f;
   const float xf = floorf(x);
   const float yf = floorf(y);
-  const float fx = x - xf;
-  const float fy = y - yf;
+  tp.fx = x - xf;
+  tp.fy = y - yf;
   // which taps lie inside the plane, decided in fp32 so that coordinates far
   // outside never reach an integer conversion
   const bool in_x0 = xf >= 0.f && xf <= static_cast<float>(w - 1);
@@ -78,47 +137,137 @@ __global__ void __launch_bounds__(kThreads)
   const bool in_y1 = yf >= -1.f && yf <= static_cast<float>(h - 2);
   const int x0 = (in_x0 || in_x1) ? static_cast<int>(xf) : 0;
   const int y0 = (in_y0 || in_y1) ? static_cast<int>(yf) : 0;
+  tp.r00 = value + (b * h + y0) * static_cast<int64_t>(w) * c + static_cast<int64_t>(x0) * c;
+  tp.i00 = in_y0 && in_x0;
+  tp.i01 = in_y0 && in_x1;
+  tp.i10 = in_y1 && in_x0;
+  tp.i11 = in_y1 && in_x1;
+  return tp;
+}
 
-  const T* plane = value + b * h * w * c;
-  const T* r00 = plane + (static_cast<int64_t>(y0) * w + x0) * c;
-  const T* r10 = r00 + static_cast<int64_t>(w) * c;
-  T* dst = out + s * c;
-  for (int ch = lane; ch < c; ch += 32) {
-    const float v00 = in_y0 && in_x0 ? to_float(r00[ch]) : 0.f;
-    const float v01 = in_y0 && in_x1 ? to_float(r00[c + ch]) : 0.f;
-    const float v10 = in_y1 && in_x0 ? to_float(r10[ch]) : 0.f;
-    const float v11 = in_y1 && in_x1 ? to_float(r10[c + ch]) : 0.f;
-    const float top = v00 * (1.f - fx) + v01 * fx;
-    const float bot = v10 * (1.f - fx) + v11 * fx;
-    dst[ch] = from_float<T>(top * (1.f - fy) + bot * fy);
+// Persistent blocks: block k takes the k-th of gridDim.x contiguous runs of
+// block rows (`rows` samples each), so a block's samples share a plane
+// (12288 a row at the eval level) and its taps stay in the SM's L1 (a plane
+// is 64 KB there). Each thread loads the next row's coordinates before this
+// row's taps, so its two dependent loads overlap across rows.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    deform_sample_kernel(const T* __restrict__ value, const float* __restrict__ xn,
+                         const float* __restrict__ yn, T* __restrict__ out, int samples, int n,
+                         int h, int w, int c, int tps, int lanes, int block_rows) {
+  constexpr int kElems = Vec<T, kVec>::kElems;
+  // `lanes` threads a sample (tps, or kThreads where a sample has more
+  // vectors than that), `rows` samples a block row.
+  const int rows = kThreads / lanes;
+  const int slot = threadIdx.x / lanes;
+  const int slice = threadIdx.x - slot * lanes;
+  if (slot >= rows) return;
+  const int g0 = static_cast<int>(static_cast<int64_t>(block_rows) * blockIdx.x / gridDim.x);
+  const int g1 = static_cast<int>(static_cast<int64_t>(block_rows) * (blockIdx.x + 1) / gridDim.x);
+  const int64_t row_elems = static_cast<int64_t>(w) * c;
+  int64_t s = static_cast<int64_t>(g0) * rows + slot;
+  float nx = 0.f;
+  float ny = 0.f;
+  if (g0 < g1 && s < samples) {
+    nx = xn[s];
+    ny = yn[s];
   }
+  for (int g = g0; g < g1; ++g, s += rows) {
+    const float x = nx;
+    const float y = ny;
+    if (g + 1 < g1 && s + rows < samples) {
+      nx = xn[s + rows];
+      ny = yn[s + rows];
+    }
+    if (s >= samples) continue;
+    const Taps<T> tp = taps(value, x, y, s / n, h, w, c);
+    for (int vi = slice; vi < tps; vi += lanes) {
+      const int ch = vi * kElems;
+      const T* r0 = tp.r00 + ch;
+      const Vec<T, kVec> v00 = load_tap<T, kVec>(r0, tp.i00);
+      const Vec<T, kVec> v01 = load_tap<T, kVec>(r0 + c, tp.i01);
+      const Vec<T, kVec> v10 = load_tap<T, kVec>(r0 + row_elems, tp.i10);
+      const Vec<T, kVec> v11 = load_tap<T, kVec>(r0 + row_elems + c, tp.i11);
+      Vec<T, kVec> o;
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) {
+        using B = Bits<T>;
+        const float top = B::to_float(v00.e[e]) * (1.f - tp.fx) + B::to_float(v01.e[e]) * tp.fx;
+        const float bot = B::to_float(v10.e[e]) * (1.f - tp.fx) + B::to_float(v11.e[e]) * tp.fx;
+        o.e[e] = B::from_float(top * (1.f - tp.fy) + bot * tp.fy);
+      }
+      *reinterpret_cast<typename Raw<kVec>::U*>(out + s * c + ch) = o.raw;
+    }
+  }
+}
+
+// The widest access (16, 8, 4 bytes, or one element) that divides a sample's
+// row of channels and both pointers' alignment.
+int vec_bytes(const void* value, const void* out, int c, int item) {
+  const int64_t row = static_cast<int64_t>(c) * item;
+  for (int vb = 16; vb > item; vb /= 2) {
+    if (row % vb == 0 && reinterpret_cast<uintptr_t>(value) % vb == 0 &&
+        reinterpret_cast<uintptr_t>(out) % vb == 0) {
+      return vb;
+    }
+  }
+  return item;
+}
+
+template <typename T, int kVec>
+int launch(const void* value, const float* x, const float* y, void* out, int64_t samples, int n,
+           int h, int w, int c, cudaStream_t stream) {
+  constexpr int kElems = Vec<T, kVec>::kElems;
+  const int tps = c / kElems;
+  const int lanes = tps < kThreads ? tps : kThreads;
+  const int64_t rows = kThreads / lanes;
+  const int64_t block_rows = (samples + rows - 1) / rows;
+  int device = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, deform_sample_kernel<T, kVec>,
+                                                        kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t slots = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int grid = static_cast<int>(block_rows < slots ? block_rows : slots);
+  deform_sample_kernel<T, kVec><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(value), x, y, static_cast<T*>(out), static_cast<int>(samples), n, h,
+      w, c, tps, lanes, static_cast<int>(block_rows));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // value: contiguous [batch, h, w, c], fp32 (dtype 0) or bf16 (dtype 1); xn, yn:
 // contiguous fp32 [batch, n] normalised coordinates; out: contiguous
-// [batch, n, c] in value's dtype. Returns a cudaError_t.
+// [batch, n, c] in value's dtype; batch * n below 2^31. Returns a cudaError_t.
 extern "C" int vfmseg_deform_sample(const void* value, const void* xn, const void* yn, void* out,
                                     int batch, int n, int h, int w, int c, int dtype,
                                     void* stream) {
   const int64_t samples = static_cast<int64_t>(batch) * n;
   if (samples == 0 || c == 0) return static_cast<int>(cudaSuccess);
-  const int64_t blocks = (samples + kWarps - 1) / kWarps;
-  if (blocks > 0x7fffffff || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (samples > 0x7fffffff || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
   const float* x = static_cast<const float*>(xn);
   const float* y = static_cast<const float*>(yn);
   if (dtype == 0) {
-    deform_sample_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(value), x, y, static_cast<float*>(out), samples, n, h, w, c);
-  } else if (dtype == 1) {
-    deform_sample_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(value), x, y, static_cast<__nv_bfloat16*>(out), samples,
-        n, h, w, c);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (vec_bytes(value, out, c, 4)) {
+      case 16: return launch<float, 16>(value, x, y, out, samples, n, h, w, c, st);
+      case 8: return launch<float, 8>(value, x, y, out, samples, n, h, w, c, st);
+      default: return launch<float, 4>(value, x, y, out, samples, n, h, w, c, st);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    switch (vec_bytes(value, out, c, 2)) {
+      case 16: return launch<__nv_bfloat16, 16>(value, x, y, out, samples, n, h, w, c, st);
+      case 8: return launch<__nv_bfloat16, 8>(value, x, y, out, samples, n, h, w, c, st);
+      case 4: return launch<__nv_bfloat16, 4>(value, x, y, out, samples, n, h, w, c, st);
+      default: return launch<__nv_bfloat16, 2>(value, x, y, out, samples, n, h, w, c, st);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

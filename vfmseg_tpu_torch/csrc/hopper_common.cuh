@@ -5,7 +5,9 @@
 // attention_hm.cu (B5's forward and fused backward) multiplies with wgmma
 // from no-swizzle ("interleaved") core-matrix tiles filled by cp.async;
 // attention_qkv.cu (B2, B3) feeds wgmma from 128-byte-swizzled tiles that
-// TMA fills, with a producer warp and mbarriers. Every wrapper is a thin
+// TMA fills, with a producer warp and mbarriers; attention_relpos.cu (B7)
+// does the same at head dim 80 with a 128-byte-swizzled tile of the first 64
+// columns beside a 32-byte-swizzled one of the last 16. Every wrapper is a thin
 // inline-PTX call; none allocates or synchronises more than its instruction.
 
 #pragma once
@@ -210,6 +212,52 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x 80] (+)= A . B, both operands in shared memory (the rel-pos
+// forward's S = Q.K^T over an 80-key tail).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x 16] (+)= A . B, A from registers, B in shared memory (the rel-pos
+// forward's last 16 output columns at head dim 80).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+
+// A wgmma shared-memory descriptor of the 32-byte-swizzled layout, the one a
+// TMA load with CU_TENSOR_MAP_SWIZZLE_32B writes: rows of 32 bytes whose two
+// 16-byte chunks swap on every other group of 4 rows, in atoms of 8 rows
+// (256 bytes). The tile must start 256-byte aligned. K-major (16 elements of
+// K a row, one k16 step): `sbo` is the 256 bytes between 8-row groups along M
+// or N. MN-major (16 elements of N a row, rows along K): `sbo` is the bytes
+// between 8-row groups along K; `lbo` the bytes between 16-element blocks
+// along N (unused by an operand 16 elements wide).
+__device__ __forceinline__ uint64_t smem_desc_sw32(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
 
 // The same register fence for the packed bf16 A fragments of a register

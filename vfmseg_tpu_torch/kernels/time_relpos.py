@@ -8,14 +8,25 @@ blocks of stage 1, of the refine batch and of the train step; head dim 80,
 q, k, v strided views of one fused qkv tensor), the same seeded inputs in
 every checkout:
 
-* ``eager_ms`` and ``graph_ms`` of ``attention_relpos_hm``, measured as
-  ``time_layer_norm.py`` measures the LayerNorm: CUDA events around 10
-  eager calls, and the same calls replayed from a CUDA graph;
-* ``max_abs_err`` against ``attention_decomposed_plain`` in fp32.
+* ``ms``: CUDA events around 10 back-to-back ``attention_relpos_hm`` calls,
+  the median of 10 such windows after warm-up (host gaps included);
+* ``device_ms``: the device time of one call, summed over its kernels from
+  ``torch.profiler`` over 10 calls, and ``device_ms_by_kernel``;
+* ``sdpa_device_ms``: the same for one ``F.scaled_dot_product_attention``
+  call with the ``[B, H, N, N]`` bf16 bias ``rel_h[..., :, None] +
+  rel_w[..., None, :]`` as its float ``attn_mask`` (the library call, which
+  the port never makes), and ``b5_bias_device_ms`` for B5's bias forward
+  (``attention_hm_fwd`` with that bias, SAM's ``pallas_bias`` route): the
+  bias is built outside both timings;
+* ``bound_ms``: q, k, v, out and the rel terms read or written once over
+  3.35 TB/s, or the two products' 4*B*H*N^2*D operations over 989 TFLOP/s,
+  whichever is larger (an H100 SXM's published peaks at 700 W);
+* ``max_abs_err``: against ``attention_decomposed_plain`` in fp32.
 
 The script imports the package of the checkout it runs in, so running it in
-two checkouts on one card compares their kernels. It prints the card's
-nvidia-smi name and power limit, then one JSON line per shape.
+two checkouts on one card (parent, change, change, parent) compares their
+kernels. It prints the card's nvidia-smi name and power limit, then one
+JSON line per shape.
 """
 
 from __future__ import annotations
@@ -24,10 +35,12 @@ import json
 import subprocess
 
 import torch
+import torch.nn.functional as F
 
-from vfmseg_tpu_torch.kernels.time_layer_norm import eager_and_graph_ms
+from vfmseg_tpu_torch.kernels.time_hm_bwd import device_ms, median_ms
 from vfmseg_tpu_torch.ops.attention import (
     attention_decomposed_plain,
+    attention_hm_fwd,
     attention_relpos_hm,
 )
 
@@ -42,6 +55,16 @@ SHAPES = [("stage1_window", 15, 16, (14, 14)),
           ("train_window", 36, 16, (14, 14)),
           ("train_global", 4, 16, (32, 32))]
 HEAD_DIM = 80
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+
+
+def bound_ms(b, h, n, d, grid) -> tuple:
+    moved = 2 * b * h * n * (4 * d + grid[0] + grid[1])
+    ops = 4.0 * b * h * n * n * d
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def time_shape(path, b, h, grid, dev) -> dict:
@@ -56,11 +79,30 @@ def time_shape(path, b, h, grid, dev) -> dict:
                                       rel_w, scale=scale)
     got = attention_relpos_hm(q, k, v, rel_h, rel_w, scale)
     err = float((got.float() - want).abs().max())
-    del want
+    del want, got
+    bias = (rel_h.float().reshape(b, h, n, grid[0], 1)
+            + rel_w.float().reshape(b, h, n, 1, grid[1])).reshape(
+                b, h, n, n).to(torch.bfloat16)
+
+    def ours():
+        return attention_relpos_hm(q, k, v, rel_h, rel_w, scale)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                              scale=scale)
+
+    def b5_bias():
+        return attention_hm_fwd(q, k, v, scale, with_lse=False, bias=bias)
+
+    dev_ours = device_ms(ours)
+    bms, by = bound_ms(b, h, n, d, grid)
     return dict(path=path, shape=[b, h, n, d], grid=list(grid),
-                max_abs_err=err, **eager_and_graph_ms(
-                    lambda: attention_relpos_hm(q, k, v, rel_h, rel_w, scale),
-                    dev))
+                max_abs_err=err, ms=median_ms(ours),
+                device_ms=dev_ours["device_ms"],
+                device_ms_by_kernel=dev_ours["device_ms_by_kernel"],
+                sdpa_device_ms=device_ms(sdpa)["device_ms"],
+                b5_bias_device_ms=device_ms(b5_bias)["device_ms"],
+                bound_ms=bms, bound_by=by)
 
 
 def main() -> None:
@@ -73,6 +115,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     for path, b, h, grid in SHAPES:
         print(json.dumps(time_shape(path, b, h, grid, dev)), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

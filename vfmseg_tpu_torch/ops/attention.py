@@ -645,8 +645,11 @@ def attention_relpos_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v views (D 64 or 80, each view with its own strides) and
     contiguous bf16 rel_h ``[B, H, N, kh]``, rel_w ``[B, H, N, kw]`` with
     N = kh*kw below 65536 and kh + kw at most 512 (the rows the kernel
-    stages in shared memory). Returns a ``[B, H, N, D]`` view of a new
-    token-major tensor."""
+    stages in shared memory). The entry reads the views through TMA tensor
+    maps encoded on each call (a map ``cuTensorMapEncodeTiled`` refuses
+    raises :class:`KernelLaunchError`), and takes its mma.sync kernel where
+    kh + kw leaves no room beside the warp-specialised kernel's pipeline.
+    Returns a ``[B, H, N, D]`` view of a new token-major tensor."""
     fn = "attention_relpos_hm"
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{fn} needs q, k and v of one shape")

@@ -8,8 +8,10 @@ and zero padding, per-head softmaxed weights over the levels and points.
 
 * :func:`sample_plain` is the plain PyTorch version: four gathers and the
   lerp, in the value's dtype, as the JAX gather computes it.
-* :func:`sample_cuda` launches B8 (``csrc/deform_sample.cu``): one warp per
-  sample, lanes over the channels, fp32 weights and sums rounded once.
+* :func:`sample_cuda` launches B8 (``csrc/deform_sample.cu``): a thread
+  takes 16 bytes of a sample's channels (narrower where C or the data's
+  alignment asks), persistent blocks over contiguous runs of samples, fp32
+  weights and sums rounded once.
 * :class:`DeformSample` is the autograd Function around the two: the kernel
   on CUDA tensors and the plain version on CPU tensors forward; the backward
   recomputes through the plain version under autograd, as the JAX VJP
