@@ -35,9 +35,14 @@ Phases, each printing one JSON line:
    ms by the profiler beside the faster of the two PyTorch calls that also
    return the LSE (``_scaled_dot_product_flash_attention`` and
    ``_scaled_dot_product_cudnn_attention``), each reported.
-5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (and an odd
-   width off the path), the RoPE variant of the inference attention (B2) at
-   the EVA02 path's shapes with its tables, and the head-major attention
+5. kernels_eva02: the LayerNorm at EVA02's SwiGLU width 2730 (refine
+   batch, stage 1, train batch; an odd width and fp32 off the path) and at
+   cases off the paths (``LN_OFF_PATH_CASES``: every head length the kernel
+   peels, odd widths, one row, fp32, a row too wide for a warp), B2-RoPE at
+   the EVA02 path's shapes with its tables and at five cases off the path
+   (odd heads, N 17, N 129, batch 1, v at a stride of its own), its
+   rotation pass's workspace held bit for bit to the twin's rotation and
+   timed alone by the profiler, and the head-major attention
    (B5: forward with LSE, the fused backward for dq, dk and dv) at the
    EVA02 train path's shape over token-major strided views and at a ragged
    Nq != Nk case, which ``multi_head_attention`` must route to B5.
@@ -235,8 +240,9 @@ TRAIN_CHECK_CROP = (128, 128)
 
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
-# breakdowns; B2 and B3 are one template (kWithLse), B2-RoPE a kernel of
-# its own;
+# breakdowns; B2 and B3 are one template (kWithLse); B2-RoPE's entry
+# launches its rotation pass (group attention_qkv_rope) and then B2's
+# kernel (counted in group attention_qkv);
 # SAM's bias route runs B5's D = 80, bf16-bias instantiations (<80, 1>);
 # both B5 backward entries end with the dq rounding kernel, and B3's
 # backward (B4's function) runs on B5's fused backward without a bias
@@ -246,7 +252,7 @@ KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_hm_bwd", "attention_hm_bwd_kernel"),
                  ("attention_hm_bwd_dq_round", "attention_hm_dq_round_kernel"),
                  ("attention_qkv", "attention_qkv_kernel<false>"),
-                 ("attention_qkv_rope", "attention_qkv_rope_kernel"),
+                 ("attention_qkv_rope", "rope_rotate_kernel"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true>"),
                  ("attention_relpos", "attention_relpos"),
                  ("window_blend", "window_blend_kernel"),
@@ -268,7 +274,9 @@ def _counts(**nonzero) -> dict:
 # batch (24 blocks: 48 LN, 24 B2); its pixel decoder runs 6 layers of 2 LN
 # and 3 levels of B8 each, its decoder 9 layers of 3 LN plus the decoder
 # norm 10 times (the 9 attention masks and the last prediction); its masked
-# attention is plain PyTorch math.
+# attention is plain PyTorch math. B2-RoPE's entry launches its rotation
+# pass and then B2's kernel: the pair counts once, under attention_qkv_rope,
+# and not under attention_qkv, as B5's backward counts its dq rounding.
 PER_IMAGE = {
     "dinov2": _counts(layer_norm=48 + 48 + 9, attention_qkv=24 + 24 + 6),
     "eva02": _counts(layer_norm=72 + 72 + 9, attention_qkv_rope=24 + 24,
@@ -344,13 +352,31 @@ LN_CASES = [((1, 2049, 1024), 1e-6, torch.bfloat16),
             ((18, 1025, 1024), 1e-6, torch.bfloat16),
             ((18, 1024, 256), 1e-5, torch.bfloat16),
             ((18, 1025, 1024), 1e-6, torch.float32)]
-# EVA02's SwiGLU sub-LN at the refine batch and the train batch (rows only
-# 4-byte aligned: the block-per-row path), then an odd width (scalar loads)
-# and fp32 at 2730, both off the path
+# EVA02's SwiGLU sub-LN at the refine batch, stage 1 and the train batch
+# (rows start 0, 4, 8 or 12 bytes past a 16-byte boundary, in turn: a head
+# of 0, 6, 4 or 2 elements before the 16-byte body), then an odd width and
+# fp32 at 2730 (too wide for a warp's registers: the block-per-row kernel),
+# both off the path
 LN_EVA02_CASES = [((18 * 1025, 2730), 1e-6, torch.bfloat16),
+                  ((2049, 2730), 1e-6, torch.bfloat16),
                   ((4 * 1025, 2730), 1e-6, torch.bfloat16),
                   ((3, 77, 341), 1e-6, torch.bfloat16),
                   ((4 * 1025, 2730), 1e-6, torch.float32)]
+# Off the paths, (shape, eps, dtype, elements x starts past a 16-byte
+# boundary): the tail alone (C 7 < one vector), an odd width (every head
+# length in turn), one row, 2730 with x 2 and 6 bytes off (heads of 7 and 5
+# then), 1024 with x 10 bytes off (the staged weights at an aligned width),
+# fp32 at 256 (weights in registers) and at 2049 with x 4 bytes off, and a
+# bf16 row too wide for a warp's registers (4096: the block-per-row kernel)
+LN_OFF_PATH_CASES = [((5, 7), 1e-6, torch.bfloat16, 0),
+                     ((33, 2049), 1e-6, torch.bfloat16, 0),
+                     ((1, 2730), 1e-6, torch.bfloat16, 0),
+                     ((9, 2730), 1e-6, torch.bfloat16, 1),
+                     ((9, 2730), 1e-6, torch.bfloat16, 3),
+                     ((7, 1024), 1e-6, torch.bfloat16, 5),
+                     ((18, 1024, 256), 1e-5, torch.float32, 0),
+                     ((40, 2049), 1e-6, torch.float32, 1),
+                     ((3, 4096), 1e-6, torch.bfloat16, 0)]
 # (B, N, H, fused qkv?) of every attention on the DINOv2 inference path,
 # then cases off the path: an odd head count with both tiles ragged, a
 # single key step whose second 64-row slab lies past N, a 16-key tail right
@@ -359,11 +385,18 @@ OFF_PATH_ATTN_SHAPES = [(2, 77, 3, True), (2, 64, 2, True),
                         (2, 144, 2, False), (3, 16, 1, False)]
 ATTN_SHAPES = [(1, 2049, 16, True), (18, 1025, 16, True),
                (18, 1024, 8, False), *OFF_PATH_ATTN_SHAPES]
-# (B, N, H, (gh, gw)) of the RoPE attention: EVA02's stage 1 (32x64 grid)
-# and refine batch (32x32), then a ragged odd-head case (4x19 grid); each
-# with the cls token's identity row
-ROPE_SHAPES = [(1, 2049, 16, (32, 64)), (18, 1025, 16, (32, 32)),
-               (2, 77, 3, (4, 19))]
+# (B, N, H, (gh, gw), v apart?) of the RoPE attention: EVA02's stage 1
+# (32x64 grid) and refine batch (32x32) off one fused qkv, then cases off
+# the path: a ragged odd-head case (4x19 grid), N 17 (one step of 17 keys),
+# N 129 (a 16-key tail step after a whole one, and consumer 1 idle on the
+# last query tile), batch 1 at N 145 (a whole last step of 17 keys, consumer
+# 1 idle), and v a tensor of its own (token stride H*64 beside the qkv's
+# 3*H*64 for q and k); each with the cls token's identity row
+ROPE_SHAPES = [(1, 2049, 16, (32, 64), False),
+               (18, 1025, 16, (32, 32), False),
+               (2, 77, 3, (4, 19), False), (2, 17, 3, (4, 4), False),
+               (2, 129, 2, (8, 16), False), (1, 145, 2, (12, 12), False),
+               (2, 77, 3, (4, 19), True)]
 # (atol, rtol): bf16 output rounding and another summation order; in fp32
 # only the summation order
 LN_TOL = {torch.bfloat16: (3e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
@@ -594,7 +627,9 @@ def phase_build() -> None:
          attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
          attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"),
          attention_relpos_ptxas=ptxas_by_kernel(log, "attention_relpos"),
-         deform_sample_ptxas=ptxas_by_kernel(log, "deform_sample"))
+         deform_sample_ptxas=ptxas_by_kernel(log, "deform_sample"),
+         layer_norm_ptxas=ptxas_by_kernel(log, "layer_norm"),
+         rope_rotate_ptxas=ptxas_by_kernel(log, "rope_rotate"))
 
 
 def _randn(gen: np.random.RandomState, dev):
@@ -606,10 +641,13 @@ def _randn(gen: np.random.RandomState, dev):
 
 def check_layer_norm(randn, cases, phase: str) -> list:
     rows = []
-    for shape, eps, dtype in cases:
+    for shape, eps, dtype, *offset in cases:
         c = shape[-1]
         atol, rtol = LN_TOL[dtype]
-        x = randn(*shape).to(dtype)
+        # x `offset` elements past the start of its buffer (the buffers
+        # start 16-byte aligned)
+        skip = offset[0] if offset else 0
+        x = randn(int(np.prod(shape)) + skip).to(dtype)[skip:].view(shape)
         w = randn(c) * 0.1 + 1.0
         b = randn(c) * 0.1
         got = layer_norm_cuda(x, w, b, eps).float()
@@ -619,8 +657,8 @@ def check_layer_norm(randn, cases, phase: str) -> list:
         ok = bool((err <= atol + rtol * want.abs()).all())
         max_abs = float(err.max())
         wl, bl = w.to(dtype), b.to(dtype)
-        row = dict(shape=list(shape), dtype=str(dtype), max_abs_err=max_abs,
-                   ok=ok,
+        row = dict(shape=list(shape), dtype=str(dtype), x_offset_bytes=(
+                       x.data_ptr() % 16), max_abs_err=max_abs, ok=ok,
                    ms=time_ms(lambda: layer_norm_cuda(x, w, b, eps)),
                    plain_ms=time_ms(lambda: layer_norm_plain(x, w, b, eps)),
                    library_ms=time_ms(lambda: F.layer_norm(x, (c,), wl, bl,
@@ -881,44 +919,70 @@ def _rope_tables(n, grid, dev):
 
 def check_rope_attention(randn, dev) -> list:
     rows = []
-    for b_, n, h, grid in ROPE_SHAPES:
+    for b_, n, h, grid, v_apart in ROPE_SHAPES:
         e = h * 64
         scale = 64 ** -0.5
         q, k, v = _qkv_views(randn, b_, n, h, True)
+        if v_apart:
+            v = randn(b_, n, e).to(torch.bfloat16)
         cos, sin = _rope_tables(n, grid, dev)
 
         def heads(t):
             return t.reshape(b_, n, h, 64)
 
-        got = attention_qkv_rope_tm(q, k, v, cos, sin, h, scale).float()
+        rot = torch.empty((b_, n, 2 * e), dtype=torch.bfloat16, device=dev)
+        got = attention_qkv_rope_tm(q, k, v, cos, sin, h, scale,
+                                    rot=rot).float()
         # the twin's rotation (fp32, rounded to bf16), then fp32 attention
         c, s = cos[None, :, None, :], sin[None, :, None, :]
         qr, kr = (apply_rope_permuted(heads(t).float(), c, s)
-                  .to(torch.bfloat16).float() for t in (q, k))
-        want = attention_plain(qr, kr, heads(v).float(),
+                  .to(torch.bfloat16) for t in (q, k))
+        want = attention_plain(qr.float(), kr.float(), heads(v).float(),
                                scale=scale).reshape(b_, n, e)
         torch.cuda.synchronize()
         max_abs = float((got - want).abs().max())
-        ok = max_abs <= ATTN_ATOL
+        # the rotation pass alone: the workspace against the twin's rotation,
+        # bit for bit (both round each fp32 product before the sum, then
+        # round once to bf16)
+        rot_differ = int((rot != torch.cat([qr.reshape(b_, n, e),
+                                            kr.reshape(b_, n, e)], -1)).sum())
+        ok = max_abs <= ATTN_ATOL and rot_differ == 0
         hq, hk, hv = (_hm(t, h) for t in (q, k, v))
         # bytes: q, k, v, out and the two fp32 [N, 64] tables; the rotation
         # adds 3 operations per q/k element, negligible beside the products
         b = attn_bound(b_, h, n, n, 2, (n, n, n), (n,), 0)
         b = bound(b["bytes"] + 2 * n * 64 * 4, b["ops"], "bf16_tensor")
+        # the rotation pass: q and k read and written once, the tables read
+        # once; 3 fp32 operations a rotated element
+        rot_bound = bound(2 * 2 * b_ * n * e * 2 + 2 * n * 64 * 4,
+                          3.0 * 2 * b_ * n * e, "fp32")
+        prof = profiled_ms(lambda: attention_qkv_rope_tm(q, k, v, cos, sin,
+                                                         h, scale))
+        by_kernel = prof["device_ms_by_kernel"]
+        rot_ms = sum(ms for name, ms in by_kernel.items()
+                     if "rope_rotate" in name)
         row = dict(
-            shape=[b_, n, h, 64], grid=list(grid), max_abs_err=max_abs, ok=ok,
+            shape=[b_, n, h, 64], grid=list(grid), v_apart=v_apart,
+            max_abs_err=max_abs, rotate_elements_differing=rot_differ,
+            rotate_elements=rot.numel(), ok=ok,
             ms=time_ms(lambda: attention_qkv_rope_tm(q, k, v, cos, sin, h,
                                                      scale)),
+            device_ms=prof["device_ms"], device_ms_by_kernel=by_kernel,
+            rotate_device_ms=rot_ms, rotate_bound_ms=rot_bound["bound_ms"],
+            rotate_bound_by=rot_bound["bound_by"],
             plain_ms=time_ms(lambda: attention_qkv_rope_plain(
                 heads(q), heads(k), heads(v), cos, sin, scale=scale)),
             library_ms=time_ms(lambda: sdpa_fwd(hq, hk, hv, scale)),
+            library_device_ms=profiled_ms(lambda: sdpa_fwd(
+                hq, hk, hv, scale))["device_ms"],
             library_computes="attention without the rotation", **b)
         emit("kernel_attention_qkv_rope", atol=ATTN_ATOL, **row)
         if not ok:
             raise AssertionError(f"RoPE attention kernel disagrees at "
-                                 f"{(b_, n, h)}: max abs err {max_abs}")
+                                 f"{(b_, n, h)}: max abs err {max_abs}, "
+                                 f"{rot_differ} rotated elements differ")
         rows.append(row)
-        del q, k, v, got, want, hq, hk, hv
+        del q, k, v, got, want, hq, hk, hv, rot, qr, kr
         torch.cuda.empty_cache()
     return rows
 
@@ -996,6 +1060,8 @@ def phase_kernels_eva02(dev) -> list:
     randn = _randn(np.random.RandomState(SEED + 11), dev)
     ln_rows = check_layer_norm(randn, LN_EVA02_CASES,
                                "kernel_layer_norm_eva02")
+    ln_rows += check_layer_norm(randn, LN_OFF_PATH_CASES,
+                                "kernel_layer_norm_off_path")
     rope_rows = check_rope_attention(randn, dev)
     hm_rows = check_headmajor(randn, dev)
     emit("kernels_eva02",
@@ -1008,6 +1074,12 @@ def phase_kernels_eva02(dev) -> list:
                  "vfmseg_tpu_torch/csrc/attention_qkv_rope.cu",
                  "vfmseg_tpu/ops/flash_attention.py:873", rope_rows[1],
                  max(r["max_abs_err"] for r in rope_rows),
+                 device_ms=rope_rows[1]["device_ms"],
+                 rotate_device_ms=rope_rows[1]["rotate_device_ms"],
+                 rotate_bound_ms=rope_rows[1]["rotate_bound_ms"],
+                 rotate_elements_differing=sum(
+                     r["rotate_elements_differing"] for r in rope_rows),
+                 library_device_ms=rope_rows[1]["library_device_ms"],
                  library_computes="attention without the rotation",
                  library_call="F.scaled_dot_product_attention"),
     ] + _train_summaries(hm_rows, B5_ENTRIES)

@@ -35,6 +35,7 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_fwd_lse_plain,
     attention_plain,
     qkv_view_geometry,
+    qkv_view_strides,
 )
 
 QUERIES = 128   # rows of a query tile
@@ -94,12 +95,16 @@ def tma_read(t, geometry, h, rows):
                                          - box.shape[2]))
 
 
-def fwd_schedule(q, k, v, h, scale, *, round_bf16=True):
+def fwd_schedule(q, k, v, h, scale, *, round_bf16=True, strides=None):
     """(out [B, N, H*64], lse [B, H, N], slabs computed) by the kernel's
-    schedule over token-major views; out in bf16 values (as fp32) with
+    schedule over token-major views, each read through its own map (element
+    strides ``strides``, one (stride_b, stride_n) pair a view, by default
+    ``qkv_view_strides`` of q, k, v); out in bf16 values (as fp32) with
     ``round_bf16``, else fp32."""
-    geometry = qkv_view_geometry("fwd_schedule", h, q, k, v)
-    b, n = geometry[:2]
+    if strides is None:
+        strides = qkv_view_strides("fwd_schedule", h, q, k, v)[2]
+    b, n = q.shape[:2]
+    gq, gk, gv = ((b, n) + tuple(pair) for pair in strides)
     scale_log2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
 
     def rnd(x):
@@ -112,13 +117,13 @@ def fwd_schedule(q, k, v, h, scale, *, round_bf16=True):
         if row0 >= n:
             continue  # an idle consumer
         slabs += 1
-        qs = tma_read(q, geometry, h, slice(row0, row0 + SLAB))
+        qs = tma_read(q, gq, h, slice(row0, row0 + SLAB))
         m = torch.full((b, h, SLAB), -torch.inf)
         l = torch.zeros((b, h, SLAB))
         o = torch.zeros((b, h, SLAB, 64))
         for k0, width in key_steps(n):
-            ks = tma_read(k, geometry, h, slice(k0, k0 + width))
-            vs = tma_read(v, geometry, h, slice(k0, k0 + width))
+            ks = tma_read(k, gk, h, slice(k0, k0 + width))
+            vs = tma_read(v, gv, h, slice(k0, k0 + width))
             s = qs @ ks.transpose(-1, -2)
             s = s.masked_fill(torch.arange(k0, k0 + width) >= n, -torch.inf)
             m_new = torch.maximum(m, s.amax(-1) * scale_log2)

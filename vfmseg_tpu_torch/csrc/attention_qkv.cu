@@ -13,15 +13,18 @@
 //   item, head and query row, lse = log(sum_k exp(q.k * scale)) in fp32 and
 //   natural log, which the fused backward (attention_hm.cu) reads.
 //
-// (The RoPE variant of B2, EVA02's inference attention, is
-// attention_qkv_rope.cu.) For every batch item b and head h:
+// B2-RoPE, EVA02's inference attention (attention_qkv_rope.cu), rotates q
+// and k into a workspace and runs B2's kernel through attention_qkv_views,
+// with v read where it lies. For every batch item b and head h:
 //
 //   out[b, :, h*64:(h+1)*64] = softmax(q_h k_h^T * scale) v_h
 //
 // where q_h, k_h, v_h are the 64 columns of head h in three [B, N, H*64] bf16
-// views that share one (batch, token) stride pair. The three thirds of one
-// fused qkv tensor (token stride 3*H*64) and three separate tensors (token
-// stride H*64) both qualify, so neither caller concatenates. The output is
+// views, each with its own (batch, token) stride pair (B2's and B3's entries
+// pass one pair for all three). The three thirds of one fused qkv tensor
+// (token stride 3*H*64), three separate tensors (token stride H*64) and
+// B2-RoPE's rotated q and k (2*H*64) beside v in the qkv (3*H*64) all
+// qualify, so no caller concatenates. The output is
 // contiguous token-major [B, N, H*64] bf16, the layout the proj matmul
 // reads; the LSE is contiguous [B, H, N] fp32.
 //
@@ -550,21 +553,24 @@ int encode_view(CUtensorMap* map, const void* base, int batch, int n, int heads,
 
 template <bool kWithLse>
 int launch_forward(const void* q, const void* k, const void* v, void* out, float* lse, int batch,
-                   int n, int heads, int stride_b, int stride_n, float scale, void* stream) {
+                   int n, int heads, const TokenStrides (&views)[3], float scale, void* stream) {
   // With one batch item the batch stride is never stepped; any legal one
   // serves.
-  const int64_t sb = batch > 1 ? stride_b : static_cast<int64_t>(n) * stride_n;
+  int64_t sb[3];
+  for (int i = 0; i < 3; ++i) {
+    sb[i] = batch > 1 ? views[i].b : static_cast<int64_t>(n) * views[i].n;
+  }
   const int64_t out_n = static_cast<int64_t>(heads) * kHeadDim;
   CUtensorMap mq, mk, mv, mk_tail, mv_tail, mo;
-  int status = encode_view(&mq, q, batch, n, heads, sb, stride_n, kQueries);
-  if (status == 0) status = encode_view(&mk, k, batch, n, heads, sb, stride_n, kKeys);
-  if (status == 0) status = encode_view(&mv, v, batch, n, heads, sb, stride_n, kKeys);
+  int status = encode_view(&mq, q, batch, n, heads, sb[0], views[0].n, kQueries);
+  if (status == 0) status = encode_view(&mk, k, batch, n, heads, sb[1], views[1].n, kKeys);
+  if (status == 0) status = encode_view(&mv, v, batch, n, heads, sb[2], views[2].n, kKeys);
   if (status == 0) status = encode_view(&mo, out, batch, n, heads, out_n * n, out_n, kWgRows);
   mk_tail = mk;
   mv_tail = mv;
   if (has_tail(n)) {
-    if (status == 0) status = encode_view(&mk_tail, k, batch, n, heads, sb, stride_n, kTail);
-    if (status == 0) status = encode_view(&mv_tail, v, batch, n, heads, sb, stride_n, kTail);
+    if (status == 0) status = encode_view(&mk_tail, k, batch, n, heads, sb[1], views[1].n, kTail);
+    if (status == 0) status = encode_view(&mv_tail, v, batch, n, heads, sb[2], views[2].n, kTail);
   }
   if (status != 0) return status;
 
@@ -590,6 +596,12 @@ int launch_forward(const void* q, const void* k, const void* v, void* out, float
 
 }  // namespace
 
+int vfmseg_attn::attention_qkv_views(const void* q, const void* k, const void* v, void* out,
+                                     int batch, int n, int heads,
+                                     const TokenStrides (&views)[3], float scale, void* stream) {
+  return launch_forward<false>(q, k, v, out, nullptr, batch, n, heads, views, scale, stream);
+}
+
 // q, k, v: bf16 [batch, n, heads * 64] views sharing the element strides
 // (stride_b, stride_n; multiples of 8, stride_b free when batch is 1), unit
 // stride along features, 16-byte aligned. out: contiguous bf16
@@ -598,8 +610,8 @@ int launch_forward(const void* q, const void* k, const void* v, void* out, float
 extern "C" int vfmseg_attention_qkv(const void* q, const void* k, const void* v, void* out,
                                     int batch, int n, int heads, int stride_b, int stride_n,
                                     float scale, void* stream) {
-  return launch_forward<false>(q, k, v, out, nullptr, batch, n, heads, stride_b, stride_n, scale,
-                               stream);
+  const TokenStrides views[3] = {{stride_b, stride_n}, {stride_b, stride_n}, {stride_b, stride_n}};
+  return launch_forward<false>(q, k, v, out, nullptr, batch, n, heads, views, scale, stream);
 }
 
 // As vfmseg_attention_qkv, and lse: contiguous fp32 [batch, heads, n], the
@@ -608,8 +620,9 @@ extern "C" int vfmseg_attention_qkv_fwd_lse(const void* q, const void* k, const 
                                             void* out, void* lse, int batch, int n, int heads,
                                             int stride_b, int stride_n, float scale,
                                             void* stream) {
-  return launch_forward<true>(q, k, v, out, static_cast<float*>(lse), batch, n, heads, stride_b,
-                              stride_n, scale, stream);
+  const TokenStrides views[3] = {{stride_b, stride_n}, {stride_b, stride_n}, {stride_b, stride_n}};
+  return launch_forward<true>(q, k, v, out, static_cast<float*>(lse), batch, n, heads, views,
+                              scale, stream);
 }
 
 // Text of a status code returned by any entry of this library.

@@ -1,47 +1,48 @@
-// EVA02's inference attention with 2D RoPE, read straight from the q/k/v
-// projections, for Hopper (sm_90a): B2-RoPE.
+// EVA02's inference attention with 2D RoPE, read from the q/k/v projections,
+// for Hopper (sm_90a): B2-RoPE.
 //
 // Replaces _fwd_kernel_qkv_tav of vfmseg_tpu/ops/flash_attention.py with
 // rope=True (launched by _flash_forward_qkv_tav_main, entry
-// flash_attention_qkv_tm with rope_cs; tables :1254-1265). Two fp32 [N, 64]
-// tables cos/sin in the evens|odds layout of vfmseg_tpu/ops/rope.py rotate q
-// and k in shared memory (rope_tile, attention_common.cuh): the staged Q tile
-// once before its mma fragments are read, each K tile after it lands, both
-// from bf16 in fp32, rounded once to bf16. The TPU kernel folds scale *
-// log2 e into q before rotating and rotates k in bf16 arithmetic; the port's
-// numerics are those of its plain twin (ops/attention.py
-// attention_qkv_rope_plain), which rotates both in fp32 and rounds.
-//
-// For every batch item b and head h:
+// flash_attention_qkv_tm with rope_cs; tables :1254-1265). For every batch
+// item b and head h:
 //
 //   out[b, :, h*64:(h+1)*64] = softmax(rope(q_h) rope(k_h)^T * scale) v_h
 //
 // with q_h, k_h, v_h the 64 columns of head h in three [B, N, H*64] bf16
-// views that share one (batch, token) stride pair (the thirds of EVA02's
-// fused qkv); the output is token-major [B, N, H*64] bf16. Numerics follow
-// xla_attention (vfmseg_tpu/ops/attention.py:31-57): fp32 logits, an exact
-// online softmax with a running max in the log2 domain, probabilities cast
-// to bf16 before the P.V product with fp32 accumulation, and the division by
-// the row sum at the end.
+// views (the thirds of EVA02's fused qkv, or any views with a stride pair
+// each), in the evens|odds layout of vfmseg_tpu/ops/rope.py, and two fp32
+// [N, 64] tables cos/sin: rope(x) = x * cos + half_swap(x) * sin, half_swap
+// exchanging columns c and c + 32. The rotation is fp32 arithmetic from
+// bf16, rounded once to bf16, as the port's plain twin
+// (ops/attention.py attention_qkv_rope_plain) rotates; the TPU kernel folds
+// scale * log2 e into q before rotating and rotates k in bf16 arithmetic.
+// The output is contiguous token-major [B, N, H*64] bf16.
 //
-// What bounds it: the tensor cores (4*N^2*64 flops per head on 4*N*64*2
-// bytes, ~N/2 flops a byte at N = 1025 or 2049, above the card's ~295
-// flop/byte ridge).
+// One call launches two kernels:
 //
-// The design is B2's first one, kept for this entry alone: one
-// block of 4 warps per (64 queries, head, batch item), each warp owning 16
-// query rows; Q staged once into shared memory and kept in registers as
-// mma fragments; K and V through shared memory in tiles of 64 keys loaded
-// synchronously; S = Q.K^T and O += P.V as bf16 mma.sync.m16n8k16 with fp32
-// accumulators, P re-packed in registers as the A operand of P.V.
-// Shared-memory rows are padded to 72 elements so the fragment loads are
-// free of bank conflicts. The ragged last query and key tiles (N = 1025,
-// 2049) are zero-filled on load; masked keys get -inf logits and padded
-// query rows are never stored. B2 and B3 left it for the warp-specialised
-// TMA + wgmma kernel of attention_qkv.cu; this entry waits for its own
-// redesign.
-
-#include <math.h>
+// * The rotation pass (rope_rotate_kernel), bound by device memory: it reads
+//   the q and k thirds and the tables and writes rotated q and k into a
+//   workspace [B, N, 2*H*64] (q's heads, then k's), 8 bytes moved a rotated
+//   element for 3 operations. Each element is rotated once: the kernel it
+//   replaces rotated each K tile in shared memory once for every query block
+//   that read it (17 times at N 1025, 33 at N 2049). A thread takes one
+//   16-byte chunk of a head's low half row of q and of k (columns c..c+7,
+//   c in {0, 8, 16, 24}) and the partner chunk of the high half (c + 32..), so
+//   it reads both halves before it writes them; the 4 x H threads of a token
+//   are neighbours and read that token's table rows (512 bytes) through L1
+//   once for all heads and both of q and k. The cls row is the tables'
+//   identity row (cos 1, sin 0). The arithmetic is the twin's,
+//   lo' = xl * cl + xh * sl, hi' = xh * ch + xl * sh with each product
+//   rounded to fp32 before the sum (no FMA contraction), so the rotated
+//   values equal the twin's bit for bit. Contracted, as the earlier kernel
+//   was, the sum of two nearly cancelling products kept bits the twin
+//   rounds away: 2 bf16 units apart at EVA02's stage-1 shape.
+// * B2's warp-specialised TMA + wgmma kernel (attention_qkv.cu) over the
+//   rotated q and k (token stride 2*H*64) and v where it lies (its own
+//   strides), through attention_qkv_views; bound by the tensor cores.
+//
+// The workspace comes from the caller (the wrapper takes it from PyTorch's
+// caching allocator).
 
 #include "attention_common.cuh"
 
@@ -49,126 +50,114 @@ namespace {
 
 using namespace vfmseg_attn;
 
-__global__ void __launch_bounds__(kThreads)
-attention_qkv_rope_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ out,
-                          const float* __restrict__ cos, const float* __restrict__ sin, int n,
-                          int heads, int stride_b, int stride_n, float scale_log2) {
-  __shared__ __align__(16) bf16 sq[kBlock * kRow];
-  __shared__ __align__(16) bf16 sk[kBlock * kRow];
-  __shared__ __align__(16) bf16 sv[kBlock * kRow];
+constexpr int kRotThreads = 256;
+constexpr int kHalf = kHeadDim / 2;   // partner columns lie kHalf apart
+constexpr int kChunks = kHalf / 8;    // 16-byte chunks of a half row: 4
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int q0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int64_t head = static_cast<int64_t>(b) * stride_b + static_cast<int64_t>(h) * kHeadDim;
+struct RotArgs {
+  const bf16* q;
+  const bf16* k;
+  TokenStrides sq, sk;
+  const float* cos;
+  const float* sin;
+  bf16* rot;
+  int n, heads, units;
+};
 
-  load_tile(sq, q + head + static_cast<int64_t>(q0) * stride_n, stride_n, n - q0, tid);
-  __syncthreads();
-  rope_tile(sq, cos + static_cast<int64_t>(q0) * kHeadDim, sin + static_cast<int64_t>(q0) * kHeadDim,
-            n - q0, tid);
-  __syncthreads();
-
-  // A fragments of this warp's 16 query rows, one per 16-wide d chunk.
-  uint32_t qa[kDChunks][4];
-  load_a_rows(qa, sq, warp, g, t);
-
-  // Each thread holds rows r0 (index 0) and r0 + 8 (index 1).
-  float o[kDTiles][4];
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < kDTiles; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n; k0 += kBlock) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sk, k + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
-    load_tile(sv, v + head + static_cast<int64_t>(k0) * stride_n, stride_n, n - k0, tid);
-    __syncthreads();
-    rope_tile(sk, cos + static_cast<int64_t>(k0) * kHeadDim,
-              sin + static_cast<int64_t>(k0) * kHeadDim, n - k0, tid);
-    __syncthreads();
-
-    // S = Q.K^T for 16 rows x 64 keys.
-    float s[kNTiles][4];
-    mma_rows_t(s, qa, sk, g, t);
-
-    // Online softmax in the log2 domain: x = logit * scale * log2(e).
-    const int valid = n - k0;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const float x = col < valid ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= alpha[0];
-      o[dt][1] *= alpha[0];
-      o[dt][2] *= alpha[1];
-      o[dt][3] *= alpha[1];
-    }
-
-    // O += P.V, with P taken from the S accumulators as bf16 A fragments.
-    mma_acc_p(o, s, sv, g, t);
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
   }
+}
 
-  // The row sums so far are per thread; the quad of a row holds the rest.
-  // The running max is already the same across the quad.
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                    pack_bf16(f[6], f[7]));
+}
+
+// Eight consecutive fp32 table entries (32-byte aligned), read-only path.
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Thread u: chunk u % 4 of head (u / 4) % H of token u / (4 H) (b * n + t),
+// for q and for k.
+__global__ void __launch_bounds__(kRotThreads) rope_rotate_kernel(const RotArgs a) {
+  const int u = blockIdx.x * kRotThreads + threadIdx.x;
+  if (u >= a.units) return;
+  const int c = (u % kChunks) * 8;
+  const int h = (u / kChunks) % a.heads;
+  const int tok = u / (kChunks * a.heads);
+  const int t = tok % a.n;
+  const int b = tok / a.n;
+  const bf16* src[2] = {a.q + b * a.sq.b + t * a.sq.n + h * kHeadDim + c,
+                        a.k + b * a.sk.b + t * a.sk.n + h * kHeadDim + c};
+  uint4 raw[2][2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  for (int i = 0; i < 2; ++i) {
+    raw[i][0] = *reinterpret_cast<const uint4*>(src[i]);
+    raw[i][1] = *reinterpret_cast<const uint4*>(src[i] + kHalf);
   }
-  const int row0 = q0 + warp * 16 + g;
-  const int64_t out_row = static_cast<int64_t>(heads) * kHeadDim;
-  store_rows(out + static_cast<int64_t>(b) * n * out_row + h * kHeadDim, out_row, row0, n, o,
-             1.f / l[0], 1.f / l[1], t);
+  float cl[8], ch[8], sl[8], sh[8];
+  const int row = t * kHeadDim + c;
+  load8(a.cos + row, cl);
+  load8(a.cos + row + kHalf, ch);
+  load8(a.sin + row, sl);
+  load8(a.sin + row + kHalf, sh);
+
+  const int64_t width = static_cast<int64_t>(a.heads) * kHeadDim;
+  bf16* const dst = a.rot + static_cast<int64_t>(tok) * 2 * width + h * kHeadDim + c;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float xl[8], xh[8], yl[8], yh[8];
+    unpack8(raw[i][0], xl);
+    unpack8(raw[i][1], xh);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      yl[e] = __fadd_rn(__fmul_rn(xl[e], cl[e]), __fmul_rn(xh[e], sl[e]));
+      yh[e] = __fadd_rn(__fmul_rn(xh[e], ch[e]), __fmul_rn(xl[e], sh[e]));
+    }
+    *reinterpret_cast<uint4*>(dst + i * width) = pack8(yl);
+    *reinterpret_cast<uint4*>(dst + i * width + kHalf) = pack8(yh);
+  }
 }
 
 }  // namespace
 
-// q, k, v: bf16 [batch, n, heads * 64] views sharing the element strides
-// (stride_b, stride_n), unit stride along features, 16-byte aligned, in the
-// evens|odds layout; cos and sin: contiguous fp32 [n, 64] tables (identity
-// rows for the cls token), shared by every batch item and head. out:
-// contiguous bf16 [batch, n, heads * 64]. Returns a cudaError_t.
+// q, k, v: bf16 [batch, n, heads * 64] views in the evens|odds layout, unit
+// stride along features, 16-byte aligned; strides: int64 (batch, token)
+// element strides of q, k and v in turn (multiples of 8, the batch stride
+// free when batch is 1). cos and sin: contiguous fp32 [n, 64] tables (identity
+// rows for the cls token), 16-byte aligned, shared by every batch item and
+// head. rot: a contiguous bf16 [batch, n, 2 * heads * 64] workspace. out:
+// contiguous bf16 [batch, n, heads * 64]. Launches the rotation pass and B2's
+// kernel on the stream; returns a cudaError_t, or a tensor-map encode failure
+// (see vfmseg_error_string).
 extern "C" int vfmseg_attention_qkv_rope(const void* q, const void* k, const void* v, void* out,
-                                         const void* cos, const void* sin, int batch, int n,
-                                         int heads, int stride_b, int stride_n, float scale,
-                                         void* stream) {
-  const dim3 grid((n + kBlock - 1) / kBlock, heads, batch);
-  attention_qkv_rope_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<const float*>(cos), static_cast<const float*>(sin), n,
-      heads, stride_b, stride_n, scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+                                         const void* cos, const void* sin, void* rot,
+                                         const long long* strides, int batch, int n, int heads,
+                                         float scale, void* stream) {
+  const int64_t units = static_cast<int64_t>(batch) * n * heads * kChunks;
+  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RotArgs args{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     TokenStrides{strides[0], strides[1]}, TokenStrides{strides[2], strides[3]},
+                     static_cast<const float*>(cos), static_cast<const float*>(sin),
+                     static_cast<bf16*>(rot), n, heads, static_cast<int>(units)};
+  const int blocks = static_cast<int>((units + kRotThreads - 1) / kRotThreads);
+  rope_rotate_kernel<<<blocks, kRotThreads, 0, s>>>(args);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t width = static_cast<int64_t>(heads) * kHeadDim;
+  const TokenStrides rotated{static_cast<int64_t>(n) * 2 * width, 2 * width};
+  const TokenStrides views[3] = {rotated, rotated, TokenStrides{strides[4], strides[5]}};
+  return attention_qkv_views(rot, static_cast<const bf16*>(rot) + width, v, out, batch, n, heads,
+                             views, scale, stream);
 }

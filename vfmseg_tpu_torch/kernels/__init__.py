@@ -30,11 +30,12 @@ LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
 # scale, stream
 ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
-# csrc/attention_qkv_rope.cu: q, k, v, out, cos, sin, batch, n, heads,
-# stride_b, stride_n, scale, stream
+# csrc/attention_qkv_rope.cu: q, k, v, out, cos, sin, rot (a bf16
+# [B, N, 2*H*64] workspace), strides (int64 array: batch, token of q, k, v),
+# batch, n, heads, scale, stream; one call launches the rotation pass and
+# B2's kernel
 ATTENTION_QKV_ROPE = Kernel("attention_qkv_rope", "vfmseg_attention_qkv_rope",
-                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                             _P])
+                            [_P] * 8 + [_I, _I, _I, _F, _P])
 
 # csrc/attention_qkv.cu: q, k, v, out, lse, batch, n, heads, stride_b,
 # stride_n, scale, stream

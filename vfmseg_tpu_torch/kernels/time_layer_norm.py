@@ -11,6 +11,14 @@ Usage, from the root of a checkout with a CUDA card:
 * ``graph_ms``: the same 10 calls captured once in a CUDA graph and
   replayed, the median of 10 replays: the kernels back to back with no host
   work between them.
+* ``device_ms``: the kernel's device time a call, summed by
+  ``torch.profiler`` over 10 calls, with ``device_ms_by_kernel``.
+* ``library_device_ms``: the same for one ``F.layer_norm`` call (weight and
+  bias in x's dtype, as it takes them), a yardstick the port never calls.
+* ``bound_ms``: x read and y written once, fp32 weight and bias read once,
+  over 3.35 TB/s; ``copy_device_ms``: the device time of one
+  ``Tensor.copy_`` of x into a tensor like it, the same bytes at the rate
+  the card reaches for a plain copy.
 
 The script imports the package of the checkout it runs in, so running it in
 two checkouts on one card compares their kernels. It prints the card's
@@ -26,15 +34,22 @@ import subprocess
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
+from vfmseg_tpu_torch.kernels.time_hm_bwd import device_ms
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda
 
 # (shape, dtype): the DINOv2 path's LayerNorms (stage 1, refine batch,
-# decoder), an fp32 input, and EVA02's 2730-wide sub-LN at the refine batch
+# decoder), an fp32 input, and EVA02's 2730-wide sub-LN at the refine
+# batch, stage 1 and the train batch
 SHAPES = [((1, 2049, 1024), torch.bfloat16),
           ((18, 1025, 1024), torch.bfloat16),
           ((18, 1024, 256), torch.bfloat16),
           ((18, 1025, 1024), torch.float32),
-          ((18 * 1025, 2730), torch.bfloat16)]
+          ((18 * 1025, 2730), torch.bfloat16),
+          ((2049, 2730), torch.bfloat16),
+          ((4 * 1025, 2730), torch.bfloat16)]
+HBM_BYTES_PER_S = 3.35e12
 INNER = 10
 REPS = 10
 
@@ -80,13 +95,23 @@ def time_shape(shape, dtype, dev) -> dict:
     x = torch.randn(shape, generator=gen).to(dev, dtype)
     w = (torch.randn(c, generator=gen) * 0.1 + 1.0).to(dev)
     b = (torch.randn(c, generator=gen) * 0.1).to(dev)
-    row = dict(shape=list(shape), dtype=str(dtype))
+    moved = 2 * x.numel() * x.element_size() + 2 * c * 4
+    row = dict(shape=list(shape), dtype=str(dtype),
+               bound_ms=moved / HBM_BYTES_PER_S * 1e3)
     try:
         layer_norm_cuda(x, w, b, 1e-6)
     except ValueError as err:
         return dict(row, refused=str(err))
+    ours = device_ms(lambda: layer_norm_cuda(x, w, b, 1e-6))
+    y = torch.empty_like(x)
+    wl, bl = w.to(dtype), b.to(dtype)
     return dict(row, **eager_and_graph_ms(
-        lambda: layer_norm_cuda(x, w, b, 1e-6), dev))
+        lambda: layer_norm_cuda(x, w, b, 1e-6), dev),
+        device_ms=ours["device_ms"],
+        device_ms_by_kernel=ours["device_ms_by_kernel"],
+        library_device_ms=device_ms(lambda: F.layer_norm(
+            x, (c,), wl, bl, 1e-6))["device_ms"],
+        copy_device_ms=device_ms(lambda: y.copy_(x))["device_ms"])
 
 
 def main() -> None:

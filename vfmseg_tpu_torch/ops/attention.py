@@ -28,8 +28,9 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
     forward and the training forward with the LSE, over ``[B, N, H*64]``
     views of one stride pair: a warp-specialised kernel whose producer warp
     TMA-loads the views as they are, with no transpose or copy;
-  - :func:`attention_qkv_rope_tm` (``csrc/attention_qkv_rope.cu``), B2's
-    RoPE variant (EVA02 inference);
+  - :func:`attention_qkv_rope_tm` (``csrc/attention_qkv_rope.cu``),
+    B2-RoPE (EVA02 inference): a rotation pass into a workspace, then B2's
+    kernel over the rotated q and k and v, each view with its own strides;
   - :func:`attention_hm_fwd` and :func:`attention_hm_bwd`
     (``csrc/attention_hm.cu``, B5: a forward and one fused backward, both on
     wgmma), general attention over ``[B, H, N, D]`` views with their own
@@ -158,51 +159,69 @@ def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return grads if bias is None else grads + (dbias,)
 
 
-def _strided_views(fn: str, num_heads: int, *views: torch.Tensor
-                   ) -> Tuple[int, int, int, int]:
-    """Check bf16 CUDA ``[B, N, H*64]`` views of one shape and one stride
-    pair on one device (:func:`qkv_view_geometry`); return (B, N, stride_b,
-    stride_n)."""
+def _cuda_views(fn: str, *views: torch.Tensor) -> None:
+    """Raise unless every view is a CUDA tensor on one device."""
     for t in views:
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
         if t.device != views[0].device:
             raise ValueError(f"{fn} needs its tensors on one device")
+
+
+def _strided_views(fn: str, num_heads: int, *views: torch.Tensor
+                   ) -> Tuple[int, int, int, int]:
+    """Check bf16 CUDA ``[B, N, H*64]`` views of one shape and one stride
+    pair on one device (:func:`qkv_view_geometry`); return (B, N, stride_b,
+    stride_n)."""
+    _cuda_views(fn, *views)
     return qkv_view_geometry(fn, num_heads, *views)
 
 
-def qkv_view_geometry(fn: str, num_heads: int, *views: torch.Tensor
-                      ) -> Tuple[int, int, int, int]:
-    """The geometry B2 and B3 read ``[B, N, H*64]`` bf16 views with: (B, N,
-    stride_b, stride_n) in elements, shared by every view, after checking
-    what a TMA tensor map needs of them: unit stride along features, a
-    16-byte aligned start (the k and v thirds of a fused qkv start H*128
-    bytes after q) and row strides of whole 16 bytes (the batch stride only
-    when B > 1). The kernels' maps run over dims (64, H, N, B) with element
-    strides (1, 64, stride_n, stride_b) from each view's start."""
+def qkv_view_strides(fn: str, num_heads: int, *views: torch.Tensor
+                     ) -> Tuple[int, int, Tuple[Tuple[int, int], ...]]:
+    """The geometry B2's kernel reads ``[B, N, H*64]`` bf16 views with, each
+    view with a stride pair of its own: (B, N, ((stride_b, stride_n) of each
+    view)) in elements, after checking what a TMA tensor map needs of each
+    view: unit stride along features, a 16-byte aligned start (the k and v
+    thirds of a fused qkv start H*128 bytes after q) and row strides of
+    whole 16 bytes (the batch stride only when B > 1). The kernel's maps run
+    over dims (64, H, N, B) with element strides (1, 64, stride_n, stride_b)
+    from each view's start."""
     first = views[0]
     for t in views:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{fn} takes bf16, got {t.dtype}")
-        if (t.dim() != 3 or t.shape != first.shape
-                or t.stride() != first.stride()):
-            raise ValueError(f"{fn} needs views of one [B, N, F] shape and "
-                             f"one stride")
+        if t.dim() != 3 or t.shape != first.shape:
+            raise ValueError(f"{fn} needs views of one [B, N, F] shape")
         if t.data_ptr() % 16:
             raise ValueError(f"{fn} needs 16-byte aligned tensors")
     b, n, f = first.shape
     if f != num_heads * HEAD_DIM:
         raise ValueError(f"{fn} takes head_dim {HEAD_DIM} only: features {f} "
                          f"!= {num_heads} heads x {HEAD_DIM}")
-    stride_b, stride_n, stride_f = first.stride()
-    if stride_f != 1 or stride_n % 8 or (b > 1 and stride_b % 8):
-        raise ValueError(f"{fn} needs unit feature stride and row strides "
-                         f"that are multiples of 8, got {first.stride()}")
-    if (max(stride_b, stride_n) > _INT_MAX or b > 65535 or num_heads > 65535
-            or first.numel() > _INT_MAX):
-        raise ValueError(f"{fn}: shape {tuple(first.shape)} with strides "
-                         f"{first.stride()} exceeds the launch limits")
-    return b, n, stride_b, stride_n
+    strides = []
+    for t in views:
+        stride_b, stride_n, stride_f = t.stride()
+        if stride_f != 1 or stride_n % 8 or (b > 1 and stride_b % 8):
+            raise ValueError(f"{fn} needs unit feature stride and row strides "
+                             f"that are multiples of 8, got {t.stride()}")
+        if (max(stride_b, stride_n) > _INT_MAX or b > 65535
+                or num_heads > 65535 or t.numel() > _INT_MAX):
+            raise ValueError(f"{fn}: shape {tuple(t.shape)} with strides "
+                             f"{t.stride()} exceeds the launch limits")
+        strides.append((stride_b, stride_n))
+    return b, n, tuple(strides)
+
+
+def qkv_view_geometry(fn: str, num_heads: int, *views: torch.Tensor
+                      ) -> Tuple[int, int, int, int]:
+    """:func:`qkv_view_strides` for B2's and B3's own entries, which take
+    one stride pair for every view: (B, N, stride_b, stride_n)."""
+    b, n, strides = qkv_view_strides(fn, num_heads, *views)
+    if len(set(strides)) > 1:
+        raise ValueError(f"{fn} needs views of one [B, N, F] shape and one "
+                         f"stride, got {strides}")
+    return (b, n) + strides[0]
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -231,24 +250,39 @@ def attention_qkv_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_qkv_rope_tm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor,
-                          num_heads: int, scale: float) -> torch.Tensor:
-    """Launch B2's RoPE variant (``csrc/attention_qkv_rope.cu``): q, k, v as
-    :func:`attention_qkv_tm` takes them, in the evens|odds layout; cos, sin:
-    contiguous fp32 ``[N, 64]`` tables on the same card."""
-    b, n, stride_b, stride_n = _strided_views("attention_qkv_rope_tm",
-                                              num_heads, q, k, v)
+                          num_heads: int, scale: float,
+                          rot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch B2-RoPE (``csrc/attention_qkv_rope.cu``): q, k, v as
+    :func:`attention_qkv_tm` takes them, in the evens|odds layout, but each
+    with a stride pair of its own (:func:`qkv_view_strides`); cos, sin:
+    contiguous 16-byte aligned fp32 ``[N, 64]`` tables on the same card. One
+    call rotates q and k into a ``[B, N, 2*H*64]`` bf16 workspace (``rot``,
+    contiguous, where the caller wants to read the rotated q | k back; else
+    taken here) and runs B2's kernel over it and v."""
+    fn = "attention_qkv_rope_tm"
+    _cuda_views(fn, q, k, v)
+    b, n, strides = qkv_view_strides(fn, num_heads, q, k, v)
     for name, t in (("cos", cos), ("sin", sin)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (n, HEAD_DIM)
-                or not t.is_contiguous() or t.device != q.device):
-            raise ValueError(f"attention_qkv_rope_tm needs a contiguous fp32 "
+                or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{fn} needs a contiguous 16-byte aligned fp32 "
                              f"{name} of shape {(n, HEAD_DIM)} on {q.device}")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    rot_shape = (b, n, 2 * num_heads * HEAD_DIM)
+    if rot is None:
+        rot = torch.empty(rot_shape, dtype=q.dtype, device=q.device)
+    elif (rot.dtype != q.dtype or tuple(rot.shape) != rot_shape
+          or not rot.is_contiguous() or rot.device != q.device):
+        raise ValueError(f"{fn} needs a contiguous bf16 rot of shape "
+                         f"{rot_shape} on {q.device}")
+    pairs = (ctypes.c_longlong * 6)(*(x for pair in strides for x in pair))
     ATTENTION_QKV_ROPE(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), cos.data_ptr(), sin.data_ptr(), b, n,
-                       num_heads, stride_b, stride_n, float(scale),
-                       _stream(q))
+                       out.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                       rot.data_ptr(), ctypes.addressof(pairs), b, n,
+                       num_heads, float(scale), _stream(q))
     return out
 
 

@@ -34,10 +34,26 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def empty_at_offset_of(x: torch.Tensor) -> torch.Tensor:
+    """A new contiguous tensor shaped like contiguous ``x`` whose address is
+    x's modulo 16 bytes, so that the kernel cuts x's and y's rows at the
+    same 16-byte boundaries (a view into a buffer one 16-byte step longer
+    when x starts off a boundary)."""
+    off = x.data_ptr() % 16
+    if off == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    item = x.element_size()
+    buf = torch.empty(x.numel() + 16 // item, dtype=x.dtype, device=x.device)
+    start = ((off - buf.data_ptr()) % 16) // item
+    return buf[start:start + x.numel()].view(x.shape)
+
+
 def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     eps: float) -> torch.Tensor:
     """Launch the LayerNorm kernel on contiguous bf16/fp32 CUDA ``x`` (last
-    axis C >= 1, any alignment) with fp32 ``weight``/``bias`` [C]."""
+    axis C >= 1, any alignment) with fp32 ``weight``/``bias`` [C]. The
+    result lies at x's address modulo 16 bytes
+    (:func:`empty_at_offset_of`)."""
     if not x.is_cuda:
         raise ValueError(f"layer_norm_cuda needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODE:
@@ -53,7 +69,7 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                 or not p.is_contiguous()):
             raise ValueError(f"layer_norm_cuda needs a contiguous fp32 {name} "
                              f"of shape ({c},) on {x.device}")
-    y = torch.empty_like(x)
+    y = empty_at_offset_of(x)
     rows = x.numel() // c
     if rows == 0:
         return y
