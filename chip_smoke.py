@@ -121,6 +121,22 @@ Phases, each printing one JSON line:
    CLI's loop, over a 4-image in-memory labelled set, printing its metrics
    JSON.
 
+13. train_cli: the train CLI (``tools/train.py``'s ``run``) on the
+   headline's config file, read by the port's loader at full width in
+   bf16: 8 in-memory synthetic samples at GTA's frame (1052x1914, 19
+   classes) as the source, with the RCS statistics files written to a
+   temporary data root, through the config's own pipeline (resize to
+   2560x1440, 1024^2 cat-max-ratio crop, flip, photometric distortion,
+   RCS, 4 loader threads); 6 steps (checkpoints at 3 and 6, validation and
+   save_best on one 1024x2048 image at 6), then ``--resume`` to step 8. It
+   checks every step's logged loss and grad_norm, the checkpoints, the val
+   line, that the resumed run starts at step 6 with the trainable
+   parameters bit-equal to the step-6 checkpoint, and the launches (per
+   step and per validation image as in 9 and 7); it reports the loader's
+   own samples/s (16 samples, no model), the CLI's steps/s over steps
+   2-6, one profiled step's device time and its idle share against the
+   CLI's step, peak memory and the validation's seconds.
+
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
 one PyTorch library call that computes the same function (a yardstick the
@@ -150,9 +166,11 @@ import torch
 import torch.nn.functional as F
 
 from vfmseg_tpu_torch import kernels
+from vfmseg_tpu_torch.core.config import load_config
+from vfmseg_tpu_torch.data.datasets import DGDataset
 from vfmseg_tpu_torch.data.loader import InfiniteLoader, collate
-from vfmseg_tpu_torch.data.synthetic import SyntheticDataset
-from vfmseg_tpu_torch.data.transforms import TestPipeline
+from vfmseg_tpu_torch.data.synthetic import SyntheticDataset, synthetic_sample
+from vfmseg_tpu_torch.data.transforms import TestPipeline, TrainPipeline
 from vfmseg_tpu_torch.eval.compact import _bucket, window_confidence
 from vfmseg_tpu_torch.eval.evaluator import (
     make_compact_ms_slide,
@@ -216,8 +234,13 @@ from vfmseg_tpu_torch.ops.window_blend import (
     blend_windows_cuda,
     blend_windows_plain,
 )
+from vfmseg_tpu_torch.tools import train as train_cli
 from vfmseg_tpu_torch.tools.test import evaluate_dataset
-from vfmseg_tpu_torch.train.checkpoint import CheckpointManager
+from vfmseg_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    load_pytree,
+    trainable_state_dict,
+)
 from vfmseg_tpu_torch.train.loop import train_loop
 from vfmseg_tpu_torch.train.state import create_train_state
 from vfmseg_tpu_torch.train.step import (
@@ -225,7 +248,7 @@ from vfmseg_tpu_torch.train.step import (
     step_generators,
     sum_losses,
 )
-from vfmseg_tpu_torch.weights import init_params
+from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
 
 SEED = 0
 N_IMAGES = 3
@@ -237,6 +260,24 @@ TRAIN_STEPS = 8
 TRAIN_CKPT_EVERY = 4
 TRAIN_CHECK_HW = (256, 256)
 TRAIN_CHECK_CROP = (128, 128)
+# the train CLI (phase train_cli): the headline's config file through the
+# port's loader, trained on in-memory synthetic samples at GTA's frame
+# (1052 x 1914, 19 classes) through the config's own pipeline (resize to
+# 2560 x 1440, a 1024^2 cat-max-ratio crop, flip, photometric distortion,
+# RCS, 4 loader threads); checkpoints every 3 steps, validation and
+# save_best at step 6 on one 1024 x 2048 image, then a resumed run to 8
+TRAIN_CLI_CONFIG = os.path.join(REPO, "configs", "dg", "gta2citys",
+                                "dg_lora_dinov2_ms_masked.py")
+TRAIN_CLI_DIR = os.path.join(REPO, "work_dirs", "chip_smoke_train_cli")
+TRAIN_CLI_SOURCE_HW = (1052, 1914)
+TRAIN_CLI_SAMPLES = 8
+TRAIN_CLI_STEPS = 6
+TRAIN_CLI_RESUME_TO = 8
+TRAIN_CLI_OPTIONS = ["schedule.log_interval=1",
+                     "schedule.checkpoint_interval=3",
+                     "schedule.val_interval=6",
+                     "schedule.save_best=citys_mIoU", "data.val_max_images=1"]
+LOADER_SAMPLES = 16
 
 KERNEL_NAMES = [k.name for k in kernels.KERNELS]
 # (group, substring of the device kernel's name) for the profiler
@@ -1829,7 +1870,7 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     dataset = SyntheticDataset(n=4, hw=tuple(cfg["crop_size"]),
                                num_classes=cfg["num_classes"], seed=SEED)
     data_secs = time.perf_counter() - t0
-    loader = InfiniteLoader(dataset, batch_size=cfg["batch_size"],
+    loader = InfiniteLoader(dataset, batch_size=cfg["data"]["batch_size"],
                             num_workers=2, seed=SEED)
 
     torch.cuda.synchronize()
@@ -1905,7 +1946,7 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     latency = [1.0 / r["steps_per_sec"] for r in records]
     steady = latency[1:]
     emit("train_path" if label == "dinov2" else f"{label}_train_path",
-         model=cfg["name"], steps=TRAIN_STEPS, batch=cfg["batch_size"],
+         model=cfg["name"], steps=TRAIN_STEPS, batch=cfg["data"]["batch_size"],
          crop_hw=list(cfg["crop_size"]), model_build_s=build_secs,
          data_build_s=data_secs, loop_s=loop_secs,
          trainable_params=n_train, total_params=n_total,
@@ -2209,6 +2250,251 @@ def phase_main_breakdown(model, dev, cfg, label: str) -> None:
          image_ms=image_ms, **_breakdown(prof, image_ms))
 
 
+class MemorySource:
+    """An in-memory source dataset for ``DGDataset``: items ``{img,
+    label}``, each with the label file name that the RCS statistics in
+    ``data_root`` refer to (``sample_class_stats.json``,
+    ``samples_with_class.json``, written as tools/make_synthetic_dataset.py
+    writes them)."""
+
+    def __init__(self, items: list, data_root: str):
+        self.data_root = data_root
+        self.items = items
+        self.samples = []
+        stats, with_class = [], {}
+        for i, item in enumerate(items):
+            path = os.path.join(data_root, "labels",
+                                f"{i:05d}_labelTrainIds.png")
+            self.samples.append({"seg_map_path": path})
+            entry = {"file": path}
+            classes, counts = np.unique(item["label"], return_counts=True)
+            for c, n in zip(classes.tolist(), counts.tolist()):
+                entry[str(c)] = n
+                with_class.setdefault(str(c), []).append([path, n])
+            stats.append(entry)
+        os.makedirs(data_root, exist_ok=True)
+        for name, data in (("sample_class_stats.json", stats),
+                           ("samples_with_class.json", with_class)):
+            with open(os.path.join(data_root, name), "w") as f:
+                json.dump(data, f)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> dict:
+        return dict(self.items[idx])
+
+
+def _val_image(seed: int) -> dict:
+    """A 1024 x 2048 labelled image of 32-pixel blocks."""
+    rs = np.random.RandomState(seed)
+    coarse = rs.randint(0, 256, (IMAGE_HW[0] // 32, IMAGE_HW[1] // 32, 3))
+    img = np.repeat(np.repeat(coarse, 32, 0), 32, 1).astype(np.uint8)
+    label = np.repeat(np.repeat(rs.randint(0, 19, coarse.shape[:2]), 32, 0),
+                      32, 1).astype(np.uint8)
+    return dict(img=img, label=label)
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def loader_rate(cfg, source) -> dict:
+    """The data pipeline alone: DGDataset (RCS) + the config's
+    TrainPipeline on the config's worker threads, LOADER_SAMPLES samples
+    in batches of the config's size, no model."""
+    dcfg = cfg["data"]
+    pipeline = TrainPipeline(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in dcfg["train_pipeline"].items()})
+    dataset = DGDataset(source, pipeline, dcfg["rare_class_sampling"],
+                        seed=SEED)
+    bs = dcfg["batch_size"]
+    t0 = time.perf_counter()
+    loader = InfiniteLoader(dataset, batch_size=bs,
+                            num_workers=dcfg["num_workers"], seed=SEED)
+    try:
+        batches = [next(loader) for _ in range(LOADER_SAMPLES // bs)]
+    finally:
+        loader.close()
+    secs = time.perf_counter() - t0
+    b = batches[0]
+    crop = tuple(pipeline.crop_size)
+    if b["img"].shape != (bs, *crop, 3) or b["label"].shape != (bs, *crop):
+        raise AssertionError(f"loader batch shapes {b['img'].shape}, "
+                             f"{b['label'].shape}")
+    return dict(samples=LOADER_SAMPLES, seconds=secs,
+                samples_per_s=LOADER_SAMPLES / secs,
+                threads=dcfg["num_workers"]), b
+
+
+def phase_train_cli(dev, smi: str) -> dict:
+    """The train CLI (``tools/train.py``'s ``run``) on the headline's
+    config file at full width: TRAIN_CLI_STEPS steps with checkpoints,
+    validation and save_best, then ``--resume`` to TRAIN_CLI_RESUME_TO;
+    launches, metrics, checkpoints and the resumed state checked; the
+    loader's rate, the CLI's steps/s, one profiled step's device time and
+    the CLI's idle share, peak memory and the validation's time."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    data_root = os.path.join(TRAIN_CLI_DIR, "data")
+    work_dir = os.path.join(TRAIN_CLI_DIR, "run")
+    cfg = load_config(TRAIN_CLI_CONFIG,
+                      [f"data.source.data_root={data_root}",
+                       *TRAIN_CLI_OPTIONS])
+    if cfg["data"]["num_workers"] != 4 or cfg["data"]["batch_size"] != 2:
+        raise AssertionError("the headline's data settings changed")
+    t0 = time.perf_counter()
+    rs = np.random.default_rng(SEED + 31)
+    source = MemorySource([synthetic_sample(rs, TRAIN_CLI_SOURCE_HW, 19)
+                           for _ in range(TRAIN_CLI_SAMPLES)], data_root)
+    val_sets = {"citys": [_val_image(SEED + 37)]}
+    data_secs = time.perf_counter() - t0
+    loader_stats, batch = loader_rate(cfg, source)
+
+    # time the validation and catch the first resumed step's state
+    val_secs, resumed = [], {}
+    make_val_fn, make_step = train_cli.make_val_fn, train_cli.make_train_step
+
+    def timed_val_fn(*a, **k):
+        val_fn = make_val_fn(*a, **k)
+
+        def timed(state):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = val_fn(state)
+            torch.cuda.synchronize()
+            val_secs.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    def watched_step():
+        step = make_step()
+
+        def first(state, batch_, seed):
+            if not resumed:
+                resumed["step"] = state.step
+                resumed["trainable"] = {
+                    n: p.detach().cpu().clone()
+                    for n, p in trainable_state_dict(state.model).items()}
+            return step(state, batch_, seed)
+
+        return first
+
+    train_cli.make_val_fn = timed_val_fn
+    try:
+        args = train_cli.parse_args([TRAIN_CLI_CONFIG, "--work-dir",
+                                     work_dir, "--max-iters",
+                                     str(TRAIN_CLI_STEPS)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_cli.run(cfg, args, source=source, val_sets=val_sets)
+        torch.cuda.synchronize()
+        run_secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        train_cli.make_val_fn = make_val_fn
+
+    want = {k: TRAIN_CLI_STEPS * PER_STEP["dinov2"][k]
+            + PER_IMAGE["dinov2"][k] for k in KERNEL_NAMES}
+    if counts != want:
+        raise AssertionError(f"train CLI launch counts {counts} != {want}")
+    records = _jsonl(os.path.join(work_dir, "metrics.jsonl"))
+    train = [r for r in records if r["prefix"] == "train"]
+    val = [r for r in records if r["prefix"] == "val"]
+    if [r["step"] for r in train] != list(range(1, TRAIN_CLI_STEPS + 1)):
+        raise AssertionError("the train CLI did not log every step")
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+               for r in train):
+        raise AssertionError(f"non-finite train metrics {train}")
+    if [r["step"] for r in val] != [TRAIN_CLI_STEPS] or not np.isfinite(
+            val[0].get("citys_mIoU", np.nan)):
+        raise AssertionError(f"the val line {val} lacks citys_mIoU")
+    ckpt_dir = os.path.join(work_dir, "checkpoints")
+    files = sorted(os.listdir(ckpt_dir))
+    need = ["best.trainable.npz", "iter_0000003.trainable.npz",
+            "iter_0000006.trainable.npz"]
+    if not set(need) <= set(files):
+        raise AssertionError(f"checkpoints {files} lack some of {need}")
+    cli_step_s = [1.0 / r["steps_per_sec"] for r in train]
+    steady_s = float(np.mean(cli_step_s[1:]))  # steps 2-6
+
+    # one step of the same train step, profiled, on a loader batch
+    step_fn = make_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batch, SEED)
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch, SEED)
+        torch.cuda.synchronize()
+    profiled = _breakdown(prof, steady_s * 1e3)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # resume from step 6 to 8
+    train_cli.make_train_step = watched_step
+    try:
+        args = train_cli.parse_args([TRAIN_CLI_CONFIG, "--work-dir",
+                                     work_dir, "--resume", "--max-iters",
+                                     str(TRAIN_CLI_RESUME_TO)])
+        kernels.reset_launch_counts()
+        state = train_cli.run(cfg, args, source=source, val_sets=val_sets)
+        torch.cuda.synchronize()
+        resume_counts = kernels.launch_counts()
+    finally:
+        train_cli.make_train_step = make_step
+    saved = state_dict_from_flax({"params": load_pytree(os.path.join(
+        ckpt_dir, "iter_0000006.trainable.npz"))["t"]})
+    got = resumed.get("trainable", {})
+    differ = [n for n in got if not torch.equal(got[n], saved[n])]
+    extra = TRAIN_CLI_RESUME_TO - TRAIN_CLI_STEPS
+    if (resumed.get("step") != TRAIN_CLI_STEPS or not got or differ
+            or state.step != TRAIN_CLI_RESUME_TO):
+        raise AssertionError(f"resume: first step {resumed.get('step')}, "
+                             f"end {state.step}, differing {differ[:5]}")
+    want = {k: extra * v for k, v in PER_STEP["dinov2"].items()}
+    if resume_counts != want:
+        raise AssertionError(f"resumed launch counts {resume_counts} != "
+                             f"{want}")
+    steps = [r["step"] for r in _jsonl(os.path.join(work_dir,
+                                                    "metrics.jsonl"))
+             if r["prefix"] == "train"]
+    if steps != list(range(1, TRAIN_CLI_RESUME_TO + 1)):
+        raise AssertionError(f"train steps logged {steps}")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CLI_DIR, ignore_errors=True)
+    host = {}
+    for name in ("numpy", "scipy", "PIL"):
+        try:
+            host[name] = __import__(name).__version__
+        except ImportError:
+            host[name] = None
+    emit("train_cli", model=cfg["name"], config=os.path.relpath(
+             TRAIN_CLI_CONFIG, REPO), card=smi, batch=cfg["data"]["batch_size"],
+         crop_hw=list(cfg["data"]["train_pipeline"]["crop_size"]),
+         source_hw=list(TRAIN_CLI_SOURCE_HW), source_samples=TRAIN_CLI_SAMPLES,
+         data_build_s=data_secs, loader=loader_stats,
+         run_s=run_secs, step_s=cli_step_s,
+         steps_per_s_2_to_6=1.0 / steady_s, val_s=val_secs,
+         val=val[0], peak_mem_bytes=peak, launches=counts,
+         resume=dict(from_step=TRAIN_CLI_STEPS, to_step=TRAIN_CLI_RESUME_TO,
+                     launches=resume_counts),
+         profiled_step=dict(unprofiled_ms=unprofiled_ms,
+                            idle_share_basis="the CLI's mean step of "
+                                             "steps 2-6", **profiled),
+         host_packages=host, seconds=time.perf_counter() - t_phase)
+    return {"train_cli": counts, "train_cli_resume": resume_counts}
+
+
 def run_paths(dev, cfg, label: str, restore: bool) -> dict:
     """One model's inference and train paths; returns each path's launch
     counts."""
@@ -2272,6 +2558,7 @@ def main() -> None:
     hm_bwd["replaces"] += ", " + B4_REPLACES
     hm_bwd["b4_function"] = b4
     by_path = run_paths(dev, headline_config(), "dinov2", restore=True)
+    by_path.update(phase_train_cli(dev, dev_info["smi"]))
     by_path.update(run_paths(dev, eva02_config(), "eva02", restore=False))
     by_path.update(run_paths(dev, sam_config(), "sam", restore=False))
     by_path.update(run_paths(dev, sam_bias_config(), "sam_bias",

@@ -291,9 +291,10 @@ def test_datasets_match_jax(tmp_path):
     theirs = jax_datasets.cityscapes_dataset(str(city), "leftImg8bit/val",
                                              "gtFine/val")
     assert ours.samples == theirs.samples and "label" not in ours[0]
-    assert set(datasets.DATASETS) == {
-        "SegDataset", "CityscapesDataset", "GTADataset", "BDD100KDataset",
-        "MapillaryDataset"}
+    # every type of the JAX registry, the DG and UDA wrappers included
+    from vfmseg_tpu.core.registry import DATASETS as JAX_DATASETS
+
+    assert set(datasets.DATASETS) == set(JAX_DATASETS._registry)
 
 
 def test_colorize_label_matches_jax():
@@ -332,13 +333,12 @@ def test_cfg_options_match_jax():
                  "data.test=[{'type': 'GTADataset', 'data_root': 'x'}]",
                  "test_cfg.stride=(16, 16)"]
     jcfg = load_config("smoke_tiny_ms_masked", overrides)
-    ours = presets.apply_cfg_options(presets.config("smoke_tiny_ms_masked"),
-                                     overrides)
+    ours = presets.config("smoke_tiny_ms_masked", overrides)
     for path in ("test_cfg", "data.eval_pad_multiple", "new.key.path",
                  "data.test", "data.test_resize_wh"):
-        assert presets.get_path(ours, path) == jcfg.get_path(path), path
+        assert ours.get_path(path) == jcfg.get_path(path), path
     with pytest.raises(ValueError):
-        presets.apply_cfg_options({}, ["no_equals_sign"])
+        presets.config("smoke_tiny_ms_masked", ["no_equals_sign"])
 
 
 # ------------------------------------------------------------------ CLI ----

@@ -285,7 +285,7 @@ def test_config_equals_jax_load_config(name):
     for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
                 "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
-    assert ours["batch_size"] == jcfg["data"]["batch_size"]
+    assert ours["data"]["batch_size"] == jcfg["data"]["batch_size"]
     for key in ("val", "test", "test_resize_wh"):
         assert ours["data"][key] == jcfg["data"][key], key
 

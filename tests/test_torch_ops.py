@@ -207,21 +207,29 @@ def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) leaves jax and
     the JAX package out of sys.modules; PIL too, which only the eval data
     readers import, when they read a file. The eval path's modules (the
-    compact engine, B9, metrics, TTA, transforms, datasets, the CLI) are
-    among those imported."""
+    compact engine, B9, metrics, TTA, transforms, datasets, the CLI) and the
+    train entry's (the config loader, the train CLI, the converters) are
+    among those imported; loading the headline and a config whose
+    get_config() calls the loader imports nothing of the JAX package
+    either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vfmseg_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from vfmseg_tpu_torch.core.config import load_config\n"
+        "load_config('dg_lora_dinov2_ms_masked')\n"
+        "load_config('dg_lora_dinov2_ms_masked_consistency')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'vfmseg_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         "need = ['eval.compact', 'eval.metrics', 'eval.tta',\n"
         "        'ops.window_blend', 'data.transforms', 'data.datasets',\n"
-        "        'utils.visualization', 'tools.test']\n"
+        "        'utils.visualization', 'tools.test', 'core.config',\n"
+        "        'tools.train', 'tools.convert_dinov2', 'tools.convert_eva2',\n"
+        "        'tools.convert_sam', 'data.synthetic', 'train.loop']\n"
         "missing = [n for n in need if p.__name__ + '.' + n\n"
         "           not in sys.modules]\n"
         "assert not missing, missing\n"

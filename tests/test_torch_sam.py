@@ -310,7 +310,7 @@ def test_sam_config_equals_jax_load_config():
     for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
                 "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
-    assert ours["batch_size"] == jcfg["data"]["batch_size"]
+    assert ours["data"]["batch_size"] == jcfg["data"]["batch_size"]
     assert ours["model"]["backbone"]["backbone"]["type"] == "SAMViT"
 
 

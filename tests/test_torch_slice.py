@@ -171,7 +171,7 @@ def test_headline_config_equals_jax_load_config():
     for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
                 "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
-    assert ours["batch_size"] == jcfg["data"]["batch_size"]
+    assert ours["data"]["batch_size"] == jcfg["data"]["batch_size"]
 
 
 def test_eva02_config_equals_jax_load_config():
@@ -183,5 +183,5 @@ def test_eva02_config_equals_jax_load_config():
     for key in ("model", "test_cfg", "compute", "crop_size", "num_classes",
                 "preprocessor", "optimizer", "schedule", "peft"):
         assert ours[key] == jcfg[key], key
-    assert ours["batch_size"] == jcfg["data"]["batch_size"]
+    assert ours["data"]["batch_size"] == jcfg["data"]["batch_size"]
     assert ours["model"]["backbone"]["backbone"]["type"] == "EVA2"

@@ -2,9 +2,10 @@
 
 Port of vfmseg_tpu/data/synthetic.py (numpy host code, the same draws from
 the same seed): blobby class regions with correlated image colours, so a run
-has a learnable signal. Samples are normalised with the config's mean and
-std (``models/presets.PREPROCESSOR``); the JAX dataset's optional
-augmentation pipeline waits for the train side of ``data/transforms.py``.
+has a learnable signal. With a ``pipeline`` (``data/transforms.py``'s
+``TrainPipeline``) each item goes through it with the dataset's own
+generator (``seed + 1``); without one, it is normalised with the config's
+mean and std (``models/presets.PREPROCESSOR``).
 """
 
 from __future__ import annotations
@@ -35,16 +36,20 @@ def synthetic_sample(rng: np.random.Generator, hw: Tuple[int, int] = (128, 128),
 
 class SyntheticDataset:
     def __init__(self, n: int = 16, hw: Tuple[int, int] = (128, 128),
-                 num_classes: int = 5, seed: int = 0):
+                 num_classes: int = 5, seed: int = 0, pipeline=None):
         rng = np.random.default_rng(seed)
         self._raw = [synthetic_sample(rng, hw, num_classes) for _ in range(n)]
+        self.pipeline = pipeline
         self.num_classes = num_classes
+        self.rng = np.random.default_rng(seed + 1)
 
     def __len__(self):
         return len(self._raw)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         raw = self._raw[idx % len(self._raw)]
+        if self.pipeline is not None:
+            return self.pipeline(raw["img"], raw["label"], self.rng)
         mean = np.asarray(PREPROCESSOR["mean"], np.float32)
         std = np.asarray(PREPROCESSOR["std"], np.float32)
         img = (raw["img"].astype(np.float32) - mean) / std

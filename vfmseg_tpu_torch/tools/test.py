@@ -8,8 +8,8 @@ Port of tools/test.py (the JAX package's), with the same flags but
         [--show-dir DIR] [--out metrics.json] [--cfg-options k.path=value ...]
         [--device cuda|cpu]
 
-``config`` names a ported config (``vfmseg_tpu_torch/models/presets.py``:
-the DG configs and ``smoke_tiny_ms_masked``). The weights start at zero, as
+``config`` is a config file's bare name under ``configs/`` or its path,
+read by the port's loader (``core/config.py``). The weights start at zero, as
 the JAX CLI's do; then the trainable partition (``t/<flax path>``, as either
 package's ``CheckpointManager`` saves it) and the converted backbone (flax
 paths below ``backbone/``) are loaded through ``state_dict_from_flax``. The
@@ -47,11 +47,7 @@ from vfmseg_tpu_torch.models.build import (
     compute_attn_impl,
     compute_dtype,
 )
-from vfmseg_tpu_torch.models.presets import (
-    apply_cfg_options,
-    config,
-    get_path,
-)
+from vfmseg_tpu_torch.models.presets import config
 from vfmseg_tpu_torch.train.checkpoint import load_npz_tree
 from vfmseg_tpu_torch.weights import state_dict_from_flax
 
@@ -59,7 +55,7 @@ from vfmseg_tpu_torch.weights import state_dict_from_flax
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="Evaluate a vfmseg_tpu_torch segmentor")
-    p.add_argument("config", help="name of a ported config")
+    p.add_argument("config", help="config name or path")
     p.add_argument("checkpoint", nargs="?", default=None,
                    help="trainable-partition checkpoint (.npz)")
     p.add_argument("--backbone", default=None,
@@ -173,24 +169,23 @@ def _saver(show_dir: Optional[str], key: str):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    name = os.path.splitext(os.path.basename(args.config))[0]
-    cfg = apply_cfg_options(config(name), args.cfg_options)
+    cfg = config(args.config, args.cfg_options)
     model = build_segmentor(cfg["model"], dtype=compute_dtype(cfg),
                             device=args.device,
                             attn_impl=compute_attn_impl(cfg))
     load_weights(model, args.checkpoint, args.backbone)
 
-    test_sets = get_path(cfg, "data.test") or get_path(cfg, "data.val") or []
+    test_sets = cfg.get_path("data.test") or cfg.get_path("data.val") or []
     keys = [d.get("key", f"set{i}") for i, d in enumerate(test_sets)]
     num_classes = cfg.get("num_classes", 19)
     # mean_used_keys = every key, as the JAX CLI has it (tools/test.py:91)
     acc = IoUAccumulator(
         num_classes=num_classes, dataset_keys=keys, mean_used_keys=keys,
         class_names=CITYSCAPES_CLASSES if num_classes == 19 else None)
-    wh_default = tuple(get_path(cfg, "data.test_resize_wh", (2048, 1024)))
-    kr_default = bool(get_path(cfg, "data.test_keep_ratio", True))
+    wh_default = tuple(cfg.get_path("data.test_resize_wh", (2048, 1024)))
+    kr_default = bool(cfg.get_path("data.test_keep_ratio", True))
     test_cfg = cfg.get("test_cfg", {})
-    pad_mult = get_path(cfg, "data.eval_pad_multiple")
+    pad_mult = cfg.get_path("data.eval_pad_multiple")
     for dset_cfg, key in zip(test_sets, keys):
         wh = tuple(dset_cfg.get("test_resize_wh", wh_default))
         pipeline = TestPipeline(

@@ -13,13 +13,21 @@ layout so that checkpoints cross both ways:
   counts), beside them. The JAX package's ``.opt.npz`` holds optax leaves by
   position and is neither written nor read here.
 
-Saves are synchronous: the light checkpoint is a few tens of MB.
+Saves are asynchronous, as the JAX package's are in training: ``save``
+copies the trainable tensors, the BatchNorm statistics and the AdamW state
+to the host on the calling thread (the next step updates them in place), and
+a thread writes the files; at most one save is in flight, and ``wait``,
+``latest_step`` and ``restore`` first let it finish. ``save_pytree`` and
+``load_pytree`` read and write any nested tree in the JAX package's ``.npz``
+layout (``/``-joined paths): converted backbones (``--backbone-init``) and
+``best.trainable.npz``.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -38,6 +46,37 @@ def _flat(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
         else:
             out[path] = val
     return out
+
+
+def save_pytree(path: str, tree: Mapping) -> None:
+    """Save a nested tree of arrays as an ``.npz`` with ``/``-joined keys
+    (vfmseg_tpu/train/checkpoint.py:30-34)."""
+    flat = {}
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            flat.update(_flat(val, key))
+        else:
+            flat[key] = val
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_pytree(path: str) -> dict:
+    """The nested tree of an ``.npz`` written by either package's
+    ``save_pytree``."""
+    return load_npz_tree(path)
+
+
+def _host_copy(obj):
+    """A copy of every tensor of ``obj`` (nested dicts, lists, tuples) on
+    the host, detached from what the next step updates in place."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, Mapping):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
 
 
 def load_npz_tree(path: str, prefix: Optional[str] = None) -> dict:
@@ -68,29 +107,65 @@ def batch_stats_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 class CheckpointManager:
-    """Iteration-numbered checkpoints with max_keep pruning and resume."""
+    """Iteration-numbered checkpoints with max_keep pruning and resume;
+    with ``async_save``, a thread writes each snapshot."""
 
-    def __init__(self, work_dir: str, max_keep: int = 3):
+    def __init__(self, work_dir: str, max_keep: int = 3,
+                 async_save: bool = False):
         self.dir = os.path.join(work_dir, "checkpoints")
         os.makedirs(self.dir, exist_ok=True)
         self.max_keep = max_keep
+        self.async_save = async_save
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
 
     def _path(self, step: int, part: str, ext: str = "npz") -> str:
         return os.path.join(self.dir, f"iter_{step:07d}.{part}.{ext}")
 
+    def wait(self) -> None:
+        """Block until an in-flight save has finished; re-raise its
+        error."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
     def save(self, state: TrainState) -> None:
-        step = state.step
-        tree = flax_from_state_dict(trainable_state_dict(state.model))
-        np.savez(self._path(step, "trainable"), **_flat(tree["params"], "t"))
-        stats = flax_from_state_dict(batch_stats_state_dict(state.model))
+        self.wait()  # at most one save in flight
+        snapshot = dict(
+            step=state.step,
+            trainable=_host_copy(trainable_state_dict(state.model)),
+            stats=_host_copy(batch_stats_state_dict(state.model)),
+            optimizer=_host_copy(state.optimizer.state_dict()))
+        if not self.async_save:
+            self._write(snapshot)
+            return
+        self._pending = threading.Thread(target=self._write_catching,
+                                         args=(snapshot,), daemon=True)
+        self._pending.start()
+
+    def _write_catching(self, snapshot: dict) -> None:
+        try:
+            self._write(snapshot)
+        except Exception as e:  # raised again by wait()
+            self._error = e
+
+    def _write(self, snapshot: dict) -> None:
+        step = snapshot["step"]
+        tree = flax_from_state_dict(snapshot["trainable"])
+        save_pytree(self._path(step, "trainable"), {"t": tree["params"]})
+        stats = flax_from_state_dict(snapshot["stats"])
         if stats["batch_stats"]:
-            np.savez(self._path(step, "batch_stats"),
-                     **_flat(stats["batch_stats"], "b"))
-        torch.save({"optimizer": state.optimizer.state_dict()},
+            save_pytree(self._path(step, "batch_stats"),
+                        {"b": stats["batch_stats"]})
+        torch.save({"optimizer": snapshot["optimizer"]},
                    self._path(step, "torch_opt", "pt"))
         self._prune()
 
     def latest_step(self) -> Optional[int]:
+        self.wait()
         steps = [int(m.group(1)) for f in os.listdir(self.dir)
                  if (m := re.match(r"iter_(\d+)\.trainable\.npz$", f))]
         return max(steps) if steps else None
@@ -99,6 +174,7 @@ class CheckpointManager:
                 step: Optional[int] = None) -> TrainState:
         """Load the trainable parameters, BatchNorm statistics and optimizer
         state of ``step`` (default: the latest) into ``state``."""
+        self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             return state

@@ -1,15 +1,17 @@
 """Training loop: iteration-based, with logging, checkpoints and resume.
 
 Port of vfmseg_tpu/train/loop.py:22-113: ``MetricLogger`` (``metrics.jsonl``
-plus a console line) every ``log_interval`` steps, a checkpoint every
-``checkpoint_interval`` (keep ``max_keep_ckpts``), an optional ``val_fn``
-every ``val_interval`` whose results are logged, and resume from the latest
-checkpoint. Validation itself (datasets, IoU) and ``save_best`` with it are
-not ported yet, so ``val_fn`` stays a hook.
+plus a console line) every ``log_interval`` steps, an asynchronous
+checkpoint every ``checkpoint_interval`` (keep ``max_keep_ckpts``), the
+``val_fn(state)`` results every ``val_interval``, logged under ``val``, with
+``checkpoints/best.trainable.npz`` written whenever ``results[save_best]``
+improves (the reference CheckpointHook's ``save_best``), an optional
+``debug_fn(state, batch, step)`` every ``debug_interval``, and resume from
+the latest checkpoint. The loop waits for the last save before it returns.
 
 Reading the metrics at a log step waits for the device, so each logged
-``steps_per_sec`` covers finished work; time spent saving checkpoints and
-validating is left out of it.
+``steps_per_sec`` covers finished work; time spent saving checkpoints,
+validating and in ``debug_fn`` is left out of it.
 """
 
 from __future__ import annotations
@@ -19,8 +21,13 @@ import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
-from vfmseg_tpu_torch.train.checkpoint import CheckpointManager
+from vfmseg_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    save_pytree,
+    trainable_state_dict,
+)
 from vfmseg_tpu_torch.train.state import TrainState
+from vfmseg_tpu_torch.weights import flax_from_state_dict
 
 
 class MetricLogger:
@@ -59,17 +66,23 @@ def train_loop(
     max_keep_ckpts: int = 3,
     val_interval: int = 0,
     val_fn: Optional[Callable] = None,
+    debug_interval: int = 0,
+    debug_fn: Optional[Callable] = None,
+    save_best: Optional[str] = None,
     resume: bool = False,
 ) -> TrainState:
-    ckpt = CheckpointManager(work_dir, max_keep=max_keep_ckpts)
+    ckpt = CheckpointManager(work_dir, max_keep=max_keep_ckpts,
+                             async_save=True)
     logger = MetricLogger(work_dir)
+    best_metric = float("-inf")
     if resume:
         state = ckpt.restore(state)
 
     window = max(log_interval, 1)
     t0 = time.perf_counter()
     for it in range(state.step, max_iters):
-        state, metrics = step_fn(state, next(data_iter), seed)
+        batch = next(data_iter)
+        state, metrics = step_fn(state, batch, seed)
         if (it + 1) % window == 0:
             metrics = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
@@ -80,6 +93,19 @@ def train_loop(
         if checkpoint_interval and (it + 1) % checkpoint_interval == 0:
             ckpt.save(state)
         if val_interval and val_fn is not None and (it + 1) % val_interval == 0:
-            logger.write(it + 1, val_fn(state), prefix="val")
+            results = val_fn(state)
+            logger.write(it + 1, results, prefix="val")
+            if save_best and results.get(save_best,
+                                         float("-inf")) > best_metric:
+                best_metric = results[save_best]
+                tree = flax_from_state_dict(trainable_state_dict(state.model))
+                save_pytree(os.path.join(ckpt.dir, "best.trainable.npz"),
+                            {"t": tree["params"]})
+                logger.log(f"[val] new best {save_best}={best_metric:.2f} "
+                           f"-> checkpoints/best.trainable.npz")
+        if (debug_interval and debug_fn is not None
+                and (it + 1) % debug_interval == 0):
+            debug_fn(state, batch, it + 1)
         t0 += time.perf_counter() - paused
+    ckpt.wait()
     return state

@@ -14,13 +14,16 @@ Port of vfmseg_tpu/train/optim.py:26-157.
 * :func:`make_optimizer` is ``torch.optim.AdamW`` over the trainable
   parameters in a decay and a no-decay group. Its decoupled decay
   ``p * (1 - lr * wd)`` followed by the Adam step equals optax's ``adamw``.
+  With ``grad_clip``, a step pre-hook first scales the gradients to that
+  global L2 norm where theirs is larger (optax's ``clip_by_global_norm``
+  chained before ``adamw``).
 * :func:`poly_schedule` is PolyLR with the optional linear warmup; the train
   step reads it at the step count before the update, as optax does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,6 +87,20 @@ def poly_schedule(base_lr: float, power: float = 0.9, max_steps: int = 40000,
     return sched
 
 
+def clip_by_global_norm(params: Iterable[torch.Tensor],
+                        max_norm: float) -> None:
+    """Scale the gradients in place to global L2 norm ``max_norm`` where
+    theirs is larger, as ``optax.clip_by_global_norm``: ``g / norm *
+    max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+
+
 def make_optimizer(
     trainable: List[Tuple[str, nn.Parameter]],
     base_lr: float = 1e-4,
@@ -93,13 +110,21 @@ def make_optimizer(
     warmup_steps: int = 0,
     betas: Tuple[float, float] = (0.9, 0.999),
     eps: float = 1e-8,
+    grad_clip: Optional[float] = None,
 ) -> Tuple[torch.optim.AdamW, Callable[[int], float]]:
-    """AdamW over the trainable (name, parameter) pairs, and its PolyLR."""
+    """AdamW over the trainable (name, parameter) pairs, and its PolyLR;
+    with ``grad_clip``, the gradients are clipped to that global norm
+    before each step."""
     decay = [p for n, p in trainable if decays(n, p)]
     no_decay = [p for n, p in trainable if not decays(n, p)]
     groups = [g for g in (dict(params=decay, weight_decay=weight_decay),
                           dict(params=no_decay, weight_decay=0.0))
               if g["params"]]
     optimizer = torch.optim.AdamW(groups, lr=base_lr, betas=betas, eps=eps)
+    if grad_clip is not None:
+        optimizer.register_step_pre_hook(
+            lambda opt, args, kwargs: clip_by_global_norm(
+                [p for g in opt.param_groups for p in g["params"]],
+                grad_clip))
     return optimizer, poly_schedule(base_lr, power, max_steps,
                                     warmup_steps=warmup_steps)
