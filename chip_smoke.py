@@ -3,8 +3,10 @@
 the gated inference and the two-scale train step of the headline model
 (LoRA DINOv2-L) and of the same MsVFM segmentor on LoRA EVA02-L and on LoRA
 SAM ViT-H (on B7's route and on the ``pallas_bias`` route), the headline
-through the compact gated engine and the eval CLI's dataset loop, and the
-slide eval of LoRA DINOv2-L with the Mask2Former head.
+through the compact gated engine and the eval CLI's dataset loop, the
+slide eval of LoRA DINOv2-L with the Mask2Former head, the Rein model
+(``dg_rein_dinov2_mask2former``) served and trained, and train steps of
+two LoRA encoder-decoders.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -137,6 +139,29 @@ Phases, each printing one JSON line:
    2-6, one profiled step's device time and its idle share against the
    CLI's step, peak memory and the validation's seconds.
 
+14. rein_main_path / rein_card_vs_cpu / rein_main_breakdown:
+   ``dg_rein_dinov2_mask2former`` (LoRAReins on DINOv2-L, the x4/x2/x1/x0.5
+   pyramid, the ReinMask2FormerHead fed the Rein queries) at full width
+   in bf16: 3 synthetic 1024x2048 images through the slide predictor (512
+   / 341, 18 crops an image; launches asserted per image: 97 LN, 24 B2,
+   18 B8), card vs CPU on a 512x1024 image at Mask2Former's limits, a
+   profiled image with B8's share at the pyramid. rein_train_path /
+   rein_train_breakdown: 8 steps at bs 2, 512^2 through train_loop
+   (checkpoints at 4 and 8, a fresh state restored from 8; launches per
+   step asserted, ``PER_STEP["rein"]``; every frozen ViT weight bit-equal
+   after; the set loss's host matching ms a step), then a profiled step
+   and rein_train_split (events and host ms of the backbone, the head
+   and the set loss, forward and backward).
+   rein_train_card_vs_cpu: one step at 256^2 on the card in bf16 and the
+   CPU in fp32 from the same weights, batch and point draws: the share of
+   equal matchings, each card matching's excess cost under the CPU's
+   costs, the loss entries, the reins' gradient cosine and grad_norm
+   (``SET_*`` limits). B8 is also checked at the pyramid's six level
+   shapes (``DEFORM_REIN``).
+15. encdec_train: 3 steps each of ``dg_lora_dinov2_mask2former`` and
+   ``dg_lora_dinov2_linearhead`` at bs 2, 512^2 through train_loop, with
+   their launches per step asserted and finite losses.
+
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
 one PyTorch library call that computes the same function (a yardstick the
@@ -191,6 +216,7 @@ from vfmseg_tpu_torch.kernels.time_qkv_fwd import (
 )
 from vfmseg_tpu_torch.kernels.time_relpos import SHAPES as RELPOS_SHAPES
 from vfmseg_tpu_torch.models import rng
+from vfmseg_tpu_torch.models.heads import m2f_loss
 from vfmseg_tpu_torch.models.build import (
     build_segmentor,
     compute_attn_impl,
@@ -198,6 +224,7 @@ from vfmseg_tpu_torch.models.build import (
 )
 from vfmseg_tpu_torch.models.presets import (
     PREPROCESSOR,
+    config,
     eva02_config,
     headline_config,
     mask2former_config,
@@ -328,6 +355,10 @@ PER_IMAGE = {
                         attention_hm_bias_fwd=32 + 32, attention_qkv=6),
     "m2f": _counts(layer_norm=48 + 6 * 2 + 9 * 3 + 10, attention_qkv=24,
                    deform_sample=6 * 3),
+    # the Rein model's slide eval: the same kernels as m2f (the adapter and
+    # the pyramid's resizes are PyTorch's GEMMs and F.interpolate)
+    "rein": _counts(layer_norm=48 + 6 * 2 + 9 * 3 + 10, attention_qkv=24,
+                    deform_sample=6 * 3),
 }
 # Each path's launches per train step: one ViT pass over the 2B batch of
 # both scale views (24 blocks; SAM 32), the VFMHead decoder (3 blocks); every
@@ -346,7 +377,28 @@ PER_STEP = {
     "sam_bias": _counts(layer_norm=64 + 9, attention_hm_bias_fwd=32,
                         attention_hm_bias_bwd=32,
                         attention_fwd_lse=6, attention_hm_bwd=6),
+    # The encoder-decoder steps, one ViT pass over the batch of 2: with
+    # Mask2Former 97 LayerNorms as at inference (the decoder norm predicts
+    # every one of the 10 stages), B8 18 times forward (its backward
+    # recomputes through the plain version). With only the reins training
+    # (rein), nothing in block 0 needs a gradient (its input is the frozen
+    # patch embedding; the first adapter acts after it), so autograd records
+    # no attention there and the block takes B2: 1 B2, 23 B3 and 23 fused
+    # backward; with LoRA on every qkv (lora_m2f, lora_linear) all 24
+    # blocks train. The LinearHead has no LayerNorm.
+    "rein": _counts(layer_norm=97, attention_qkv=1, attention_fwd_lse=23,
+                    attention_hm_bwd=23, deform_sample=18),
+    "lora_m2f": _counts(layer_norm=97, attention_fwd_lse=24,
+                        attention_hm_bwd=24, deform_sample=18),
+    "lora_linear": _counts(layer_norm=48, attention_fwd_lse=24,
+                           attention_hm_bwd=24),
 }
+# the encoder-decoder configs trained for ENCDEC_STEPS steps (phase
+# encdec_train) and the Rein model of phases rein_*
+ENCDEC_CONFIGS = (("lora_m2f", "dg_lora_dinov2_mask2former"),
+                  ("lora_linear", "dg_lora_dinov2_linearhead"))
+ENCDEC_STEPS = 3
+REIN_CONFIG = "dg_rein_dinov2_mask2former"
 
 # The headline's compact gated engine: launches per stage-1 call (the ViT
 # over a batch of whole images at 512x1024) and per finish step that refines
@@ -468,6 +520,12 @@ DEFORM_SHAPE = (144, 32, 32, 32, 12288)
 # off the path: a narrow ragged case (5 channels, 40 samples: one element
 # an access), 64 channels (8 threads a sample in bf16), and 36 channels on a
 # value whose data starts 8 bytes past a 16-byte boundary (8-byte accesses)
+# B8 at the Rein model's pyramid (resize_feat at a 512 crop: the pixel
+# decoder's levels are 64^2, 32^2, 16^2, 5376 queries x 4 points a level
+# call): the train step's 2 crops x 8 heads and the slide batch's 18 x 8
+DEFORM_REIN = [(f"rein_{kind}_{side}", (b_, side, side, 32, 4 * 5376))
+               for kind, b_ in (("train", 16), ("eval", 144))
+               for side in (64, 32, 16)]
 DEFORM_OFF_PATH = (3, 7, 9, 5, 40)
 DEFORM_WIDE = (6, 16, 16, 64, 1000)
 DEFORM_MISALIGNED = (5, 9, 11, 36, 333)
@@ -502,6 +560,26 @@ M2F_ARGMAX_AGREE = 0.95
 TRAIN_LOSS_REL = 3e-2
 TRAIN_GRAD_COS = 0.98
 TRAIN_GRAD_NORM_REL = 5e-2
+
+# The Mask2Former step, bf16 card vs fp32 CPU, the same point draws. The
+# matching compares costs that seeded weights leave close together (the
+# class scores of 100 queries are near-uniform and their masks alike), and
+# the card's bf16 mask logits (2^-9 relative) reorder costs that lie within
+# their rounding: a flipped near-tie is a matching of (near) equal cost.
+# So the matchings are held by cost, not by identity: each card matching,
+# priced by the CPU's fp32 costs, must cost within 2e-2 of the CPU's
+# optimum (the bf16 cost error through the sampled BCE and dice terms).
+# The share of equal matchings and of equal (stage, image, class) slots is
+# reported with no floor: the first run on the card found 1 of 20
+# matchings equal at an excess cost of 1.8e-3 (PERF.md §6). A
+# flipped stage hands a class to another query whose CE and mask terms
+# differ: the total loss within 5e-2, each entry within 1e-1, the adapter
+# gradient's cosine >= 0.9 and grad_norm within 1e-1.
+SET_MATCH_EXCESS = 2e-2
+SET_TOTAL_REL = 5e-2
+SET_LOSS_REL = 1e-1
+SET_GRAD_COS = 0.9
+SET_GRAD_NORM_REL = 1e-1
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM bandwidth, dense bf16 tensor-core rate, fp32 rate outside the tensor
@@ -1498,8 +1576,9 @@ def check_headmajor_bias(randn, dev) -> list:
 
 def check_deform_sample(dev) -> list:
     """B8 against ``sample_plain`` in fp32 on the same inputs, at the eval
-    shape in bf16 and fp32 and at a narrow ragged case, with coordinates in
-    [-0.1, 1.1]: taps and whole samples outside the plane read zero."""
+    shape in bf16 and fp32, at cases off the path and at the Rein model's
+    six level shapes, with coordinates in [-0.1, 1.1]: taps and whole
+    samples outside the plane read zero."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     rows = []
     cases = [("eval", DEFORM_SHAPE, torch.bfloat16),
@@ -1508,7 +1587,9 @@ def check_deform_sample(dev) -> list:
              ("off_path_bf16", DEFORM_OFF_PATH, torch.bfloat16),
              ("off_path_c64", DEFORM_WIDE, torch.bfloat16),
              ("off_path_misaligned", DEFORM_MISALIGNED, torch.bfloat16),
-             ("off_path_misaligned_fp32", DEFORM_MISALIGNED, torch.float32)]
+             ("off_path_misaligned_fp32", DEFORM_MISALIGNED, torch.float32)
+             ] + [(label, shape, torch.bfloat16) for label, shape in
+                  DEFORM_REIN]
     for label, (b_, h, w, c, n), dtype in cases:
         value = torch.randn((b_, h, w, c), generator=gen, device=dev).to(dtype)
         if label.startswith("off_path_misaligned"):
@@ -1847,7 +1928,37 @@ def _trainable_snapshot(model) -> dict:
             if p.requires_grad}
 
 
-def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
+class MatchRecorder:
+    """Records every call of the set loss's host matching
+    (``m2f_loss._hungarian_host``, one a step): its host milliseconds, the
+    cost matrices and the assignments."""
+
+    def __enter__(self):
+        self.ms, self.costs, self.assigned = [], [], []
+        self._orig = m2f_loss._hungarian_host
+
+        def timed(cost):
+            t0 = time.perf_counter()
+            out = self._orig(cost)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.costs.append(np.asarray(cost))
+            self.assigned.append(out)
+            return out
+
+        m2f_loss._hungarian_host = timed
+        return self
+
+    def __exit__(self, *exc):
+        m2f_loss._hungarian_host = self._orig
+
+
+def phase_train_path(dev, cfg, label: str, restore: bool,
+                     steps: int = TRAIN_STEPS, phase: str = "") -> tuple:
+    """``steps`` train steps through ``InfiniteLoader`` and ``train_loop``
+    (checkpoints every TRAIN_CKPT_EVERY and a fresh state restored from
+    the last with ``restore``): launches per step, finite losses, every
+    trainable parameter moved and every frozen one bit-equal, steps/s and
+    peak memory; with a set loss, the host matching's milliseconds."""
     shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     dtype = compute_dtype(cfg)
@@ -1858,12 +1969,8 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     build_secs = time.perf_counter() - t0
     before = _trainable_snapshot(model)
     params = dict(model.named_parameters())
-    last = len(model.backbone.blocks) - 1
-    frozen_names = ["backbone.patch_embed.weight", "backbone.pos_embed",
-                    "backbone.blocks.0.norm1.weight"] + [
-        n for n in params if n.startswith(f"backbone.blocks.{last}.")
-        and n not in before][:3]
-    frozen = {n: params[n].detach().clone() for n in frozen_names}
+    frozen = {n: p.detach().clone() for n, p in params.items()
+              if n not in before}
     n_train = sum(p.numel() for p in before.values())
     n_total = sum(p.numel() for p in model.parameters())
     t0 = time.perf_counter()
@@ -1878,12 +1985,13 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        state = train_loop(state, make_train_step(), loader,
-                           max_iters=TRAIN_STEPS, work_dir=TRAIN_WORK_DIR,
-                           seed=SEED, log_interval=1,
-                           checkpoint_interval=(TRAIN_CKPT_EVERY if restore
-                                                else 0),
-                           max_keep_ckpts=2)
+        with MatchRecorder() as matching:
+            state = train_loop(state, make_train_step(), loader,
+                               max_iters=steps, work_dir=TRAIN_WORK_DIR,
+                               seed=SEED, log_interval=1,
+                               checkpoint_interval=(TRAIN_CKPT_EVERY
+                                                    if restore else 0),
+                               max_keep_ckpts=2)
     finally:
         loader.close()
     torch.cuda.synchronize()
@@ -1891,26 +1999,33 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    want = {k: TRAIN_STEPS * v for k, v in PER_STEP[label].items()}
+    want = {k: steps * v for k, v in PER_STEP[label].items()}
     if counts != want:
         raise AssertionError(f"{label} train launch counts {counts} != "
                              f"{want}")
     with open(os.path.join(TRAIN_WORK_DIR, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
-    if [r["step"] for r in records] != list(range(1, TRAIN_STEPS + 1)):
+    if [r["step"] for r in records] != list(range(1, steps + 1)):
         raise AssertionError("train_loop did not log every step")
     losses = {k: [r[k] for r in records] for k in records[0]
               if "loss" in k or k in ("grad_norm",)}
     if not all(np.isfinite(v).all() for v in losses.values()):
         raise AssertionError(f"non-finite train metrics {losses}")
     after = _trainable_snapshot(model)
-    unchanged = [n for n in before if torch.equal(before[n], after[n])]
+    # a parameter whose gradient is exactly zero (a bias right before a
+    # GroupNorm, whose mean removes it) need not move; any other must
+    unchanged = [n for n in before if torch.equal(before[n], after[n])
+                 and (params[n].grad is None
+                      or bool(params[n].grad.abs().max() > 0))]
     if unchanged:
         raise AssertionError(f"trainable parameters did not move: "
                              f"{unchanged[:5]}")
-    if not any("lora" in n for n in before) or not any(
-            n.startswith("aux_head") for n in before):
-        raise AssertionError("LoRA or head parameters are not trainable")
+    keywords = cfg["peft"]["adapter_keywords"]
+    head = "aux_head" if hasattr(model, "aux_head") else "decode_head"
+    if not all(any(k in n for n in before) for k in keywords) or not any(
+            n.startswith(head) for n in before):
+        raise AssertionError(f"{keywords} or {head} parameters are not "
+                             f"trainable")
     moved = [n for n in frozen if not torch.equal(frozen[n], params[n])]
     if moved or any(p.grad is not None for n, p in params.items()
                     if n not in before):
@@ -1934,7 +2049,7 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
             torch.equal(opt_a[i]["exp_avg"], opt_b[i]["exp_avg"])
             and torch.equal(opt_a[i]["exp_avg_sq"], opt_b[i]["exp_avg_sq"])
             for i in opt_a)
-        if fresh.step != TRAIN_STEPS or mismatch or not opt_same:
+        if fresh.step != steps or mismatch or not opt_same:
             raise AssertionError(f"restore: step {fresh.step}, mismatched "
                                  f"{mismatch[:5]}, optimizer equal "
                                  f"{opt_same}")
@@ -1945,17 +2060,19 @@ def phase_train_path(dev, cfg, label: str, restore: bool) -> tuple:
 
     latency = [1.0 / r["steps_per_sec"] for r in records]
     steady = latency[1:]
-    emit("train_path" if label == "dinov2" else f"{label}_train_path",
-         model=cfg["name"], steps=TRAIN_STEPS, batch=cfg["data"]["batch_size"],
+    emit(phase or ("train_path" if label == "dinov2"
+                   else f"{label}_train_path"),
+         model=cfg["name"], steps=steps, batch=cfg["data"]["batch_size"],
          crop_hw=list(cfg["crop_size"]), model_build_s=build_secs,
          data_build_s=data_secs, loop_s=loop_secs,
          trainable_params=n_train, total_params=n_total,
          step_latency_s=latency, median_steady_step_s=float(
              np.median(steady)), steps_per_s=1.0 / float(np.median(steady)),
          peak_mem_bytes=peak, launches=counts,
-         launches_per_step={k: v // TRAIN_STEPS for k, v in counts.items()},
-         losses=losses, checkpoints=ckpts,
-         restored_step=TRAIN_STEPS if restore else None)
+         launches_per_step={k: v // steps for k, v in counts.items()},
+         losses=losses, checkpoints=ckpts, frozen_params_equal=len(frozen),
+         match_host_ms=matching.ms or None,
+         restored_step=steps if restore else None)
     return state, counts
 
 
@@ -2054,6 +2171,66 @@ def phase_train_breakdown(dev, cfg, state, label: str) -> None:
          **_breakdown(prof, step_ms))
 
 
+def phase_set_loss_split(dev, cfg, state, label: str) -> None:
+    """Where a Mask2Former train step's time goes: CUDA events around the
+    backbone's forward, the head's 10-stage forward, the set loss's
+    forward (the matching's host sync and scipy included), then the
+    backward in three parts by ``torch.autograd.grad``: the loss to the
+    head's predictions, the head to its parameters and the backbone's maps
+    and queries, the backbone to its trainable parameters (the reins).
+    The median of 3 steps, with the host clock beside each."""
+    model = state.model
+    ds = SyntheticDataset(n=2, hw=tuple(cfg["crop_size"]),
+                          num_classes=cfg["num_classes"], seed=SEED + 5)
+    batch = collate([ds[0], ds[1]])
+    img = torch.from_numpy(batch["img"]).to(dev)
+    labels = torch.from_numpy(batch["label"]).to(dev)
+    head_params = [p for p in model.decode_head.parameters()
+                   if p.requires_grad]
+    bb_params = [p for p in model.backbone.parameters() if p.requires_grad]
+    names = ("backbone_fwd", "head_fwd", "loss_fwd", "loss_bwd", "head_bwd",
+             "backbone_bwd")
+    model.train()
+    runs = []
+    for i in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        host = [time.perf_counter()]
+
+        def mark(j):
+            ev[j].record()
+            host.append(time.perf_counter())
+
+        with rng.streams(step_generators(SEED, i, dev)):
+            ev[0].record()
+            feats, queries = model.features(img)
+            mark(1)
+            cls, masks = model.decode_head(feats, queries, train=True)
+            mark(2)
+            loss = sum_losses(m2f_loss.mask2former_loss(
+                cls, masks, labels, num_classes=model.num_classes,
+                num_points=model.num_points))
+            mark(3)
+            preds = list(cls) + list(masks)
+            g_preds = torch.autograd.grad(loss, preds, retain_graph=True)
+            mark(4)
+            maps = list(feats) + [queries]
+            g = torch.autograd.grad(preds, maps + head_params, g_preds)
+            mark(5)
+            torch.autograd.grad(maps, bb_params, g[:len(maps)])
+            mark(6)
+        torch.cuda.synchronize()
+        runs.append(([ev[j].elapsed_time(ev[j + 1]) for j in range(6)],
+                     [(host[j + 1] - host[j]) * 1e3 for j in range(6)]))
+    device = {n: float(np.median([r[0][j] for r in runs]))
+              for j, n in enumerate(names)}
+    host_ms = {n: float(np.median([r[1][j] for r in runs]))
+               for j, n in enumerate(names)}
+    emit(f"{label}_train_split", model=cfg["name"], events_ms=device,
+         host_ms=host_ms, step_events_ms=sum(device.values()),
+         loss_share=(device["loss_fwd"] + device["loss_bwd"])
+         / sum(device.values()))
+
+
 def _train_check_config(cfg) -> dict:
     c = copy.deepcopy(cfg)
     m = c["model"]
@@ -2111,6 +2288,98 @@ def phase_train_card_vs_cpu(dev, cfg, label: str) -> None:
     if not ok:
         raise AssertionError(f"{label} train card vs CPU: loss rel {rel}, "
                              f"LoRA gradient cosine {cos}, norms {norm_rel}")
+
+
+def _assignment_checks(card: MatchRecorder, cpu: MatchRecorder,
+                       exists: np.ndarray) -> dict:
+    """The card's and the CPU's matchings of one step, over the classes
+    present: the share of (stage, image) matchings that are equal, of
+    stages equal for both images and of (stage, image, class) slots given
+    the same query, and each card matching's excess cost under the CPU's
+    fp32 costs over the CPU's own optimum, relative to that optimum's
+    magnitude."""
+    (cost,), (a_card,), (a_cpu,) = cpu.costs, card.assigned, cpu.assigned
+    b = exists.shape[0]
+    rows_equal, slots_equal, excess = [], [], []
+    for i in range(cost.shape[0]):
+        cols = np.flatnonzero(exists[i % b])
+        same = a_card[i, cols] == a_cpu[i, cols]
+        rows_equal.append(bool(same.all()))
+        slots_equal.extend(same.tolist())
+        opt = cost[i, a_cpu[i, cols], cols].sum()
+        got = cost[i, a_card[i, cols], cols].sum()
+        excess.append(float((got - opt) / max(abs(opt), 1e-9)))
+    stages = np.asarray(rows_equal).reshape(-1, b).all(axis=1)
+    return dict(matchings_equal_share=float(np.mean(rows_equal)),
+                stages_equal_share=float(stages.mean()),
+                slots_equal_share=float(np.mean(slots_equal)),
+                max_rel_excess_cost=max(excess), rel_excess_cost=excess,
+                stages=len(stages))
+
+
+def phase_set_loss_card_vs_cpu(dev, cfg, label: str) -> None:
+    """One train step of the Mask2Former model at 256x256 on the card
+    (bf16) and on the CPU (fp32) from the same seeded weights, batch and
+    point coordinates (the ``mask`` stream drawn on the CPU from one seed
+    and copied to each side's device): the matchings' agreement, the loss
+    entries, the cosine of the flattened adapter gradients (the config's
+    ``peft.adapter_keywords``) and grad_norm."""
+    ds = SyntheticDataset(n=2, hw=TRAIN_CHECK_HW,
+                          num_classes=cfg["num_classes"], seed=SEED + 7)
+    batch = collate([ds[0], ds[1]])
+    keywords = cfg["peft"]["adapter_keywords"]
+
+    def one_step(device, dtype):
+        model = init_params(build_segmentor(
+            cfg["model"], dtype=dtype, device=device,
+            attn_impl=compute_attn_impl(cfg)), SEED)
+        state = create_train_state(model, cfg)
+        gen = torch.Generator().manual_seed(SEED + 8)
+        drawn = rng.uniform
+
+        def uniform(name, shape, to):
+            return torch.rand(tuple(shape), generator=gen).to(to)
+
+        t0 = time.perf_counter()
+        rng.uniform = uniform
+        try:
+            with MatchRecorder() as rec:
+                _, metrics = make_train_step()(state, batch, SEED)
+        finally:
+            rng.uniform = drawn
+        metrics = {k: float(v) for k, v in metrics.items()}
+        secs = time.perf_counter() - t0
+        grad = torch.cat([p.grad.float().flatten().cpu()
+                          for n, p in state.model.named_parameters()
+                          if any(k in n for k in keywords)])
+        return metrics, grad, rec, secs
+
+    card, card_g, card_rec, card_s = one_step(dev, compute_dtype(cfg))
+    cpu, cpu_g, cpu_rec, cpu_s = one_step(torch.device("cpu"), torch.float32)
+    exists = m2f_loss.semantic_to_targets(
+        torch.from_numpy(batch["label"]), cfg["num_classes"])[1].numpy()
+    match = _assignment_checks(card_rec, cpu_rec, exists)
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-9)
+           for k in cpu if "loss" in k}
+    cos = float(F.cosine_similarity(card_g.double(), cpu_g.double(), dim=0))
+    norm_rel = abs(card["grad_norm"] / cpu["grad_norm"] - 1)
+    ok = (all(np.isfinite(list(card.values())))
+          and match["max_rel_excess_cost"] <= SET_MATCH_EXCESS
+          and rel["loss"] <= SET_TOTAL_REL
+          and max(rel.values()) <= SET_LOSS_REL
+          and cos >= SET_GRAD_COS and norm_rel <= SET_GRAD_NORM_REL)
+    emit(f"{label}_train_card_vs_cpu", model=cfg["name"],
+         image_hw=list(TRAIN_CHECK_HW), card=card, cpu=cpu, **match,
+         excess_cost_limit=SET_MATCH_EXCESS, loss_rel_err=rel,
+         total_loss_rel_limit=SET_TOTAL_REL, loss_rel_limit=SET_LOSS_REL,
+         adapter_grad_cosine=cos, cosine_limit=SET_GRAD_COS,
+         grad_norm_rel_err=norm_rel, grad_norm_rel_limit=SET_GRAD_NORM_REL,
+         match_host_ms=dict(card=card_rec.ms, cpu=cpu_rec.ms),
+         card_step_s=card_s, cpu_step_s=cpu_s, ok=ok)
+    if not ok:
+        raise AssertionError(f"{label} train card vs CPU: matching {match}, "
+                             f"loss rel {rel}, gradient cosine {cos}, "
+                             f"grad_norm rel {norm_rel}")
 
 
 def synthetic_images(n: int, hw, seed: int) -> torch.Tensor:
@@ -2213,7 +2482,7 @@ def phase_card_vs_cpu(model, dev, cfg, label: str) -> None:
     drift = float(np.quantile(err, 0.99)) / max(scale, 1e-9)
     agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
     drift_limit, agree_limit = ((M2F_DRIFT_Q99, M2F_ARGMAX_AGREE)
-                                if label == "m2f"
+                                if label in ("m2f", "rein")
                                 else (DRIFT_Q99, ARGMAX_AGREE))
     ok = drift < drift_limit and agree >= agree_limit
     emit("card_vs_cpu" if label == "dinov2" else f"{label}_card_vs_cpu",
@@ -2539,6 +2808,44 @@ def run_m2f_paths(dev) -> dict:
     return {"m2f_inference": counts}
 
 
+def run_rein_paths(dev) -> dict:
+    """dg_rein_dinov2_mask2former at full width: the slide eval of 3
+    images, card vs CPU, a profiled image (B8's share at the pyramid); 8
+    train steps at bs 2, 512^2 (checkpoints at 4 and 8, a fresh state
+    restored), a profiled step, and one step card vs CPU at 256^2."""
+    t0 = time.perf_counter()
+    cfg = config(REIN_CONFIG)
+    model, counts = phase_main_path(dev, cfg, "rein")
+    phase_card_vs_cpu(model, dev, cfg, "rein")
+    phase_main_breakdown(model, dev, cfg, "rein")
+    del model
+    torch.cuda.empty_cache()
+    state, train_counts = phase_train_path(dev, cfg, "rein", restore=True)
+    phase_train_breakdown(dev, cfg, state, "rein")
+    phase_set_loss_split(dev, cfg, state, "rein")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    phase_set_loss_card_vs_cpu(dev, cfg, "rein")
+    emit("rein_paths_done", seconds=time.perf_counter() - t0)
+    return {"rein_inference": counts, "rein_train": train_counts}
+
+
+def run_encdec_train(dev) -> dict:
+    """ENCDEC_STEPS train steps of each of ENCDEC_CONFIGS at full width,
+    bs 2, 512^2 (phase encdec_train, one line a model)."""
+    by_path = {}
+    for label, name in ENCDEC_CONFIGS:
+        state, counts = phase_train_path(dev, config(name), label,
+                                         restore=False, steps=ENCDEC_STEPS,
+                                         phase="encdec_train")
+        del state
+        torch.cuda.empty_cache()
+        by_path[f"{label}_train"] = counts
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    return by_path
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -2565,6 +2872,8 @@ def main() -> None:
                              restore=False))
     by_path.update(phase_compact_path(dev))
     by_path.update(run_m2f_paths(dev))
+    by_path.update(run_rein_paths(dev))
+    by_path.update(run_encdec_train(dev))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(paths.values())

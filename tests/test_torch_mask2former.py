@@ -8,8 +8,11 @@ kernel in TPU interpret mode, as tests/test_ops.py runs it) and
 Mask2Former head (both branches, every stage) at toy width; a toy LoRA
 DINOv2 + Mask2Former segmentor and the LinearHead encoder-decoder through
 ``slide`` and ``whole`` against JAX ``make_logits_fn``; the three configs
-against ``load_config``; weights both ways. Inputs and weights come from
-numpy seeds; fp32 throughout, so the budgets are fp32 ones (PARITY.md).
+against ``load_config``; weights both ways; one train step of the LinearHead
+encoder-decoder and of the frozen-backbone Mask2Former against JAX
+``make_train_step`` (``test_torch_rein.check_step``). Inputs and weights
+come from numpy seeds; fp32 throughout, so the budgets are fp32 ones
+(PARITY.md).
 """
 
 import jax
@@ -19,7 +22,9 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from test_torch_m2f_loss import draws
 from test_torch_models import _fill
+from test_torch_rein import batch_of, check_step
 from vfmseg_tpu.core.config import load_config
 from vfmseg_tpu.eval.evaluator import make_logits_fn as jax_make_logits_fn
 from vfmseg_tpu.models.build import build_segmentor as jax_build_segmentor
@@ -310,3 +315,40 @@ def test_weights_cross_both_ways_and_init_is_nontrivial():
     layer = a.decode_head.pixel_decoder.encoder_layer0.self_attn
     for lin in (layer.sampling_offsets, layer.attention_weights):
         assert lin.weight.abs().min() > 0
+
+
+# toy encoder-decoder configs shrunk through overrides, as --cfg-options
+# gives them: DINOv2 64 wide, 4 blocks, every dropout 0
+TOY_ED = ["model.backbone.embed_dim=64", "model.backbone.depth=4",
+          "model.backbone.num_heads=4", "model.backbone.img_size=64",
+          "model.backbone.out_indices=[0,1,2,3]",
+          "model.decode_head.in_channels=[64,64,64,64]",
+          "compute.dtype=float32"]
+ED_CONFIGS = {
+    "dg_lora_dinov2_linearhead": [
+        s.replace("backbone.", "backbone.backbone.") for s in TOY_ED[:5]
+    ] + TOY_ED[5:] + [
+        "model.backbone.Lora_config.r=4",
+        "model.backbone.Lora_config.lora_dropout=0.0",
+        "model.decode_head.channels=16",
+        "model.decode_head.dropout_ratio=0.0"],
+    "dg_fzn_dinov2_mask2former_512x512": TOY_ED + [
+        "model.decode_head.feat_channels=32",
+        "model.decode_head.num_queries=8",
+        "model.decode_head.transformer_decoder.num_layers=2",
+        "model.decode_head.train_cfg.num_points=64"],
+}
+
+
+@pytest.mark.parametrize("name", list(ED_CONFIGS))
+def test_encoder_decoder_train_steps_match_jax(name):
+    """A toy LinearHead encoder-decoder (LoRA, CE and accuracy at label
+    resolution, the head's BatchNorm statistics) and the frozen-backbone
+    Mask2Former (the backbone detached and run without a graph, the set
+    loss over 3 stages of 64 points) through one step of each package's
+    make_train_step, held as ``check_step`` holds the Rein step."""
+    jcfg = load_config(name, ED_CONFIGS[name])
+    cfg = presets.config(name, ED_CONFIGS[name])
+    values = draws(23, 2, 19, 64, 3) if "mask2former" in name else []
+    model = check_step(jcfg, cfg, batch_of(22, (64, 64)), values)
+    assert model.frozen_backbone == ("fzn" in name)

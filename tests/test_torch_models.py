@@ -232,12 +232,12 @@ def _with(cfg, path, value):
     ("dinov2", "aux_head/transformer/not_a_key", 1, TypeError),
     ("dinov2", "not_a_key", 1, TypeError),
     ("dinov2", "backbone/backbone/remat", True, NotImplementedError),
-    ("sam", "backbone/backbone/resize_feat", True, NotImplementedError),
+    ("sam", "backbone/backbone/remat", True, NotImplementedError),
 ])
 def test_builders_refuse_keys_they_do_not_take(family, path, value, error):
-    """A key that no builder uses or names as ignored raises, and so do the
-    options the port does not implement (remat, resize_feat), where the
-    builders used to drop them silently. The keys the JAX builders ignore
+    """A key that no builder uses or names as ignored raises, and so does
+    the option the port does not implement (remat), where the builders used
+    to drop them silently. The keys the JAX builders ignore
     by name build: DINOv2's block_chunks, a head's in_index."""
     with pytest.raises(error):
         build_segmentor(_with(toy_config(family=family), path, value)["model"],

@@ -1,7 +1,8 @@
-"""LoRA linear layers.
+"""The backbones' adapters: LoRA linear layers and Rein token banks.
 
-Port of the LoRA half of vfmseg_tpu/models/backbones/adapters.py:30-120.
-Two forms of ``y = x W + b + dropout(x) A B * (alpha / r)``:
+Port of vfmseg_tpu/models/backbones/adapters.py:30-120 (LoRA) and
+:226-328 (Rein). LoRA has two forms of ``y = x W + b + dropout(x) A B *
+(alpha / r)``:
 
 * folded, for inference: the low-rank update is folded into the base weight
   in fp32 and cast once to the compute dtype, as the JAX ``LoRADense`` does
@@ -17,11 +18,20 @@ Parameters follow the torch (peft) orientation: ``weight`` [out, in],
 The reference configs name LoRA targets in each family's own module names;
 :func:`normalize_lora_targets` maps them onto the ViT's (the port's copy of
 vfmseg_tpu/models/backbones/clip.py:25-38).
+
+:class:`Reins` is the Rein adapter (reference reins.py): a learnable token
+bank per layer (``Reins``: ``learnable_tokens [L, T, E]``; ``LoRAReins``:
+``learnable_tokens_a [L, T, r]`` times ``learnable_tokens_b [L, r, E]``)
+that refines the patch tokens after a block, and with
+``link_token_to_query`` the query vector a Mask2Former head takes as its
+positional queries. Parameter names follow the flax tree, so
+``weights.state_dict_from_flax`` maps them as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -115,3 +125,106 @@ def make_dense(in_features: int, out_features: int, bias: bool, name: str,
                           rank=lora.rank, alpha=lora.alpha,
                           dropout=lora.dropout, dtype=dtype)
     return Dense(in_features, out_features, bias=bias, dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReinsSpec:
+    """Configuration of the Rein token adapter (reference reins.py:13-34).
+    ``lora_dim`` > 0 factorises the token bank (LoRAReins);
+    ``apply_indices``: the blocks that get the adapter (None: every block;
+    SAM: its global-attention blocks)."""
+
+    token_length: int = 100
+    query_dims: int = 256
+    use_softmax: bool = True
+    link_token_to_query: bool = True
+    scale_init: float = 0.001
+    zero_mlp_delta_f: bool = False
+    lora_dim: int = 0
+    apply_indices: Optional[Tuple[int, ...]] = None
+
+    def applies_at(self, layer: int) -> bool:
+        return self.apply_indices is None or layer in self.apply_indices
+
+
+class Reins(nn.Module):
+    """Rein adapter bank over all layers (adapters.py:242-328). Per layer:
+    ``attn = softmax(x tokens^T / sqrt(E))``, ``delta =
+    mlp_delta_f(attn[:, :, 1:] mlp_token2feat(tokens[1:]) + x)``, ``x +=
+    scale * delta``; the cls tokens bypass it. Parameters in fp32, compute
+    in ``dtype``."""
+
+    def __init__(self, spec: ReinsSpec, num_layers: int, embed_dims: int,
+                 patch_size: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.spec = spec
+        self.embed_dims = embed_dims
+        self.dtype = dtype
+        t, e, r = spec.token_length, embed_dims, spec.lora_dim
+        # the reference init: uniform(+-sqrt(6 / (3 p^2 + d))), d = E or
+        # sqrt(E r) for the factorised bank (reins.py:44-52, 134-142)
+        if r > 0:
+            self.token_bound = math.sqrt(6.0 / (3 * patch_size ** 2
+                                                + (e * r) ** 0.5))
+            self.learnable_tokens_a = nn.Parameter(torch.zeros(num_layers, t,
+                                                               r))
+            self.learnable_tokens_b = nn.Parameter(torch.zeros(num_layers, r,
+                                                               e))
+        else:
+            self.token_bound = math.sqrt(6.0 / (3 * patch_size ** 2 + e))
+            self.learnable_tokens = nn.Parameter(torch.zeros(num_layers, t,
+                                                             e))
+        if not spec.zero_mlp_delta_f:
+            self.scale = nn.Parameter(torch.tensor(float(spec.scale_init)))
+        self.mlp_token2feat = Dense(e, e, dtype=dtype)
+        self.mlp_delta_f = Dense(e, e, dtype=dtype)
+        if spec.link_token_to_query:
+            self.transform = Dense(e, spec.query_dims, dtype=dtype)
+            self.merge = Dense(3 * spec.query_dims, spec.query_dims,
+                               dtype=dtype)
+
+    def tokens(self, layer: Optional[int] = None) -> torch.Tensor:
+        """Layer ``layer``'s fp32 tokens ``[T, E]``, or every layer's
+        ``[L, T, E]``."""
+        if self.spec.lora_dim > 0:
+            a, b = self.learnable_tokens_a, self.learnable_tokens_b
+            if layer is None:
+                return torch.einsum("ltr,lrd->ltd", a, b)
+            return a[layer] @ b[layer]
+        t = self.learnable_tokens
+        return t if layer is None else t[layer]
+
+    def adapt(self, feats: torch.Tensor, layer: int,
+              num_prefix_tokens: int = 1) -> torch.Tensor:
+        """feats: [B, N, E] with ``num_prefix_tokens`` leading cls tokens,
+        which pass unchanged. As in JAX, ``scale * delta`` promotes to fp32:
+        the result goes back to the prefix's dtype, and with no prefix (SAM)
+        stays fp32."""
+        p = num_prefix_tokens
+        prefix = feats[:, :p]
+        x = feats[:, p:].to(self.dtype)
+        tokens = self.tokens(layer).to(self.dtype)
+        attn = torch.einsum("bnc,mc->bnm", x, tokens)
+        if self.spec.use_softmax:
+            attn = torch.softmax(attn * self.embed_dims ** -0.5, dim=-1)
+        delta = torch.einsum("bnm,mc->bnc", attn[:, :, 1:],
+                             self.mlp_token2feat(tokens[1:]))
+        delta = self.mlp_delta_f(delta + x)
+        if self.spec.zero_mlp_delta_f:
+            x = x + delta
+        else:
+            x = x.float() + self.scale * delta.float()
+        if p:
+            x = torch.cat([prefix, x.to(prefix.dtype)], dim=1)
+        return x
+
+    def queries(self) -> Optional[torch.Tensor]:
+        """The ``[T, query_dims]`` query vector (reins.py:61-75): the
+        transformed tokens' max, mean and last over the layers, merged; None
+        without ``link_token_to_query``."""
+        if not self.spec.link_token_to_query:
+            return None
+        tokens = self.transform(self.tokens().to(self.dtype))
+        pooled = torch.cat([tokens.amax(dim=0), tokens.mean(dim=0),
+                            tokens[-1]], dim=-1)
+        return self.merge(pooled)

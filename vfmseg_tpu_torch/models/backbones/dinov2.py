@@ -2,9 +2,11 @@
 
 Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
 config surface (configs/_base_/models/lora_*_ms_masked.py) and build the ViT
-core of ``vit.py``; ``EVA2`` builds through ``eva02.py`` and ``SAMViT``
-through ``sam.py``. A key that a builder neither uses nor names as ignored
-raises ``TypeError``, and a value the port does not implement raises
+core of ``vit.py``; ``EVA2`` builds through ``eva02.py``, ``SAMViT``
+through ``sam.py`` and the ``Reins*`` types through ``rein_backbones.py``;
+any other type raises, naming its queue item (``common.not_ported``). A
+key that a builder neither uses nor names as ignored raises
+``TypeError``, and a value the port does not implement raises
 (``check_unported``).
 """
 
@@ -16,9 +18,11 @@ import torch
 
 from vfmseg_tpu_torch.models.backbones.adapters import (
     LoRASpec,
+    ReinsSpec,
     normalize_lora_targets,
 )
 from vfmseg_tpu_torch.models.backbones.eva02 import build_eva02
+from vfmseg_tpu_torch.models.common import not_ported
 from vfmseg_tpu_torch.models.backbones.sam import build_sam
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
@@ -46,6 +50,7 @@ def build_dinov2(
     drop_path_rate: float = 0.0,
     block_chunks: int = 0,  # config parity: torch FSDP chunking, as in JAX
     lora: Optional[LoRASpec] = None,
+    reins: Optional[ReinsSpec] = None,
     dtype: torch.dtype = torch.float32,
     attn_impl: str = "auto",
     remat: bool = False,
@@ -54,19 +59,26 @@ def build_dinov2(
     del block_chunks
     if ffn_layer != "mlp":
         raise NotImplementedError(f"ffn_layer={ffn_layer!r} is not ported")
-    check_unported(remat=remat, resize_feat=resize_feat)
+    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
         out_indices=tuple(out_indices), qkv_bias=qkv_bias,
         proj_bias=proj_bias, ffn_bias=ffn_bias, init_values=init_values,
         drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_impl=attn_impl,
-        dtype=dtype)
-    return VisionTransformer(cfg, lora=lora)
+        resize_feat=resize_feat, dtype=dtype)
+    return VisionTransformer(cfg, lora=lora, reins=reins)
 
 
 _BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02,
               "SAMViT": build_sam}
+
+
+def _backbones() -> dict:
+    # the Rein builders call the three above
+    from vfmseg_tpu_torch.models.backbones import rein_backbones
+
+    return dict(_BACKBONES, **rein_backbones.REIN_BACKBONES)
 
 
 def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
@@ -78,10 +90,11 @@ def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
         if lora is not None:
             raise ValueError("nested LoRABackbone")
         return build_lora_backbone(dtype=dtype, attn_impl=attn_impl, **cfg)
-    if kind not in _BACKBONES:
-        raise NotImplementedError(f"backbone type {kind!r} is not ported")
-    return _BACKBONES[kind](lora=lora, dtype=dtype, attn_impl=attn_impl,
-                            **cfg)
+    builders = _backbones()
+    if kind not in builders:
+        raise not_ported("backbone", kind)
+    return builders[kind](lora=lora, dtype=dtype, attn_impl=attn_impl,
+                          **cfg)
 
 
 def build_lora_backbone(backbone: dict, Lora_config: dict, checkpoint: str = "",

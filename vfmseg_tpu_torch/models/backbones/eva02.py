@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
+from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, ReinsSpec
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
@@ -41,6 +41,7 @@ def build_eva02(
     naiveswiglu: bool = True,
     use_abs_pos_emb: bool = True,
     lora: Optional[LoRASpec] = None,
+    reins: Optional[ReinsSpec] = None,
     dtype: torch.dtype = torch.float32,
     attn_impl: str = "auto",
     remat: bool = False,
@@ -50,7 +51,7 @@ def build_eva02(
         raise NotImplementedError("EVA02 without the sub-LN attention, the "
                                   "SwiGLU or the absolute pos-embed is not "
                                   "ported")
-    check_unported(remat=remat, resize_feat=resize_feat)
+    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -58,8 +59,9 @@ def build_eva02(
         ffn_layer="swiglu_eva", init_values=init_values,
         drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_type="split_subln",
         use_rope=rope, rope_pt_seq_len=pt_hw_seq_len,
-        rope_intp_freq=intp_freq, attn_impl=attn_impl, dtype=dtype)
-    return VisionTransformer(cfg, lora=lora)
+        rope_intp_freq=intp_freq, attn_impl=attn_impl,
+        resize_feat=resize_feat, dtype=dtype)
+    return VisionTransformer(cfg, lora=lora, reins=reins)
 
 
 def eva02_large(img_size: int = 512, lora: Optional[LoRASpec] = None,

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec
+from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, ReinsSpec
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
@@ -39,6 +39,7 @@ def build_sam(
     use_abs_pos: bool = True,
     pretrain_img_size: int = 1024,
     lora: Optional[LoRASpec] = None,
+    reins: Optional[ReinsSpec] = None,
     dtype: torch.dtype = torch.float32,
     drop_path_rate: float = 0.0,
     attn_impl: str = "auto",
@@ -54,7 +55,7 @@ def build_sam(
                                   "ported")
     if drop_path_rate:
         raise NotImplementedError("drop-path on SAM's blocks is not ported")
-    check_unported(remat=remat, resize_feat=resize_feat)
+    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -64,8 +65,8 @@ def build_sam(
         global_attn_indexes=tuple(global_attn_indexes),
         use_rel_pos=use_rel_pos,
         rel_pos_pretrain_extent=pretrain_img_size // patch_size,
-        attn_impl=attn_impl, dtype=dtype)
-    return VisionTransformer(cfg, lora=lora)
+        attn_impl=attn_impl, resize_feat=resize_feat, dtype=dtype)
+    return VisionTransformer(cfg, lora=lora, reins=reins)
 
 
 def sam_vit_h(img_size: int = 512, lora: Optional[LoRASpec] = None,

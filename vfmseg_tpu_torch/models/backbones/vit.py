@@ -37,8 +37,15 @@ drop-path in training, feature maps taken before any final norm at
   the pretraining grid, resized to the grid at hand.
 
 The RoPE tables are built once per grid size and device and shared by every
-block, with identity rows for the cls token (vit.py:484-502). No Rein
-adapters or pyramid resizing: those belong to other families.
+block, with identity rows for the cls token (vit.py:484-502).
+
+With a :class:`ReinsSpec` (the Rein backbones, ``rein_backbones.py``) the
+Rein adapter refines the tokens after every block, or only after the blocks
+at ``apply_indices`` (SAM's global blocks), and with ``link_token_to_query``
+the forward returns ``(feats, queries)`` (vit.py:478-548):
+``returns_queries`` says so, so no caller guesses from the output's shape.
+``resize_feat`` turns the four maps into a pyramid: x4, x2, x1 and x0.5
+bilinear (vit.py:536-544).
 
 Module and parameter names follow the flax tree (``blocks.<i>`` for
 ``blocks_<i>``), so ``weights.state_dict_from_flax`` maps one onto the other.
@@ -59,6 +66,8 @@ from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.backbones.adapters import (
     LoRALinear,
     LoRASpec,
+    Reins,
+    ReinsSpec,
     make_dense,
 )
 from vfmseg_tpu_torch.models.common import Conv2d
@@ -125,6 +134,8 @@ class ViTConfig:
     # tensors, the plain versions on the CPU); "pallas_bias": SAM's blocks
     # attend with the materialised rel-pos bias (ATTN_IMPLS)
     attn_impl: str = "auto"
+    # the Rein pyramid: the four maps resized x4, x2, x1, x0.5
+    resize_feat: bool = False
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -133,13 +144,11 @@ class ViTConfig:
                              f"{ATTN_IMPLS}")
 
 
-def check_unported(*, remat: bool, resize_feat: bool) -> None:
-    """Raise for the backbone options the port does not implement:
-    rematerialisation (``remat``, a memory option) and Rein's pyramid
-    resizing of the feature maps (``resize_feat``)."""
-    for name, value in (("remat", remat), ("resize_feat", resize_feat)):
-        if value:
-            raise NotImplementedError(f"{name}=True is not ported")
+def check_unported(*, remat: bool) -> None:
+    """Raise for the backbone option the port does not implement:
+    rematerialisation (``remat``, a memory option no ported config needs)."""
+    if remat:
+        raise NotImplementedError("remat=True is not ported")
 
 
 class RopeTables(NamedTuple):
@@ -397,11 +406,18 @@ class Block(nn.Module):
 
 class VisionTransformer(nn.Module):
     """ViT backbone: NHWC image [B, H, W, 3] -> tuple of NHWC feature maps
-    [B, H/p, W/p, E], one per ``out_indices`` entry."""
+    [B, H/p, W/p, E], one per ``out_indices`` entry (resized with
+    ``resize_feat``); with ``returns_queries``, ``(maps, queries)``."""
 
-    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec] = None):
+    def __init__(self, cfg: ViTConfig, lora: Optional[LoRASpec] = None,
+                 reins: Optional[ReinsSpec] = None):
         super().__init__()
         self.cfg = cfg
+        self.reins = None
+        if reins is not None:
+            self.reins = Reins(reins, cfg.depth, cfg.embed_dim,
+                               cfg.patch_size, dtype=cfg.dtype)
+        self.returns_queries = bool(reins and reins.link_token_to_query)
         e = cfg.embed_dim
         p = cfg.num_cls_tokens
         self.patch_embed = Conv2d(3, e, cfg.patch_size, stride=cfg.patch_size,
@@ -440,11 +456,21 @@ class VisionTransformer(nn.Module):
             x = torch.cat([cls, x], dim=1)
         x = x + self.interpolated_pos_embed(gh, gw).to(x.dtype)
         rope = self.rope_tables(gh, gw, x.device) if cfg.use_rope else None
+        reins = self.reins
         outs = []
         for i, blk in enumerate(self.blocks):
             x = blk(x, rope, (gh, gw))
+            if reins is not None and reins.spec.applies_at(i):
+                x = reins.adapt(x, i, num_prefix_tokens=p)
             if i in cfg.out_indices:
                 outs.append(x[:, p:, :].reshape(b, gh, gw, cfg.embed_dim))
+        if cfg.resize_feat and len(outs) == 4:
+            outs = [resize(outs[0], scale_factor=4.0, method="bilinear"),
+                    resize(outs[1], scale_factor=2.0, method="bilinear"),
+                    outs[2],
+                    resize(outs[3], scale_factor=0.5, method="bilinear")]
+        if self.returns_queries:
+            return tuple(outs), reins.queries()
         return tuple(outs)
 
     def rope_tables(self, gh: int, gw: int,

@@ -2,22 +2,23 @@
 
 Port of vfmseg_tpu/models/build.py:37-156 and 250-252 for the types the
 ported configs use: MsVFMEncoderDecoder, EncoderDecoder (with a
-Mask2FormerHead it builds the MaskFormer segmentor),
+(Rein)Mask2FormerHead it builds the MaskFormer segmentor),
 FrozenBackboneEncoderDecoder and LoraBackboneEncoderDecoder; every other type
-raises ``NotImplementedError``. ``attn_impl`` (a config's
-``compute.attn_impl``) reaches every backbone and head, as in the JAX
-builder. A key that a builder neither uses nor names as ignored raises
-``TypeError``, so no config option is dropped silently.
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+``attn_impl`` (a config's ``compute.attn_impl``) reaches every backbone and
+head, as in the JAX builder. A key that a builder neither uses nor names
+as ignored raises ``TypeError``, so no config option is dropped silently.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from vfmseg_tpu_torch.models.backbones.dinov2 import build_backbone
 from vfmseg_tpu_torch.models.backbones.vit import ATTN_IMPLS
+from vfmseg_tpu_torch.models.common import not_ported
 from vfmseg_tpu_torch.models.heads.linear_head import LinearHead
 from vfmseg_tpu_torch.models.heads.mask2former import Mask2FormerHead
 from vfmseg_tpu_torch.models.heads.vfm_head import VFMHead
@@ -47,12 +48,16 @@ def _build_head(cfg: Dict[str, Any], dtype: torch.dtype, attn_impl: str):
         return LinearHead(dtype=dtype, **cfg)
     if kind == "VFMHead":
         return VFMHead(dtype=dtype, attn_impl=attn_impl, **cfg)
-    raise NotImplementedError(f"head type {kind!r} is not ported")
+    raise not_ported("head", kind)
+
+
+_M2F_TRAIN_KEYS = {"num_points", "oversample_ratio", "importance_sample_ratio"}
 
 
 def _build_mask2former_head(
     type: str,
-    in_channels=(1024,) * 4,
+    backbone: torch.nn.Module,
+    in_channels=None,
     num_classes: int = 19,
     num_queries: int = 100,
     feat_channels: int = 256,
@@ -64,26 +69,34 @@ def _build_mask2former_head(
     out_channels: int = 256,
     align_corners: bool = False,
     dtype: torch.dtype = torch.float32,
-) -> Mask2FormerHead:
-    """JAX build.py:114-135. ``strides``, ``out_channels`` (the pixel
-    decoder's width is ``feat_channels``) and ``align_corners``: config
-    parity, as in the JAX builder; ``train_cfg`` (point sampling of the
-    loss) belongs to the training slice."""
-    del train_cfg, strides, out_channels, align_corners
-    if type.startswith("Rein"):
-        raise NotImplementedError("ReinMask2FormerHead (Rein queries) is not "
-                                  "ported (ROADMAP A8, the Rein slice)")
+) -> Tuple[Mask2FormerHead, int]:
+    """JAX build.py:114-135: the head and the loss's ``num_points`` (from
+    ``train_cfg``, default 12544). The head's input widths are the
+    backbone's (the flax head reads them off the maps). A
+    ReinMask2FormerHead takes the backbone's queries where the backbone
+    returns them: the flax head then has no ``query_embed``. Config parity,
+    read by neither builder: ``in_channels``, ``strides``,
+    ``out_channels`` (the pixel decoder's width is ``feat_channels``),
+    ``align_corners``, and ``train_cfg``'s ``oversample_ratio`` and
+    ``importance_sample_ratio`` (the loss's 3.0 and 0.75, which every
+    config under ``configs/`` names)."""
+    del in_channels, strides, out_channels, align_corners
+    train_cfg = dict(train_cfg or {})
+    unknown = set(train_cfg) - _M2F_TRAIN_KEYS
+    if unknown:
+        raise TypeError(f"train_cfg keys {sorted(unknown)} are not ported")
     layers = dict(transformer_decoder or {})
     num_layers = layers.pop("num_layers", 9)
     if layers:
         raise TypeError(f"transformer_decoder keys {sorted(layers)} are not "
                         f"ported")
     return Mask2FormerHead(
-        in_channels=tuple(in_channels), num_classes=num_classes,
+        in_channels=(backbone.cfg.embed_dim,) * 4, num_classes=num_classes,
         num_queries=num_queries, feat_channels=feat_channels,
         num_transformer_feat_level=num_transformer_feat_level,
         num_decoder_layers=num_layers, replace_query_feat=replace_query_feat,
-        dtype=dtype)
+        rein_queries=type.startswith("Rein") and backbone.returns_queries,
+        dtype=dtype), train_cfg.get("num_points", 12544)
 
 
 def build_ms_vfm_encoder_decoder(
@@ -130,8 +143,10 @@ def build_encoder_decoder(
     del data_preprocessor, train_cfg, test_cfg
     bb = build_backbone(backbone, dtype=dtype, attn_impl=attn_impl)
     if "Mask2Former" in decode_head.get("type", ""):
-        head = _build_mask2former_head(dtype=dtype, **decode_head)
+        head, num_points = _build_mask2former_head(backbone=bb, dtype=dtype,
+                                                   **decode_head)
         return MaskFormerSegmentor(bb, head, num_classes=head.num_classes,
+                                   num_points=num_points,
                                    frozen_backbone=frozen_backbone)
     return EncoderDecoder(bb, _build_head(decode_head, dtype, attn_impl),
                           frozen_backbone=frozen_backbone)
@@ -182,7 +197,7 @@ def build_segmentor(model_cfg: Dict[str, Any],
     cfg = dict(model_cfg)
     kind = cfg.pop("type")
     if kind not in _SEGMENTORS:
-        raise NotImplementedError(f"segmentor type {kind!r} is not ported")
+        raise not_ported("segmentor", kind)
     with device:
         return _SEGMENTORS[kind](dtype=dtype, attn_impl=attn_impl,
                                  **cfg).eval()

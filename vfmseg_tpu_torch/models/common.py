@@ -1,6 +1,8 @@
 """Shared model helpers.
 
-``gn_groups`` ports vfmseg_tpu/models/common.py. The layers below hold fp32
+``gn_groups`` ports vfmseg_tpu/models/common.py. :func:`not_ported` is the
+error the builders raise for a config type the port does not build yet,
+naming the ROADMAP Queue A item that ports it. The layers below hold fp32
 parameters and compute in a ``dtype`` given at construction, as the flax
 layers of the JAX package do with ``dtype=``; the convolutions and GroupNorm
 take and return NHWC tensors and go NCHW only inside.
@@ -11,6 +13,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# config type -> the ROADMAP Queue A item that ports it
+QUEUE_ITEMS = {
+    "CLIPVisionTransformer": "A7", "ReinsCLIPVisionTransformer": "A7",
+    "MixVisionTransformer": "A9", "ResNetV1c": "A9", "ReinsResNetV1c": "A9",
+    "SegformerHead": "A9", "DAFormerHead": "A9", "DINOhead": "A9",
+    "AttentionHead": "A9", "HRDAHead": "A9", "HRDAEncoderDecoder": "A9",
+    "FrozenHRDAEncoderDecoder": "A9", "MultiScaleEncoderDecoder": "A9",
+    "DomainGeneral": "A10",
+}
+
+
+def not_ported(what: str, kind: str) -> NotImplementedError:
+    """``NotImplementedError`` for the ``what`` type ``kind``, naming its
+    queue item where it has one (MiT's ``mit_*`` types are A9's)."""
+    item = QUEUE_ITEMS.get(kind, "A9" if kind.startswith("mit_") else None)
+    where = f" yet (ROADMAP {item})" if item else ""
+    return NotImplementedError(f"{what} type {kind!r} is not ported{where}")
 
 
 def gn_groups(channels: int, preferred: int = 32) -> int:

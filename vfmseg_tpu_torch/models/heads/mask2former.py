@@ -1,9 +1,11 @@
 """Mask2Former decode head: the pixel decoder on B8, the masked decoder, and
 the semantic post-processing.
 
-Port of vfmseg_tpu/models/heads/mask2former.py:42-476 without the Rein
-queries (``rein_queries``, the Rein slice's): the learned ``query_embed`` is
-the positional query. NHWC throughout; names follow the flax tree
+Port of vfmseg_tpu/models/heads/mask2former.py:42-476: the learned
+``query_embed`` is the positional query, or with ``rein_queries``
+(ReinMask2FormerHead) the Rein backbone's query vector, and the head then
+has no ``query_embed``, as the flax tree has none. NHWC throughout; names
+follow the flax tree
 (``encoder_layer<i>``, ``decoder_layer<i>``, ``input_conv<i>``), so
 ``weights.state_dict_from_flax`` maps one onto the other.
 
@@ -324,15 +326,16 @@ def _attention_mask(logits: torch.Tensor) -> torch.Tensor:
 
 
 class Mask2FormerHead(nn.Module):
-    """The Mask2Former head with learned positional queries
-    (``query_embed``); ``replace_query_feat`` maps them to the content
-    queries through a linear (``querys2feat``)."""
+    """The Mask2Former head. The positional queries are learned
+    (``query_embed``), or with ``rein_queries`` the backbone's Rein query
+    vector (rein_mask2former.py:26-30, 79); ``replace_query_feat`` maps
+    them to the content queries through a linear (``querys2feat``)."""
 
     def __init__(self, in_channels: Sequence[int] = (1024,) * 4,
                  num_classes: int = 19, num_queries: int = 100,
                  feat_channels: int = 256, num_transformer_feat_level: int = 3,
                  num_decoder_layers: int = 9, num_heads: int = 8,
-                 replace_query_feat: bool = False,
+                 replace_query_feat: bool = False, rein_queries: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         c = feat_channels
@@ -343,7 +346,9 @@ class Mask2FormerHead(nn.Module):
         self.pixel_decoder = MSDeformAttnPixelDecoder(
             in_channels, feat_channels=c, out_channels=c, dtype=dtype)
         self.level_embed = nn.Parameter(torch.zeros(self.num_levels, c))
-        self.query_embed = nn.Parameter(torch.zeros(num_queries, c))
+        self.rein_queries = rein_queries
+        if not rein_queries:
+            self.query_embed = nn.Parameter(torch.zeros(num_queries, c))
         if replace_query_feat:
             self.querys2feat = Dense(c, c, dtype=dtype)
         else:
@@ -355,11 +360,17 @@ class Mask2FormerHead(nn.Module):
             self.add_module(f"decoder_layer{i}", Mask2FormerDecoderLayer(
                 c, num_heads, dtype=dtype))
 
-    def forward(self, feats: Sequence[torch.Tensor], train: bool = False):
+    def forward(self, feats: Sequence[torch.Tensor],
+                queries: Optional[torch.Tensor] = None, train: bool = False):
         """feats: 4 NHWC maps (strides 4, 8, 16, 32 in the reference; all
-        at one stride for a plain ViT). Returns (cls_preds, mask_preds):
-        lists over the predicting stages of [B, Nq, num_classes + 1] and
-        [B, Nq, H0, W0]; every stage with ``train``, else the last only."""
+        at one stride for a plain ViT); queries: the ``[Nq, C]`` Rein query
+        vector, which a head with ``rein_queries`` needs. Returns
+        (cls_preds, mask_preds): lists over the predicting stages of
+        [B, Nq, num_classes + 1] and [B, Nq, H0, W0]; every stage with
+        ``train``, else the last only."""
+        if self.rein_queries and queries is None:
+            raise ValueError("a head with rein_queries needs the backbone's "
+                             "queries")
         b = feats[0].shape[0]
         mask_features, memories = self.pixel_decoder(feats)
         inputs, poses, shapes = [], [], []
@@ -371,8 +382,8 @@ class Mask2FormerHead(nn.Module):
                           + self.level_embed[i].to(m.dtype)[None, None])
             poses.append(_sine_on(h, w, c // 2, m.device)[None].expand(
                 b, h * w, c).to(m.dtype))
-        query_pos = self.query_embed[None].expand(
-            (b,) + tuple(self.query_embed.shape)).to(self.dtype)
+        pos = queries if self.rein_queries else self.query_embed
+        query_pos = pos[None].expand((b,) + tuple(pos.shape)).to(self.dtype)
         if hasattr(self, "querys2feat"):
             query_feat = self.querys2feat(query_pos)
         else:

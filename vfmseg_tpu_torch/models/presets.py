@@ -7,8 +7,9 @@ the test settings. The files under ``configs/`` compose these; the port's
 loader (``core/config.py``) runs them with this module in place of the JAX
 one. :func:`config` loads a config by name or path, and the named functions
 below (``headline_config`` ...) are the configs the port's paths run. Only
-DINOv2, EVA02 and SAM with the LinearHead, VFMHead and Mask2Former heads
-build in the port so far; the other dicts are config data.
+DINOv2, EVA02 and SAM (with LoRA or Rein) with the LinearHead, VFMHead and
+(Rein)Mask2Former heads build in the port so far; the other dicts are
+config data.
 """
 
 from __future__ import annotations

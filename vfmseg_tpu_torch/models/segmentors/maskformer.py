@@ -1,12 +1,17 @@
-"""Segmentor for the Mask2Former set-prediction head, inference.
+"""Segmentor for the Mask2Former set-prediction head.
 
-Port of vfmseg_tpu/models/segmentors/maskformer.py:24-53: an encoder-decoder
-whose decode head is a Mask2FormerHead; ``forward(img)`` composes the last
-stage's softmax(cls) x sigmoid(mask) into semantic logits at the mask
-features' resolution (``semantic_inference``), and ``encode_decode`` resizes
-them to the image. The set-prediction training loss (the JAX ``__call__``,
-with the Hungarian matching of ``m2f_loss.py``) belongs to the training slice
-and raises.
+Port of vfmseg_tpu/models/segmentors/maskformer.py:24-70: an encoder-decoder
+whose decode head is a Mask2FormerHead, fed the Rein backbone's query
+vector where there is one (rein_mask2former.py:26-30).
+
+* ``forward(img)``: the last stage's softmax(cls) x sigmoid(mask) as
+  semantic logits at the mask features' resolution (``semantic_inference``);
+  ``encode_decode`` resizes them to the image.
+* ``forward(img, labels)``: every stage's predictions through the
+  set-prediction loss (``heads/m2f_loss.py``) with ``num_points`` points; it
+  draws from the ``mask`` stream. A frozen backbone runs in the segmentor's
+  mode (the JAX ``__call__`` runs it with ``train=True``) without a graph,
+  its maps and queries detached.
 """
 
 from __future__ import annotations
@@ -15,27 +20,33 @@ from typing import Optional
 
 import torch
 
+from vfmseg_tpu_torch.models.heads.m2f_loss import mask2former_loss
 from vfmseg_tpu_torch.models.heads.mask2former import semantic_inference
-from vfmseg_tpu_torch.models.segmentors.encoder_decoder import (
-    TRAINING_SLICE,
-    EncoderDecoder,
-)
+from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
 
 
 class MaskFormerSegmentor(EncoderDecoder):
+    frozen_backbone_trains = True
+
     def __init__(self, backbone, decode_head, num_classes: int = 19,
-                 align_corners: bool = False, frozen_backbone: bool = False):
+                 num_points: int = 12544, align_corners: bool = False,
+                 frozen_backbone: bool = False):
         super().__init__(backbone, decode_head, align_corners=align_corners,
                          frozen_backbone=frozen_backbone)
         self.num_classes = num_classes
+        self.num_points = num_points
 
     def forward(self, img: torch.Tensor,
-                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                labels: Optional[torch.Tensor] = None):
         """Semantic logits [B, h, w, num_classes] in fp32 at the mask
-        features' resolution (the first backbone map's); with ``labels``,
-        the training losses, which raise."""
-        if labels is not None:
-            raise NotImplementedError(TRAINING_SLICE)
-        cls_preds, mask_preds = self.decode_head(self.features(img))
-        return semantic_inference(cls_preds[-1], mask_preds[-1],
-                                  self.num_classes)
+        features' resolution (the first backbone map's); with ``labels``
+        [B, H, W] (255 ignored), the multi-stage loss dict."""
+        feats, queries = self.features(img)
+        cls_preds, mask_preds = self.decode_head(feats, queries,
+                                                 train=labels is not None)
+        if labels is None:
+            return semantic_inference(cls_preds[-1], mask_preds[-1],
+                                      self.num_classes)
+        return mask2former_loss(cls_preds, mask_preds, labels,
+                                num_classes=self.num_classes,
+                                num_points=self.num_points)

@@ -28,6 +28,9 @@ from torch import nn
 
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.losses import cross_entropy_loss, seg_accuracy
+from vfmseg_tpu_torch.models.segmentors.encoder_decoder import (
+    backbone_outputs,
+)
 from vfmseg_tpu_torch.ops.resize import nearest_downsample_2x, resize
 
 
@@ -44,17 +47,22 @@ class MsVFMSegmentor(nn.Module):
         self.crop_coord_divisible = crop_coord_divisible
         self.detail_loss = detail_loss
 
+    def _feats(self, img: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The backbone's maps; a Rein backbone's queries are not used
+        (ms_vfm.py:38-42)."""
+        return backbone_outputs(self.backbone, img)[0]
+
     def lr_forward(self, img: torch.Tensor) -> torch.Tensor:
         """Coarse path: backbone + LinearHead logits resized to the image
         size (whole-inference semantics)."""
-        logits = self.decode_head(self.backbone(img))
+        logits = self.decode_head(self._feats(img))
         return resize(logits, size=img.shape[1:3], method="bilinear")
 
     def hr_forward(self, img: torch.Tensor,
                    context_logits: torch.Tensor) -> torch.Tensor:
         """Refine path: backbone + VFMHead(context) logits resized to the
         image size, with the decoder's mask off."""
-        logits = self.aux_head(self.backbone(img), context_logits)
+        logits = self.aux_head(self._feats(img), context_logits)
         return resize(logits, size=img.shape[1:3], method="bilinear")
 
     def crop_origin(self, h: int, w: int) -> Tuple[int, int]:
@@ -80,12 +88,12 @@ class MsVFMSegmentor(nn.Module):
         hr_labels = labels[:, y1:y1 + ch, x1:x1 + cw]
 
         if tuple(lr_img.shape[1:3]) == (ch, cw):
-            feats = self.backbone(torch.cat([lr_img, hr_img], dim=0))
+            feats = self._feats(torch.cat([lr_img, hr_img], dim=0))
             lr_feats = tuple(f[:b] for f in feats)
             hr_feats = tuple(f[b:] for f in feats)
         else:
-            lr_feats = self.backbone(lr_img)
-            hr_feats = self.backbone(hr_img)
+            lr_feats = self._feats(lr_img)
+            hr_feats = self._feats(hr_img)
 
         lr_logits = resize(self.decode_head(lr_feats),
                            size=lr_labels.shape[1:3], method="bilinear")

@@ -5,7 +5,8 @@
   the port's ``state_dict``: Dense ``[in, out]`` -> ``[out, in]``, Conv HWIO
   -> OIHW, ConvTranspose ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]`` with
   the kh/kw flip (PARITY.md, "Transcription note"), LayerNorm/GroupNorm/
-  BatchNorm ``scale`` -> ``weight``, BatchNorm ``mean``/``var`` -> running
+  BatchNorm ``scale`` -> ``weight`` (Rein's scalar ``scale`` keeps its
+  name), BatchNorm ``mean``/``var`` -> running
   statistics, LoRA ``lora_a [in, r]``/``lora_b [r, out]`` -> ``[r, in]``/
   ``[out, r]``, and ``blocks_<i>`` -> ``blocks.<i>``. It takes the training
   init's tree too (with the decoder's ``mask_token``).
@@ -18,7 +19,11 @@
   (zero at the JAX init) non-zero and LayerScale well above its 1e-5 init,
   so that no branch is trivially zero and deformable samples depend on the
   query. Mask2Former's level embeddings and queries are drawn N(0, 1), its
-  fused attention in-projection as a linear's. The draws are made on the
+  fused attention in-projection as a linear's. Rein's parameters take the
+  reference's initialisers: the token banks uniform in +-``token_bound``,
+  ``scale`` at ``scale_init``, ``mlp_token2feat`` and ``mlp_delta_f``
+  kaiming-uniform (a = sqrt(5): +-1/sqrt(fan_in); zeros for
+  ``mlp_delta_f`` with ``zero_mlp_delta_f``). The draws are made on the
   CPU and copied to the model's device, so a seed gives the same weights on
   any device.
 """
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear
+from vfmseg_tpu_torch.models.backbones.adapters import LoRALinear, Reins
 from vfmseg_tpu_torch.models.backbones.vit import (
     Attention,
     LayerScale,
@@ -79,7 +84,7 @@ def _param(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
         raise ValueError(f"kernel of rank {leaf.ndim} at {'/'.join(path)}")
     if name in ("lora_a", "lora_b"):
         return name, leaf.T
-    if name == "scale":
+    if name == "scale" and leaf.ndim:
         return "weight", leaf
     return name, leaf
 
@@ -148,7 +153,9 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         value = t.detach().float().cpu().numpy()
         path = flax_name(name, value.ndim)
         dst = stats if name.rsplit(".", 1)[-1] in _STATS else params
-        dst[path] = np.ascontiguousarray(_flax_value(path, value))
+        # order="C", not ascontiguousarray: that makes 0-d arrays (Rein's
+        # scale) 1-d
+        dst[path] = np.asarray(_flax_value(path, value), order="C")
     return {"params": _nest(params), "batch_stats": _nest(stats)}
 
 
@@ -167,8 +174,24 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         p.copy_(torch.rand(p.shape, generator=gen) * (hi - lo) + lo)
         done.add(id(p))
 
+    kaiming = {}  # id(linear) -> bound of its uniform weight
+
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, Reins):
+            for name in ("learnable_tokens", "learnable_tokens_a",
+                         "learnable_tokens_b"):
+                if hasattr(mod, name):
+                    uniform(getattr(mod, name), -mod.token_bound,
+                            mod.token_bound)
+            if hasattr(mod, "scale"):
+                mod.scale.fill_(mod.spec.scale_init)
+                done.add(id(mod.scale))
+            kaiming[id(mod.mlp_token2feat)] = mod.embed_dims ** -0.5
+            kaiming[id(mod.mlp_delta_f)] = (0.0 if mod.spec.zero_mlp_delta_f
+                                            else mod.embed_dims ** -0.5)
+        if id(mod) in kaiming:
+            uniform(mod.weight, -kaiming[id(mod)], kaiming[id(mod)])
+        elif isinstance(mod, nn.Linear):
             normal(mod.weight, mod.in_features ** -0.5)
         elif isinstance(mod, nn.Conv2d):
             normal(mod.weight, math.prod(mod.weight.shape[1:]) ** -0.5)
