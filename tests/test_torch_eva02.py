@@ -241,7 +241,8 @@ def toy_vit():
                                  np.random.RandomState(3))}
     model = build_backbone(dict(type="LoRABackbone", backbone=dict(TOY),
                                 Lora_config=lora))
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, model),
+                          strict=True)
     lora_mods = {n.rsplit(".", 1)[0] for n, _ in model.named_parameters()
                  if "lora_a" in n}
     assert lora_mods == {f"blocks.{i}.attn.{p}" for i in range(2)
@@ -308,7 +309,8 @@ def test_tiny_builder_matches_jax():
                                  np.random.RandomState(4))}
     want = jmodel.apply(variables, jnp.asarray(x), deterministic=True)
     model = eva02.eva02_tiny_for_tests().eval()
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, model),
+                          strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     assert len(got) == len(want) == 4

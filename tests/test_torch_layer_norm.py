@@ -42,8 +42,9 @@ VPTS = (1, 2, 4, 8, 12)
 # in fp32 only the order
 TOL = {torch.bfloat16: (3e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
 # the widths of the paths (the ViT's 1024, the decoder's 256, EVA02's
-# SwiGLU sub-LN 2730) and odd ones off them
-WIDTHS = [1024, 256, 2730, 7, 2049]
+# SwiGLU sub-LN 2730) and odd ones off them, then MiT-B5's 64 and 320 (bf16
+# rows of 8 and 40 vectors: lanes idle, lanes with 1 or 2)
+WIDTHS = [1024, 256, 2730, 7, 2049, 64, 320]
 DTYPES = [torch.bfloat16, torch.float32]
 
 

@@ -164,7 +164,7 @@ def _head_pair(shapes, seed):
     variables = {"params": _fill(dict(tree["params"]),
                                  np.random.RandomState(seed))}
     head = m2f.Mask2FormerHead(in_channels=(IN_CH,) * 4, **HEAD)
-    head.load_state_dict(state_dict_from_flax(variables), strict=True)
+    head.load_state_dict(state_dict_from_flax(variables, head), strict=True)
     return jhead, variables, head, feats
 
 
@@ -247,7 +247,8 @@ def _segmentor_pair(name, seed):
                  for col in tree}
     variables.setdefault("batch_stats", {})
     model = build_segmentor(cfg["model"], device="cpu")
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, model),
+                          strict=True)
     return cfg, jmodel, variables, model
 
 
@@ -302,7 +303,7 @@ def test_weights_cross_both_ways_and_init_is_nontrivial():
     init_params is seeded, covers every parameter, and draws non-zero
     sampling_offsets and attention_weights kernels."""
     cfg, _jmodel, variables, model = _segmentor_pair(CONFIGS[0], 52)
-    back = flax_from_state_dict(model.state_dict())
+    back = flax_from_state_dict(model.state_dict(), model)
     flat_a = dict(jax.tree_util.tree_flatten_with_path(variables["params"])[0])
     flat_b = dict(jax.tree_util.tree_flatten_with_path(back["params"])[0])
     assert flat_a.keys() == flat_b.keys()

@@ -101,7 +101,8 @@ def jax_model_and_variables(cfg, seed=0):
 def port_model(cfg, variables):
     model = build_segmentor(cfg["model"], dtype=torch.float32,
                             device="cpu", attn_impl=compute_attn_impl(cfg))
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, model),
+                          strict=True)
     return model
 
 
@@ -164,7 +165,7 @@ def test_state_dict_covers_every_leaf(pair):
     """Every JAX leaf lands on a port tensor of the same size, and every
     port tensor comes from one."""
     _cfg, _jmodel, variables, model = pair
-    sd = state_dict_from_flax(variables)
+    sd = state_dict_from_flax(variables, model)
     own = model.state_dict()
     assert set(sd) == set(own)
     n_leaves = len(jax.tree_util.tree_leaves(variables))

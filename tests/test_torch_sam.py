@@ -195,7 +195,8 @@ def toy_vit():
     variables = {"params": _fill(dict(shapes["params"]),
                                  np.random.RandomState(6))}
     model = sam.sam_tiny_for_tests(lora=LoRASpec(**LORA))
-    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    model.load_state_dict(state_dict_from_flax(variables, model),
+                          strict=True)
     assert model.cls_token is None and model.pos_embed.shape == (1, 4, 4, 32)
     assert [blk.window_size for blk in model.blocks] == [2, 0, 2, 0]
     assert [blk.attn.rel_pos_h.shape[0] for blk in model.blocks] == [3, 15,

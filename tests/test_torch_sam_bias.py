@@ -137,7 +137,8 @@ def toy_vits():
     for impl in ("pallas_bias", "auto"):
         model = sam.build_sam(lora=LoRASpec(**LORA), attn_impl=impl,
                               **TOY_SAM)
-        model.load_state_dict(state_dict_from_flax(variables), strict=True)
+        model.load_state_dict(state_dict_from_flax(variables, model),
+                              strict=True)
         ports[impl] = model
     assert all(blk.attn.bias_route for blk in ports["pallas_bias"].blocks)
     assert not any(blk.attn.bias_route for blk in ports["auto"].blocks)

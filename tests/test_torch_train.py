@@ -250,7 +250,7 @@ def test_linear_head_batch_stats_match_flax():
                                   train=True, mutable=["batch_stats"])
 
     head = LinearHead(in_channels=(c,) * 4, num_classes=5, dropout_ratio=0.0)
-    head.load_state_dict(state_dict_from_flax(variables))
+    head.load_state_dict(state_dict_from_flax(variables, head))
     head.train()
     got = head(tuple(map(torch.from_numpy, feats)))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
@@ -269,7 +269,7 @@ def test_lora_gradients_match_jax():
     with torch.no_grad():
         for i, p in enumerate(lin.parameters()):
             p.copy_(torch.from_numpy(_np(100 + i, tuple(p.shape), 0.3)))
-    params = flax_from_state_dict(dict(lin.named_parameters()))["params"]
+    params = flax_from_state_dict(dict(lin.named_parameters()), lin)["params"]
     x = _np(110, (4, 12))
     g = _np(111, (4, 10))
     jlin = LoRADense(features=10, rank=3, alpha=6.0, lora_dropout=0.0)
@@ -282,7 +282,7 @@ def test_lora_gradients_match_jax():
     lin.train()
     (lin(tx) * torch.from_numpy(g)).sum().backward()
     got = flax_from_state_dict({n: p.grad for n, p in
-                                lin.named_parameters()})["params"]
+                                lin.named_parameters()}, lin)["params"]
     for (path, a), (_, b) in zip(sorted(_flat(got)),
                                  sorted(_flat(want_p))):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=0, err_msg=path)
@@ -317,8 +317,10 @@ def test_trainable_set_and_decay_mask_equal_jax():
 
 
 def _check_flax_round_trip(family):
-    _jmodel, variables = jax_model_and_variables(toy_config(family=family))
-    back = flax_from_state_dict(state_dict_from_flax(variables))
+    cfg = toy_config(family=family)
+    _jmodel, variables = jax_model_and_variables(cfg)
+    model = port_model(cfg, variables)
+    back = flax_from_state_dict(state_dict_from_flax(variables, model), model)
     for col in ("params", "batch_stats"):
         want = dict(_flat(variables[col]))
         got = dict(_flat(back[col]))
@@ -426,11 +428,12 @@ def _check_train_step(family, seed=2, attn_impl="auto"):
                                        err_msg=key)
 
     want_g = {k: v.numpy() for k, v in
-              state_dict_from_flax({"params": jgrads}).items()}
+              state_dict_from_flax({"params": jgrads}, model).items()}
     scale = max(float(np.abs(v).max()) for v in want_g.values())
     own = model.state_dict()
     want_p = state_dict_from_flax({"params": new_jstate.trainable,
-                                   "batch_stats": new_jstate.batch_stats})
+                                   "batch_stats": new_jstate.batch_stats},
+                                  model)
     for name, p in model.named_parameters():
         if not p.requires_grad:
             assert p.grad is None and torch.equal(own[name], before[name])
@@ -488,7 +491,7 @@ class TestRandomStreams:
         variables = jax.tree_util.tree_map(
             lambda a: a + 0.1 * _np(122, a.shape), variables)
         dec = TransformerDecoder(**kw)
-        dec.load_state_dict(state_dict_from_flax(variables))
+        dec.load_state_dict(state_dict_from_flax(variables, dec))
         return jdec, variables, dec, q, ctx
 
     def test_mask_swap_and_dropout_given_one_keep_mask(self):
@@ -640,7 +643,8 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     state = CheckpointManager(str(jdir)).restore(state)
     assert state.step == 5
     want = state_dict_from_flax({"params": trainable,
-                                 "batch_stats": variables["batch_stats"]})
+                                 "batch_stats": variables["batch_stats"]},
+                                state.model)
     own = state.model.state_dict()
     for name, w in want.items():
         if not name.endswith("num_batches_tracked"):

@@ -188,7 +188,7 @@ def _flat(tree, prefix=""):
 
 def _trainable_tree(model):
     return flax_from_state_dict(
-        {n: p for n, p in model.named_parameters() if p.requires_grad})
+        {n: p for n, p in model.named_parameters() if p.requires_grad}, model)
 
 
 def test_resume_continues_at_the_checkpoint(runs):
@@ -242,7 +242,8 @@ def test_backbone_init_reads_a_jax_layout_npz(runs):
                            "--cfg-options", *runs["overrides"]])
     frozen = {n: p for n, p in state.model.named_parameters()
               if n.startswith("backbone.") and not p.requires_grad}
-    got = _flat(flax_from_state_dict(frozen)["params"]["backbone"])
+    got = _flat(flax_from_state_dict(frozen, state.model)["params"][
+        "backbone"])
     want = _flat(tree)
     assert len(got) > 10 and set(got) <= set(want)
     assert not any("lora" in k for k in got)

@@ -9,12 +9,13 @@ them, so one predictor serves any copy of the model (CPU fp32 or CUDA bf16).
 * ``make_logits_fn`` gives ``(model, img) -> input-sized logits`` for the
   MsVFM modes: ``ms_slide_inference`` (the dense gated two-stage slide),
   ``lr_slide_inference``, ``hr_slide_inference`` and
-  ``msfull_slide_inference``; and for the encoder-decoder segmentors
-  (``EncoderDecoder``, Mask2Former's ``MaskFormerSegmentor``) ``whole`` and
-  ``slide`` (also taken for ``lr_``/``hr_slide_inference``, as in the JAX
-  package), which call their ``encode_decode``. ``MsVFMSegmentor`` has no
+  ``msfull_slide_inference``; and for every other segmentor with an
+  ``encode_decode`` (``EncoderDecoder``, Mask2Former's
+  ``MaskFormerSegmentor``, ``HRDAEncoderDecoder``) ``whole`` and ``slide``
+  (also taken for ``lr_``/``hr_slide_inference``, as in the JAX package),
+  which call it. ``MsVFMSegmentor`` and ``MultiScaleEncoderDecoder`` have no
   ``encode_decode`` in either package, so ``whole`` and ``slide`` raise
-  ``NotImplementedError`` for it.
+  ``NotImplementedError`` for them.
 * ``make_shape_aware_predict_fn`` gives ``predict(model, img, out_hw)``:
   labels at the label resolution, with optional flip/multi-scale TTA and
   shape bucketing (``pad_multiple``). With ``test_cfg.gate == "compact"``
@@ -52,7 +53,6 @@ from vfmseg_tpu_torch.eval.slide import (
     slide_inference,
 )
 from vfmseg_tpu_torch.eval.tta import tta_logits
-from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
 from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
 from vfmseg_tpu_torch.ops.resize import resize
 
@@ -80,7 +80,7 @@ def make_logits_fn(model, test_cfg: Dict, mode: str) -> Callable:
     test_cfg = test_cfg or {}
     crop = tuple(test_cfg.get("crop_size", (512, 512)))
     if not isinstance(model, MsVFMSegmentor):
-        if not isinstance(model, EncoderDecoder) or mode not in (
+        if not hasattr(model, "encode_decode") or mode not in (
                 "whole", "slide", "lr_slide_inference", "hr_slide_inference"):
             raise NotImplementedError(
                 f"mode {mode!r} on {type(model).__name__} is not ported")

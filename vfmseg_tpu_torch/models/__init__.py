@@ -1,1 +1,1 @@
-"""Models of the headline MsVFM configuration."""
+"""Models: segmentors, heads and backbones of every config under configs/."""

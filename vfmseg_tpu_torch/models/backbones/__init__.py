@@ -1,1 +1,2 @@
-"""Backbones: the DINOv2 ViT with LoRA."""
+"""Backbones: the ViT core (DINOv2, EVA02, CLIP, SAM) with LoRA and Rein,
+MiT and ResNetV1c."""

@@ -3,11 +3,13 @@
 Port of vfmseg_tpu/models/backbones/dinov2.py:23-93. They take the reference
 config surface (configs/_base_/models/lora_*_ms_masked.py) and build the ViT
 core of ``vit.py``; ``EVA2`` builds through ``eva02.py``, ``SAMViT``
-through ``sam.py`` and the ``Reins*`` types through ``rein_backbones.py``;
-any other type raises, naming its queue item (``common.not_ported``). A
-key that a builder neither uses nor names as ignored raises
-``TypeError``, and a value the port does not implement raises
-(``check_unported``).
+through ``sam.py``, ``CLIPVisionTransformer`` through ``clip.py``, the
+``Reins*`` ViTs through ``rein_backbones.py``, ``MixVisionTransformer``
+and ``mit_b0``..``mit_b5`` through ``mit.py`` and ``ResNetV1c`` and
+``ReinsResNetV1c`` through ``resnet.py``; any other type raises
+(``common.not_ported``). A key that a builder neither uses nor names as
+ignored raises ``TypeError``, and a value the port does not implement
+raises (``check_unported``).
 """
 
 from __future__ import annotations
@@ -76,14 +78,18 @@ _BACKBONES = {"DinoVisionTransformer": build_dinov2, "EVA2": build_eva02,
 
 def _backbones() -> dict:
     # the Rein builders call the three above
-    from vfmseg_tpu_torch.models.backbones import rein_backbones
+    from vfmseg_tpu_torch.models.backbones import clip, mit, rein_backbones
+    from vfmseg_tpu_torch.models.backbones import resnet
 
-    return dict(_BACKBONES, **rein_backbones.REIN_BACKBONES)
+    return dict(_BACKBONES, **rein_backbones.REIN_BACKBONES,
+                **mit.MIT_BUILDERS, CLIPVisionTransformer=clip.build_clip,
+                ResNetV1c=resnet.build_resnet,
+                ReinsResNetV1c=resnet.build_reins_resnet)
 
 
 def build_backbone(cfg: dict, lora: Optional[LoRASpec] = None,
                    dtype: torch.dtype = torch.float32,
-                   attn_impl: str = "auto") -> VisionTransformer:
+                   attn_impl: str = "auto") -> torch.nn.Module:
     cfg = dict(cfg)
     kind = cfg.pop("type")
     if kind == "LoRABackbone":

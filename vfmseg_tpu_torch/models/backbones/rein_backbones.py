@@ -1,6 +1,6 @@
 """Rein-adapter backbone builders (the reference's Reins* family).
 
-Port of vfmseg_tpu/models/backbones/rein_backbones.py:33-73: the Rein
+Port of vfmseg_tpu/models/backbones/rein_backbones.py:33-103: the Rein
 wrappers are the ViT core of ``vit.py`` with a :class:`ReinsSpec`.
 
 * ``ReinsDinoVisionTransformer``: Rein after every block, returns (4 maps,
@@ -9,8 +9,13 @@ wrappers are the ViT core of ``vit.py`` with a :class:`ReinsSpec`.
   (reins_eva_02.py:36-55).
 * ``ReinsSAMViT``: Rein only after the global-attention blocks
   (reins_sam_vit.py:27-37), the pyramid on by default.
-* ``ReinsCLIPVisionTransformer`` is not here: CLIP is ROADMAP A7, and
-  ``build_backbone`` raises for it.
+* ``ReinsCLIPVisionTransformer``: Rein after every block of CLIP and the
+  fpn1..4 pyramid (``ClipFPN``) on the four maps (reins_clip.py:53-60), as
+  :class:`ReinsCLIPWithFPN`, whose ``vit`` and ``fpn`` follow the flax
+  tree. Its configs train ``["reins", "fpn"]`` (reins_clip.py:87-90). As in
+  JAX, a ``resize_feat`` in the config reaches the ViT too, which then
+  resizes its maps before the pyramid does (the Rein-CLIP Mask2Former base
+  asks for it).
 
 ``init_cfg`` names the reference's pretrained file, which the weight tooling
 loads, not the builder. Adapter-only training falls out of the trainable
@@ -21,7 +26,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
+import torch
+from torch import nn
+
 from vfmseg_tpu_torch.models.backbones.adapters import ReinsSpec
+from vfmseg_tpu_torch.models.backbones.clip import ClipFPN, build_clip
 from vfmseg_tpu_torch.models.backbones.dinov2 import build_dinov2
 from vfmseg_tpu_torch.models.backbones.eva02 import build_eva02
 from vfmseg_tpu_torch.models.backbones.sam import build_sam
@@ -86,6 +95,42 @@ def build_reins_sam(reins_config: Dict[str, Any], resize_feat: bool = True,
                      resize_feat=resize_feat)
 
 
+class ReinsCLIPWithFPN(nn.Module):
+    """CLIP with Rein and the fpn1..4 pyramid on its four maps
+    (rein_backbones.py:75-92): ``(maps, queries)`` when the ViT links its
+    tokens to queries, else the maps. ``cfg`` and ``returns_queries`` are
+    the ViT's."""
+
+    def __init__(self, vit: VisionTransformer, fpn: ClipFPN):
+        super().__init__()
+        self.vit = vit
+        self.fpn = fpn
+
+    @property
+    def cfg(self):
+        return self.vit.cfg
+
+    @property
+    def returns_queries(self) -> bool:
+        return self.vit.returns_queries
+
+    def forward(self, x: torch.Tensor):
+        out = self.vit(x)
+        if self.returns_queries:
+            feats, queries = out
+            return self.fpn(feats), queries
+        return self.fpn(out)
+
+
+def build_reins_clip(reins_config: Dict[str, Any], init_cfg=None,
+                     **backbone_kwargs) -> ReinsCLIPWithFPN:
+    del init_cfg
+    vit = build_clip(**backbone_kwargs,
+                     reins=reins_spec_from_config(reins_config))
+    return ReinsCLIPWithFPN(vit, ClipFPN(vit.cfg.embed_dim, vit.cfg.dtype))
+
+
 REIN_BACKBONES = {"ReinsDinoVisionTransformer": build_reins_dinov2,
                   "ReinsEVA2": build_reins_eva02,
-                  "ReinsSAMViT": build_reins_sam}
+                  "ReinsSAMViT": build_reins_sam,
+                  "ReinsCLIPVisionTransformer": build_reins_clip}

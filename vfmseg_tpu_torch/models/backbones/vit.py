@@ -1,12 +1,12 @@
-"""Vision Transformer core: the DINOv2, EVA02 and SAM paths.
+"""Vision Transformer core: the DINOv2, EVA02, CLIP and SAM paths.
 
 Port of vfmseg_tpu/models/backbones/vit.py:44-128, 147-340 and 343-580,
-restricted to what the DINOv2-L, EVA02-L and SAM ViT-H configs use: a learned
-cls token and position embedding (bicubic interpolation with DINOv2's +0.1
-trick at other grid sizes), or SAM's grid-shaped one without a cls token
-(bilinear at other grid sizes), pre-norm blocks, optional LayerScale,
-drop-path in training, feature maps taken before any final norm at
-``out_indices``, and three block families:
+restricted to what the DINOv2-L, EVA02-L, CLIP-L and SAM ViT-H configs use:
+a learned cls token and position embedding (bicubic interpolation with
+DINOv2's +0.1 trick at other grid sizes), or SAM's grid-shaped one without a
+cls token (bilinear at other grid sizes), pre-norm blocks, optional
+LayerScale, drop-path in training, feature maps taken before any final norm
+at ``out_indices``, and four block families:
 
 * DINOv2 (``attn_type="fused"``, ``ffn_layer="mlp"``): one fused qkv linear
   (optionally LoRA) read straight by the attention kernel, and an exact-erf
@@ -23,6 +23,14 @@ drop-path in training, feature maps taken before any final norm at
   - *training* (vit.py:249-314): per-slot projections (LoRA sequential, with
     dropout), the rotation in PyTorch with the natural tables, and the
     head-major attention (B5 under autograd).
+* CLIP (``attn_type="fused"``, ``ffn_act="quick_gelu"``; vit.py:59-68):
+  DINOv2's fused attention, an MLP with QuickGELU ``x sigmoid(1.702 x)``, no
+  LayerScale, and CLIP's stem: a bias-free patch embedding, a
+  ``class_embedding`` vector as the cls token that is added to the cls
+  position a second time (``cls_style="clip_embed"``, vit.py:436-462), the
+  position grid resized by size-based bilinear interpolation at any other
+  grid (``pos_interp="bilinear"``, no +0.1 trick; vit.py:553-576) and
+  ``ln_pre`` after the position add (``pre_norm``).
 * SAM (``attn_type="fused"``, ``use_rel_pos``, ``window_size``;
   vit.py:282-311, 363-385): q, k and v are head-major views of the fused
   qkv output, the decomposed relative-position terms are built from q and
@@ -108,8 +116,17 @@ class ViTConfig:
     qkv_bias: bool = True
     proj_bias: bool = True
     ffn_bias: bool = True
-    # "mlp" (DINOv2) or "swiglu_eva" (EVA02: w1/w2, sub-LN, w3)
+    # "mlp" (DINOv2, CLIP) or "swiglu_eva" (EVA02: w1/w2, sub-LN, w3)
     ffn_layer: str = "mlp"
+    # the MLP's activation: "gelu" (exact erf) or "quick_gelu" (CLIP)
+    ffn_act: str = "gelu"
+    # CLIP's stem: ln_pre after the position add, the class-embedding
+    # vector added to the cls position again ("clip_embed"), the grid
+    # resized bilinearly by size, and a patch embedding without bias
+    pre_norm: bool = False
+    cls_style: str = "token"
+    pos_interp: str = "bicubic"
+    patch_embed_bias: bool = True
     init_values: Optional[float] = 1e-5  # LayerScale; None disables
     drop_path_rate: float = 0.0
     ln_eps: float = 1e-6
@@ -142,6 +159,12 @@ class ViTConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
                              f"{ATTN_IMPLS}")
+        for key, value, allowed in (
+                ("ffn_act", self.ffn_act, ("gelu", "quick_gelu")),
+                ("cls_style", self.cls_style, ("token", "clip_embed")),
+                ("pos_interp", self.pos_interp, ("bicubic", "bilinear"))):
+            if value not in allowed:
+                raise ValueError(f"{key} {value!r} is not one of {allowed}")
 
 
 def check_unported(*, remat: bool) -> None:
@@ -179,14 +202,21 @@ def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
 
 
 class Mlp(nn.Module):
+    """fc1 -> exact GELU or QuickGELU ``x sigmoid(1.702 x)`` (vit.py:114)
+    -> fc2."""
+
     def __init__(self, dim: int, hidden: int, bias: bool,
-                 lora: Optional[LoRASpec], dtype: torch.dtype):
+                 lora: Optional[LoRASpec], dtype: torch.dtype,
+                 act: str = "gelu"):
         super().__init__()
         self.fc1 = make_dense(dim, hidden, bias, "fc1", lora, dtype)
         self.fc2 = make_dense(hidden, dim, bias, "fc2", lora, dtype)
+        self.quick_gelu = act == "quick_gelu"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        x = self.fc1(x)
+        x = x * torch.sigmoid(1.702 * x) if self.quick_gelu else F.gelu(x)
+        return self.fc2(x)
 
 
 class SwiGLUEva(nn.Module):
@@ -372,7 +402,8 @@ class Block(nn.Module):
                                       f"ported")
         self.norm2 = LayerNorm(dim, cfg.ln_eps, cfg.dtype)
         if cfg.ffn_layer == "mlp":
-            self.mlp = Mlp(dim, hidden, cfg.ffn_bias, lora, cfg.dtype)
+            self.mlp = Mlp(dim, hidden, cfg.ffn_bias, lora, cfg.dtype,
+                           cfg.ffn_act)
         elif cfg.ffn_layer == "swiglu_eva":
             self.mlp = SwiGLUEva(dim, hidden, cfg.ln_eps, cfg.dtype)
         else:
@@ -421,9 +452,18 @@ class VisionTransformer(nn.Module):
         e = cfg.embed_dim
         p = cfg.num_cls_tokens
         self.patch_embed = Conv2d(3, e, cfg.patch_size, stride=cfg.patch_size,
-                                  dtype=cfg.dtype)
+                                  bias=cfg.patch_embed_bias, dtype=cfg.dtype)
         side = cfg.img_size // cfg.patch_size
-        self.cls_token = nn.Parameter(torch.zeros(1, p, e)) if p else None
+        clip_embed = cfg.cls_style == "clip_embed"
+        if clip_embed and p != 1:
+            raise NotImplementedError("cls_style='clip_embed' takes one cls "
+                                      "token")
+        self.cls_token = (nn.Parameter(torch.zeros(1, p, e))
+                          if p and not clip_embed else None)
+        self.class_embedding = (nn.Parameter(torch.zeros(e)) if clip_embed
+                                else None)
+        self.ln_pre = (LayerNorm(e, cfg.ln_eps, cfg.dtype) if cfg.pre_norm
+                       else None)
         if cfg.pos_embed == "learned":
             self.pos_embed = nn.Parameter(torch.zeros(1, side * side + p, e))
         elif cfg.pos_embed == "learned_2d" and not p:
@@ -451,10 +491,19 @@ class VisionTransformer(nn.Module):
         b, h, w, _ = x.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
         x = self.patch_embed(x).reshape(b, gh * gw, cfg.embed_dim)
-        if p:
+        pos = self.interpolated_pos_embed(gh, gw)
+        if self.class_embedding is not None:
+            # CLIP: the vector is the cls token and is added to the cls
+            # position again (vit.py:436-462)
+            cls = self.class_embedding.reshape(1, 1, -1)
+            pos = torch.cat([pos[:, :1] + cls, pos[:, 1:]], dim=1)
+            x = torch.cat([cls.to(x.dtype).expand(b, -1, -1), x], dim=1)
+        elif p:
             cls = self.cls_token.to(x.dtype).expand(b, -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = x + self.interpolated_pos_embed(gh, gw).to(x.dtype)
+        x = x + pos.to(x.dtype)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         rope = self.rope_tables(gh, gw, x.device) if cfg.use_rope else None
         reins = self.reins
         outs = []
@@ -494,7 +543,9 @@ class VisionTransformer(nn.Module):
 
         DINOv2's (dino_v2.py:184-215): torch bicubic with the +0.1
         scale-factor trick on the grid part; the cls position passes through.
-        SAM's grid-shaped one (vit.py:461-472): bilinear to (gh, gw)."""
+        CLIP's (``pos_interp="bilinear"``, vit.py:553-576): bilinear to
+        (gh, gw) by size. SAM's grid-shaped one (vit.py:461-472): bilinear
+        to (gh, gw)."""
         pos = self.pos_embed
         p = self.cfg.num_cls_tokens
         if self.cfg.pos_embed == "learned_2d":
@@ -505,9 +556,13 @@ class VisionTransformer(nn.Module):
         if (gh, gw) == (side, side):
             return pos
         grid = pos[:, p:].reshape(1, side, side, -1).permute(0, 3, 1, 2)
-        grid = F.interpolate(
-            grid.float(), mode="bicubic", align_corners=False,
-            scale_factor=((gh + 0.1) / side, (gw + 0.1) / side),
-            recompute_scale_factor=False)
+        if self.cfg.pos_interp == "bilinear":
+            grid = F.interpolate(grid.float(), size=(gh, gw),
+                                 mode="bilinear", align_corners=False)
+        else:
+            grid = F.interpolate(
+                grid.float(), mode="bicubic", align_corners=False,
+                scale_factor=((gh + 0.1) / side, (gw + 0.1) / side),
+                recompute_scale_factor=False)
         grid = grid.permute(0, 2, 3, 1).reshape(1, gh * gw, -1)
         return torch.cat([pos[:, :p], grid.to(pos.dtype)], dim=1)

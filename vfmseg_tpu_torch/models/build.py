@@ -1,10 +1,14 @@
 """Config dict -> model (the reference registry ``type=`` surface).
 
-Port of vfmseg_tpu/models/build.py:37-156 and 250-252 for the types the
-ported configs use: MsVFMEncoderDecoder, EncoderDecoder (with a
-(Rein)Mask2FormerHead it builds the MaskFormer segmentor),
-FrozenBackboneEncoderDecoder and LoraBackboneEncoderDecoder; every other type
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Port of vfmseg_tpu/models/build.py:37-252: MsVFMEncoderDecoder,
+EncoderDecoder (with a (Rein)Mask2FormerHead it builds the MaskFormer
+segmentor), FrozenBackboneEncoderDecoder, LoraBackboneEncoderDecoder,
+HRDAEncoderDecoder and FrozenHRDAEncoderDecoder (with an HRDAHead over a
+seg head and an AttentionHead) and MultiScaleEncoderDecoder; the heads
+LinearHead, VFMHead, SegformerHead, AttentionHead, DAFormerHead and
+DINOhead; the backbones of ``backbones/dinov2.py`` ``build_backbone``.
+DomainGeneral raises ``NotImplementedError`` naming the ROADMAP item that
+ports it (A10).
 ``attn_impl`` (a config's ``compute.attn_impl``) reaches every backbone and
 head, as in the JAX builder. A key that a builder neither uses nor names
 as ignored raises ``TypeError``, so no config option is dropped silently.
@@ -19,16 +23,31 @@ import torch
 from vfmseg_tpu_torch.models.backbones.dinov2 import build_backbone
 from vfmseg_tpu_torch.models.backbones.vit import ATTN_IMPLS
 from vfmseg_tpu_torch.models.common import not_ported
+from vfmseg_tpu_torch.models.heads.attention_head import AttentionHead
+from vfmseg_tpu_torch.models.heads.daformer import DAFormerHead
+from vfmseg_tpu_torch.models.heads.dino_head import DINOHead
 from vfmseg_tpu_torch.models.heads.linear_head import LinearHead
 from vfmseg_tpu_torch.models.heads.mask2former import Mask2FormerHead
+from vfmseg_tpu_torch.models.heads.segformer import SegformerHead
 from vfmseg_tpu_torch.models.heads.vfm_head import VFMHead
 from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
+from vfmseg_tpu_torch.models.segmentors.hrda import (
+    HRDAEncoderDecoder,
+    HRDAHead,
+)
 from vfmseg_tpu_torch.models.segmentors.maskformer import MaskFormerSegmentor
 from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
+from vfmseg_tpu_torch.models.segmentors.multiscale import (
+    MultiScaleEncoderDecoder,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # head keys the JAX builder drops before building any head
 _HEAD_IGNORED = ("in_index", "norm_cfg", "loss_decode")
+# the keys the JAX builder passes to a DINOhead (build.py:22-30); it drops
+# any other, which the port refuses
+_DINO_HEAD_KEYS = {"in_channels", "channels", "num_classes", "dropout_ratio",
+                   "align_corners"}
 
 
 def compute_dtype(cfg: Dict[str, Any]) -> torch.dtype:
@@ -48,6 +67,18 @@ def _build_head(cfg: Dict[str, Any], dtype: torch.dtype, attn_impl: str):
         return LinearHead(dtype=dtype, **cfg)
     if kind == "VFMHead":
         return VFMHead(dtype=dtype, attn_impl=attn_impl, **cfg)
+    if kind == "SegformerHead":
+        return SegformerHead(dtype=dtype, **cfg)
+    if kind == "AttentionHead":
+        return AttentionHead(dtype=dtype, **cfg)
+    if kind == "DAFormerHead":
+        return DAFormerHead(dtype=dtype, **cfg)
+    if kind == "DINOhead":
+        unknown = set(cfg) - _DINO_HEAD_KEYS
+        if unknown:
+            raise TypeError(f"DINOhead keys {sorted(unknown)} are not read "
+                            f"by the JAX builder")
+        return DINOHead(dtype=dtype, attn_impl=attn_impl, **cfg)
     raise not_ported("head", kind)
 
 
@@ -168,10 +199,84 @@ def build_lora_encoder_decoder(backbone: Dict[str, Any], Lora_config: dict,
     return build_encoder_decoder(backbone=wrapped, **kwargs)
 
 
+_HRDA_HEAD_KEYS = {"type", "seg_head", "single_scale_head", "lr_loss_weight",
+                   "hr_loss_weight", *_HEAD_IGNORED}
+
+
+def build_hrda_encoder_decoder(
+    backbone: Dict[str, Any],
+    decode_head: Dict[str, Any],
+    scales=(1, 0.5),
+    hr_crop_size=(512, 512),
+    crop_coord_divisible: int = 8,
+    hr_slide_inference: bool = True,
+    feature_scale: float = 0.5,
+    frozen: bool = False,
+    data_preprocessor: Optional[dict] = None,
+    train_cfg: Optional[dict] = None,
+    test_cfg: Optional[dict] = None,
+    dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
+) -> HRDAEncoderDecoder:
+    """JAX build.py:159-194: the HRDAHead from ``seg_head`` and
+    ``single_scale_head`` (the scale attention); ``scales`` sorted, so the
+    first is the LR scale. Read by neither builder: ``hr_slide_inference``
+    (inference always slides the HR crops), ``feature_scale``,
+    ``data_preprocessor``, ``train_cfg`` and ``test_cfg``."""
+    del hr_slide_inference, feature_scale, data_preprocessor, train_cfg
+    del test_cfg
+    unknown = set(decode_head) - _HRDA_HEAD_KEYS
+    if unknown:
+        raise TypeError(f"HRDAHead keys {sorted(unknown)} are not ported")
+    head = HRDAHead(
+        seg_head=_build_head(decode_head["seg_head"], dtype, attn_impl),
+        scale_attention=_build_head(decode_head["single_scale_head"], dtype,
+                                    attn_impl),
+        lr_loss_weight=decode_head.get("lr_loss_weight", 0.0),
+        hr_loss_weight=decode_head.get("hr_loss_weight", 0.1))
+    return HRDAEncoderDecoder(
+        backbone=build_backbone(backbone, dtype=dtype, attn_impl=attn_impl),
+        decode_head=head, scales=tuple(sorted(scales)),
+        hr_crop_size=tuple(hr_crop_size),
+        crop_coord_divisible=crop_coord_divisible, frozen_backbone=frozen)
+
+
+def build_frozen_hrda_encoder_decoder(**kwargs) -> HRDAEncoderDecoder:
+    """hrda_encoder_decoder.py:450-464: the backbone's features carry no
+    gradient."""
+    return build_hrda_encoder_decoder(frozen=True, **kwargs)
+
+
+def build_multiscale_encoder_decoder(
+    backbone: Dict[str, Any],
+    decode_head: Dict[str, Any],
+    hr_crop_size=(512, 512),
+    crop_coord_divisible: int = 32,
+    detail_loss: float = 1.0,
+    data_preprocessor: Optional[dict] = None,
+    train_cfg: Optional[dict] = None,
+    test_cfg: Optional[dict] = None,
+    dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto",
+) -> MultiScaleEncoderDecoder:
+    """JAX build.py:205-230: one context-aware decode head shared by both
+    scales. ``data_preprocessor``, ``train_cfg`` and ``test_cfg``: read by
+    neither builder."""
+    del data_preprocessor, train_cfg, test_cfg
+    return MultiScaleEncoderDecoder(
+        backbone=build_backbone(backbone, dtype=dtype, attn_impl=attn_impl),
+        decode_head=_build_head(decode_head, dtype, attn_impl),
+        hr_crop_size=tuple(hr_crop_size),
+        crop_coord_divisible=crop_coord_divisible, detail_loss=detail_loss)
+
+
 _SEGMENTORS = {"MsVFMEncoderDecoder": build_ms_vfm_encoder_decoder,
                "EncoderDecoder": build_encoder_decoder,
                "FrozenBackboneEncoderDecoder": build_frozen_encoder_decoder,
-               "LoraBackboneEncoderDecoder": build_lora_encoder_decoder}
+               "LoraBackboneEncoderDecoder": build_lora_encoder_decoder,
+               "HRDAEncoderDecoder": build_hrda_encoder_decoder,
+               "FrozenHRDAEncoderDecoder": build_frozen_hrda_encoder_decoder,
+               "MultiScaleEncoderDecoder": build_multiscale_encoder_decoder}
 
 
 def build_segmentor(model_cfg: Dict[str, Any],

@@ -1,1 +1,2 @@
-"""Decode heads: LinearHead and VFMHead with its transformer decoder."""
+"""Decode heads: LinearHead, VFMHead with its transformer decoder,
+Mask2Former, SegFormer, AttentionHead, DAFormer and DINOhead."""

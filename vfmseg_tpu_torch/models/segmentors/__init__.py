@@ -1,1 +1,2 @@
-"""Segmentors: MsVFM, the plain encoder-decoder and Mask2Former's."""
+"""Segmentors: MsVFM, the plain encoder-decoder, Mask2Former's, HRDA and
+the multi-scale encoder-decoder."""

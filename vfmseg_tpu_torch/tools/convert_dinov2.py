@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import argparse
 import re
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -122,21 +122,26 @@ def load_state_dict(path: str,
 
 
 def cli(description: str, convert: Callable, wrappers: Sequence[str],
-        target_patch: bool = True, argv=None) -> None:
+        target_patch: bool = True, argv=None,
+        load: Optional[Callable[[str], dict]] = None) -> None:
     """The converters' shared command line: src, dst, --target-img (and
-    --target-patch)."""
+    --target-patch), or with ``target_patch=None`` neither. ``load`` reads
+    the source (default :func:`load_state_dict` with ``wrappers``)."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("src", help="torch checkpoint")
     ap.add_argument("dst", help="output .npz param tree")
     if target_patch:
         ap.add_argument("--target-patch", type=int, default=16)
-    ap.add_argument("--target-img", type=int, default=512)
+    if target_patch is not None:
+        ap.add_argument("--target-img", type=int, default=512)
     args = ap.parse_args(argv)
-    sd = load_state_dict(args.src, wrappers)
+    sd = (load or (lambda p: load_state_dict(p, wrappers)))(args.src)
     if target_patch:
         tree = convert(sd, args.target_patch, args.target_img)
-    else:
+    elif target_patch is not None:
         tree = convert(sd, args.target_img)
+    else:
+        tree = convert(sd)
     save_pytree(args.dst, tree)
     with np.load(args.dst) as data:
         n = sum(data[k].size for k in data.files)

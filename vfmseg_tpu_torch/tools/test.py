@@ -73,8 +73,8 @@ def parse_args(argv=None):
 
 
 def _load(model: torch.nn.Module, variables: dict, what: str) -> None:
-    unexpected = model.load_state_dict(state_dict_from_flax(variables),
-                                       strict=False).unexpected_keys
+    unexpected = model.load_state_dict(
+        state_dict_from_flax(variables, model), strict=False).unexpected_keys
     if unexpected:
         raise ValueError(f"{what} holds entries the model does not have: "
                          f"{sorted(unexpected)[:5]}")

@@ -96,7 +96,8 @@ def build_model(cfg: Config, device: str, amp: bool) -> torch.nn.Module:
 @torch.no_grad()
 def load_backbone(model: torch.nn.Module, path: str) -> None:
     """Load a converted backbone tree (flax paths) under ``backbone``."""
-    sd = state_dict_from_flax({"params": {"backbone": load_pytree(path)}})
+    sd = state_dict_from_flax({"params": {"backbone": load_pytree(path)}},
+                              model)
     unexpected = model.load_state_dict(sd, strict=False).unexpected_keys
     if unexpected:
         raise ValueError(f"{path} holds entries the model does not have: "
@@ -185,7 +186,7 @@ def run(cfg: Config, args, source=None,
     print(f"trainable params: {n_train:,} / {n_total:,} "
           f"({100.0 * n_train / n_total:.2f}%)")
     if args.list_params:
-        _print_tree(flax_from_state_dict(trainable)["params"])
+        _print_tree(flax_from_state_dict(trainable, model)["params"])
 
     sched = cfg.get("schedule", {})
     val_fn = None

@@ -138,6 +138,7 @@ class CheckpointManager:
             step=state.step,
             trainable=_host_copy(trainable_state_dict(state.model)),
             stats=_host_copy(batch_stats_state_dict(state.model)),
+            model=state.model,
             optimizer=_host_copy(state.optimizer.state_dict()))
         if not self.async_save:
             self._write(snapshot)
@@ -154,9 +155,10 @@ class CheckpointManager:
 
     def _write(self, snapshot: dict) -> None:
         step = snapshot["step"]
-        tree = flax_from_state_dict(snapshot["trainable"])
+        model = snapshot["model"]
+        tree = flax_from_state_dict(snapshot["trainable"], model)
         save_pytree(self._path(step, "trainable"), {"t": tree["params"]})
-        stats = flax_from_state_dict(snapshot["stats"])
+        stats = flax_from_state_dict(snapshot["stats"], model)
         if stats["batch_stats"]:
             save_pytree(self._path(step, "batch_stats"),
                         {"b": stats["batch_stats"]})
@@ -184,7 +186,7 @@ class CheckpointManager:
         bs_path = self._path(step, "batch_stats")
         if os.path.exists(bs_path):
             variables["batch_stats"] = load_npz_tree(bs_path, "b")
-        sd = {k: v for k, v in state_dict_from_flax(variables).items()
+        sd = {k: v for k, v in state_dict_from_flax(variables, model).items()
               if not k.endswith("num_batches_tracked")}
         missing = set(trainable_state_dict(model)) - set(sd)
         if missing:

@@ -98,7 +98,8 @@ def train_loop(
             if save_best and results.get(save_best,
                                          float("-inf")) > best_metric:
                 best_metric = results[save_best]
-                tree = flax_from_state_dict(trainable_state_dict(state.model))
+                tree = flax_from_state_dict(
+                    trainable_state_dict(state.model), state.model)
                 save_pytree(os.path.join(ckpt.dir, "best.trainable.npz"),
                             {"t": tree["params"]})
                 logger.log(f"[val] new best {save_best}={best_metric:.2f} "

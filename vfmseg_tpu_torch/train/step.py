@@ -12,6 +12,11 @@ Randomness: per step, one ``torch.Generator`` per stream name, seeded from
 a resumed run draws what an unbroken one draws. ``crop`` lives on the CPU
 (the box is needed on the host); ``mask`` and ``dropout`` live on the
 model's device. Gradients stay in ``.grad`` until the next step clears them.
+
+A trainable parameter that the loss does not reach (a Rein backbone's
+query layers under a head that takes no queries: HRDA, SegFormer,
+LinearHead) gets a zero gradient, as ``jax.grad`` gives one, so AdamW
+decays it as optax's does instead of skipping it.
 """
 
 from __future__ import annotations
@@ -60,8 +65,11 @@ def make_train_step() -> Callable:
             losses = model(img, label)
         loss = sum_losses(losses)
         loss.backward()
-        grads = [p.grad for g in opt.param_groups for p in g["params"]
-                 if p.grad is not None]
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        grads = [p.grad for g in opt.param_groups for p in g["params"]]
         grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
         lr = state.schedule(state.step)
         for group in opt.param_groups:

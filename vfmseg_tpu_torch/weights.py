@@ -2,15 +2,18 @@
 
 * :func:`state_dict_from_flax` maps the JAX package's variables
   ``{"params": ..., "batch_stats": ...}`` (nested dicts of numpy arrays) onto
-  the port's ``state_dict``: Dense ``[in, out]`` -> ``[out, in]``, Conv HWIO
-  -> OIHW, ConvTranspose ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]`` with
-  the kh/kw flip (PARITY.md, "Transcription note"), LayerNorm/GroupNorm/
+  the ``state_dict`` of a port ``model``: Dense ``[in, out]`` -> ``[out,
+  in]``, Conv HWIO -> OIHW, ConvTranspose ``[kh, kw, in, out]`` -> ``[in,
+  out, kh, kw]`` with the kh/kw flip (PARITY.md, "Transcription note"). A
+  square ConvTranspose kernel has a Conv kernel's shape, so the orientation
+  is chosen by the type of the port module the kernel lands in
+  (``nn.ConvTranspose2d``), never by its name or shape. LayerNorm/GroupNorm/
   BatchNorm ``scale`` -> ``weight`` (Rein's scalar ``scale`` keeps its
   name), BatchNorm ``mean``/``var`` -> running
   statistics, LoRA ``lora_a [in, r]``/``lora_b [r, out]`` -> ``[r, in]``/
   ``[out, r]``, and ``blocks_<i>`` -> ``blocks.<i>``. It takes the training
   init's tree too (with the decoder's ``mask_token``).
-* :func:`flax_from_state_dict` is its inverse for any subset of the
+* :func:`flax_from_state_dict` is its inverse for any subset of a model's
   parameters and BatchNorm statistics (checkpoints, gradients);
   :func:`flax_name` gives one port name's flax path.
 * :func:`init_params` fills a model from a seed through ``torch.Generator``,
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import AbstractSet, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -52,8 +55,6 @@ from vfmseg_tpu_torch.models.heads.mask2former import (
 from vfmseg_tpu_torch.models.heads.transformer import TransformerDecoder
 from vfmseg_tpu_torch.ops.norm import LayerNorm
 
-# flax modules whose 4-D kernel is a ConvTranspose (LinearHead's upsamplers)
-_CONV_TRANSPOSE = {"up1", "up2"}
 _INDEXED = re.compile(r"^(blocks|block)_(\d+)$")
 _PORT_INDEXED = re.compile(r"(^|\.)(blocks|block)\.(\d+)(?=\.)")
 _STATS = {"running_mean": "mean", "running_var": "var"}
@@ -72,30 +73,43 @@ def _join(mods: Tuple[str, ...], name: str) -> str:
     return ".".join([_INDEXED.sub(r"\1.\2", p) for p in mods] + [name])
 
 
-def _param(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
+def conv_transpose_weights(model: nn.Module) -> frozenset:
+    """The state-dict names of the weights of ``model``'s
+    ``nn.ConvTranspose2d`` modules."""
+    return frozenset(f"{name}.weight" if name else "weight"
+                     for name, mod in model.named_modules()
+                     if isinstance(mod, nn.ConvTranspose2d))
+
+
+def _param(path: Tuple[str, ...], leaf: np.ndarray,
+           transposed: AbstractSet[str]) -> Tuple[str, np.ndarray]:
+    """(port name, value) of the flax leaf at ``path``."""
     *mods, name = path
     if name == "kernel":
+        port = _join(tuple(mods), "weight")
         if leaf.ndim == 2:
-            return "weight", leaf.T
-        if leaf.ndim == 4 and mods and mods[-1] in _CONV_TRANSPOSE:
-            return "weight", leaf[::-1, ::-1].transpose(2, 3, 0, 1)
+            return port, leaf.T
+        if leaf.ndim == 4 and port in transposed:
+            return port, leaf[::-1, ::-1].transpose(2, 3, 0, 1)
         if leaf.ndim == 4:
-            return "weight", leaf.transpose(3, 2, 0, 1)
+            return port, leaf.transpose(3, 2, 0, 1)
         raise ValueError(f"kernel of rank {leaf.ndim} at {'/'.join(path)}")
     if name in ("lora_a", "lora_b"):
-        return name, leaf.T
+        return _join(tuple(mods), name), leaf.T
     if name == "scale" and leaf.ndim:
-        return "weight", leaf
-    return name, leaf
+        return _join(tuple(mods), "weight"), leaf
+    return _join(tuple(mods), name), leaf
 
 
-def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a JAX variables tree (see module doc)."""
+def state_dict_from_flax(tree: Mapping,
+                         model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The state_dict of the port ``model`` for a JAX variables tree (any
+    subset of its parameters and statistics; see module doc)."""
+    transposed = conv_transpose_weights(model)
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree.get("params", {})):
-        name, value = _param(path, leaf)
-        out[_join(path[:-1], name)] = torch.from_numpy(
-            np.array(value, dtype=np.float32))
+        name, value = _param(path, leaf, transposed)
+        out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     for path, leaf in _leaves(tree.get("batch_stats", {})):
         stat = {"mean": "running_mean", "var": "running_var"}[path[-1]]
         out[_join(path[:-1], stat)] = torch.from_numpy(
@@ -115,13 +129,14 @@ def flax_name(name: str, ndim: int) -> str:
     return "/".join(mods.split(".") + [leaf] if mods else [leaf])
 
 
-def _flax_value(path: str, value: np.ndarray) -> np.ndarray:
-    """Undo :func:`_param`'s re-orientation for the leaf at ``path``."""
-    *mods, leaf = path.split("/")
+def _flax_value(path: str, value: np.ndarray,
+                transposed: bool) -> np.ndarray:
+    """Undo :func:`_param`'s re-orientation for the leaf at ``path``;
+    ``transposed``: the leaf is a ConvTranspose kernel."""
+    leaf = path.rsplit("/", 1)[-1]
     if leaf == "kernel" and value.ndim == 2:
         return value.T
-    if (leaf == "kernel" and value.ndim == 4 and mods
-            and mods[-1] in _CONV_TRANSPOSE):
+    if leaf == "kernel" and value.ndim == 4 and transposed:
         return value.transpose(2, 3, 0, 1)[::-1, ::-1]
     if leaf == "kernel" and value.ndim == 4:
         return value.transpose(2, 3, 1, 0)
@@ -141,11 +156,14 @@ def _nest(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
-def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor],
+                         model: nn.Module) -> Dict[str, dict]:
     """``{"params": ..., "batch_stats": ...}`` nested dicts of fp32 numpy
-    arrays in the flax layout, for the entries of ``sd`` (any subset of a
-    port ``state_dict``; ``num_batches_tracked`` is dropped). The inverse of
+    arrays in the flax layout, for the entries of ``sd`` (any subset of the
+    port ``model``'s ``state_dict``, or of its gradients;
+    ``num_batches_tracked`` is dropped). The inverse of
     :func:`state_dict_from_flax`."""
+    transposed = conv_transpose_weights(model)
     params, stats = {}, {}
     for name, t in sd.items():
         if name.endswith("num_batches_tracked"):
@@ -155,7 +173,8 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
         dst = stats if name.rsplit(".", 1)[-1] in _STATS else params
         # order="C", not ascontiguousarray: that makes 0-d arrays (Rein's
         # scale) 1-d
-        dst[path] = np.asarray(_flax_value(path, value), order="C")
+        dst[path] = np.asarray(_flax_value(path, value, name in transposed),
+                               order="C")
     return {"params": _nest(params), "batch_stats": _nest(stats)}
 
 
@@ -211,6 +230,8 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         if isinstance(mod, VisionTransformer):
             if mod.cls_token is not None:
                 normal(mod.cls_token, 0.02)
+            if mod.class_embedding is not None:
+                normal(mod.class_embedding, mod.cfg.embed_dim ** -0.5)
             normal(mod.pos_embed, 0.02)
         if isinstance(mod, Attention) and mod.rel_pos_h is not None:
             normal(mod.rel_pos_h, 0.1)
