@@ -8,7 +8,10 @@ slide eval of LoRA DINOv2-L with the Mask2Former head, the Rein model
 (``dg_rein_dinov2_mask2former``) served and trained, train steps of two
 LoRA encoder-decoders, and LoRA CLIP-L (MsVFM), Rein CLIP-L under the Rein
 Mask2Former head, HRDA and SegFormer on Rein DINOv2-L and MiT-B5 with the
-DAFormer head, each served and trained.
+DAFormer head, each served and trained; and the algorithms: the headline
+trained in DomainGeneral with its masked-consistency branch, and the DACS
+UDA step with its EMA teacher on Rein DINOv2-L with SegFormer (through the
+train CLI), Mask2Former and HRDA.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -28,8 +31,9 @@ Phases, each printing one JSON line:
    inference path gives them, from seeded bf16 inputs (the plain version
    runs in fp32), plus one fp32 LayerNorm and four attention cases off the
    path (an odd head count, an idle second slab, a tail after one step, a
-   single 16-key step), and MiT-B5's stage 4 at a 512x1024 image; the
-   attention's device ms by the profiler beside SDPA's.
+   single 16-key step), MiT-B5's stage 4 at a 512x1024 image and the
+   DACS teacher's batch of 2 (TEACHER_ATTN_SHAPE); the attention's device
+   ms by the profiler beside SDPA's.
 4. kernels_train: the training attention kernels (B3 forward with LSE, and
    its backward, B4's function, through ``attention_bwd_tm`` on B5's fused
    backward over [B, H, N, 64] views of the token-major tensors) at the
@@ -193,6 +197,35 @@ Phases, each printing one JSON line:
    at 512x1024, a profiled one, 3 train steps at bs 2, 512^2 (every
    parameter trains) and a profiled step.
 
+21. dg_consistency / dg_train_breakdown / dg_wrapped_prediction /
+   dg_train_card_vs_cpu: ``dg_lora_dinov2_ms_masked_consistency`` (the
+   headline in DomainGeneral with the masked-consistency branch) at full
+   width: DG_STEPS bs 2, 1024^2 steps through train_loop (launches a step:
+   the headline's twice; the mask.* losses finite and nonzero), a profiled
+   step, the wrapped dense gated prediction of one 1024x2048 image
+   bit-equal to its inner model's, and one 256^2 step card vs CPU with the
+   same host draws (the TRAIN_* limits, mask.* entries included).
+22. uda_segformer / uda_segformer_breakdown / uda_segformer_calibrated /
+   uda_segformer_card_vs_cpu: ``uda_rein_dinov2_segformer_512x512`` (one
+   2B student pass) through the train CLI with an in-memory GTA-frame
+   source (RCS statistics on disk) and Cityscapes-frame target:
+   UDA_CLI_STEPS DACS steps with a checkpoint whose ema file holds the
+   state's EMA, launches a step, the EMA's first two moves (alpha 0, then
+   0.5), the loader's samples/s, steps/s, a profiled step's device time and
+   idle share; pseudo_weight at the config's threshold (about 0 with
+   seeded weights) and at one calibrated to the median of the teacher's
+   top probability (pseudo_weight in PSEUDO_WEIGHT_RANGE, the mix.* losses
+   and their gradient nonzero); one 256^2 DACS step card vs CPU (teacher
+   argmax, pseudo_weight, losses, gradient cosine).
+23. uda_m2f / uda_m2f_calibrated / uda_m2f_breakdown:
+   ``uda_rein_dinov2_mask2former_512x512`` (two sequential student passes,
+   the set loss scaled by the mean pixel weight): UDA_M2F_STEPS DACS steps
+   through train_loop with the same checks, the teacher's launches (B8 at
+   the Rein pyramid) reported apart, a profiled step.
+24. uda_hrda / uda_hrda_calibrated: ``uda_rein_dinov2_hrda_1024x1024``
+   (two sequential passes, the HR crop's weight cut from its box):
+   UDA_HRDA_STEPS DACS steps with the same checks.
+
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
 one PyTorch library call that computes the same function (a yardstick the
@@ -209,6 +242,7 @@ is printed; so does a machine without a CUDA card.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -223,7 +257,7 @@ import torch.nn.functional as F
 
 from vfmseg_tpu_torch import kernels
 from vfmseg_tpu_torch.core.config import load_config
-from vfmseg_tpu_torch.data.datasets import DGDataset
+from vfmseg_tpu_torch.data.datasets import DGDataset, UDADataset
 from vfmseg_tpu_torch.data.loader import InfiniteLoader, collate
 from vfmseg_tpu_torch.data.synthetic import SyntheticDataset, synthetic_sample
 from vfmseg_tpu_torch.data.transforms import TestPipeline, TrainPipeline
@@ -233,6 +267,7 @@ from vfmseg_tpu_torch.eval.evaluator import (
     make_logits_fn,
     make_shape_aware_predict_fn,
     stream_evaluate,
+    unwrap_model,
 )
 from vfmseg_tpu_torch.eval.metrics import IoUAccumulator
 from vfmseg_tpu_torch.eval.slide import (
@@ -297,6 +332,7 @@ from vfmseg_tpu_torch.tools import train as train_cli
 from vfmseg_tpu_torch.tools.test import evaluate_dataset
 from vfmseg_tpu_torch.train.checkpoint import (
     CheckpointManager,
+    load_npz_tree,
     load_pytree,
     trainable_state_dict,
 )
@@ -306,6 +342,13 @@ from vfmseg_tpu_torch.train.step import (
     make_train_step,
     step_generators,
     sum_losses,
+)
+from vfmseg_tpu_torch.train.uda import (
+    dacs_mix,
+    init_ema,
+    make_dacs_train_step,
+    student_losses,
+    teacher_logits,
 )
 from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
 
@@ -464,6 +507,28 @@ PER_STEP = {
     # backward in stages 1-3, B3 and the fused backward in stage 4
     "mit": _counts(layer_norm=161, attention_hm_fwd=49, attention_fwd_lse=3,
                    attention_hm_bwd=49 + 3),
+    # DomainGeneral with the mask branch (dg_lora_dinov2_ms_masked_
+    # consistency): the headline's step twice, the second call on the
+    # jittered, blurred, block-masked batch; the augmentations are PyTorch
+    "dg": _counts(layer_norm=2 * (48 + 9), attention_fwd_lse=2 * (24 + 6),
+                  attention_hm_bwd=2 * (24 + 6)),
+    # The DACS steps. The teacher (the student's ViT and the EMA head, in
+    # eval mode, no graph) runs encode_decode on the 2 target images: every
+    # block on B2. uda_segformer (exactly EncoderDecoder) then runs one
+    # student pass over the 2B = 4 source and mixed images, as the rein
+    # step (block 0 on B2); uda_m2f and uda_hrda run two student passes
+    # (source, then mixed), each as its DG step. The HRDA teacher is
+    # HRDA's slide: one ViT call over the 2 LR views and one over the 18 HR
+    # crops of 512 at stride 256.
+    "uda_segformer": _counts(layer_norm=48 + 48, attention_qkv=24 + 1,
+                             attention_fwd_lse=23, attention_hm_bwd=23),
+    "uda_m2f": _counts(layer_norm=97 + 2 * 97, attention_qkv=24 + 2,
+                       attention_fwd_lse=2 * 23, attention_hm_bwd=2 * 23,
+                       deform_sample=18 + 2 * 18),
+    "uda_hrda": _counts(layer_norm=2 * 48 + 2 * 2 * 48,
+                        attention_qkv=2 * 24 + 2 * 2,
+                        attention_fwd_lse=2 * 2 * 23,
+                        attention_hm_bwd=2 * 2 * 23),
 }
 # the encoder-decoder configs trained for ENCDEC_STEPS steps (phase
 # encdec_train) and the Rein model of phases rein_*
@@ -486,6 +551,19 @@ SLICE_STEPS = 3
 # B5 at MiT-B5's train shapes (bs 2, 512^2 crops): stages 1-3 attend from
 # 128^2, 64^2 and 32^2 queries to 16^2 keys (sr 8, 4, 2), heads 1, 2, 5,
 # head dim 64; k and v are views of one kv projection: (B, H, Nq, Nk)
+DG_CONFIG = "dg_lora_dinov2_ms_masked_consistency"
+DG_STEPS = 3
+UDA_SEGFORMER_CONFIG = "uda_rein_dinov2_segformer_512x512"
+UDA_M2F_CONFIG = "uda_rein_dinov2_mask2former_512x512"
+UDA_HRDA_CONFIG = "uda_rein_dinov2_hrda_1024x1024"
+UDA_CLI_DIR = os.path.join(REPO, "work_dirs", "chip_smoke_uda_cli")
+UDA_CLI_STEPS = 3
+UDA_M2F_STEPS = 3
+UDA_HRDA_STEPS = 2
+TARGET_HW = (1024, 2048)  # Cityscapes' frame
+UDA_CHECK_HW = (256, 256)
+# the calibrated pseudo_threshold's share of confident target pixels
+PSEUDO_WEIGHT_RANGE = (0.3, 0.7)
 MIT_HM_SHAPES = [(2, 1, 16384, 256), (2, 2, 4096, 256), (2, 5, 1024, 256)]
 
 # The headline's compact gated engine: launches per stage-1 call (the ViT
@@ -579,8 +657,12 @@ OFF_PATH_ATTN_SHAPES = [(2, 77, 3, True), (2, 64, 2, True),
 # MiT-B5's stage 4 at a 512x1024 image: q and kv weights concatenated into
 # one fused qkv product over the 16x32 grid, 8 heads
 MIT_ATTN_SHAPE = (1, 512, 8, True)
+# the DACS teacher's batch of two 512^2 target images (uda_segformer,
+# uda_m2f: encode_decode of the Rein ViT in eval mode, so B2)
+TEACHER_ATTN_SHAPE = (2, 1025, 16, True)
 ATTN_SHAPES = [(1, 2049, 16, True), (18, 1025, 16, True),
-               (18, 1024, 8, False), *OFF_PATH_ATTN_SHAPES, MIT_ATTN_SHAPE]
+               (18, 1024, 8, False), *OFF_PATH_ATTN_SHAPES, MIT_ATTN_SHAPE,
+               TEACHER_ATTN_SHAPE]
 # (B, N, H, (gh, gw), v apart?) of the RoPE attention: EVA02's stage 1
 # (32x64 grid) and refine batch (32x32) off one fused qkv, then cases off
 # the path: a ragged odd-head case (4x19 grid), N 17 (one step of 17 keys),
@@ -692,6 +774,22 @@ TRAIN_GRAD_NORM_REL = 5e-2
 # flipped stage hands a class to another query whose CE and mask terms
 # differ: the total loss within 5e-2, each entry within 1e-1, the adapter
 # gradient's cosine >= 0.9 and grad_norm within 1e-1.
+# One DACS step, bf16 card vs fp32 CPU, the same host draws (ClassMix,
+# jitter, blur) at a pseudo_threshold set to the median of the CPU
+# teacher's top probability. The teacher's argmax over all pixels >= 97%
+# and >= 99.9% where the CPU's top-2 log-probability gap is at least
+# CLEAR_GAP (CLIP's limits: the first card run read 97.63% over all
+# pixels for the seeded Rein SegFormer at 256^2, against the inference
+# checks' 98%, while its losses agreed within 1e-4 and its gradient at
+# cosine 0.99987: the flips are the seeded head's near-ties);
+# pseudo_weight within 2e-2 (a share of pixels: those whose top
+# probability the bf16 drift carries across the threshold); each loss
+# entry within 3e-2 relative and the trainable gradient's cosine >= 0.98
+# (TRAIN_*: the train step's drift; the mixed loss also reads the few
+# flipped pseudo-labels).
+TEACHER_AGREE = CLIP_ARGMAX_AGREE
+PSEUDO_WEIGHT_ABS = 2e-2
+
 SET_MATCH_EXCESS = 2e-2
 SET_TOTAL_REL = 5e-2
 SET_LOSS_REL = 1e-1
@@ -2190,7 +2288,9 @@ def phase_train_path(dev, cfg, label: str, restore: bool,
     if still or (stats_move and not stats_moved):
         raise AssertionError(f"BatchNorm statistics did not move: {still}")
     keywords = cfg["peft"].get("adapter_keywords", [])
-    head = "aux_head" if hasattr(model, "aux_head") else "decode_head"
+    inner = unwrap_model(model)
+    head = ("model." if inner is not model else "") + (
+        "aux_head" if hasattr(inner, "aux_head") else "decode_head")
     if not all(any(k in n for n in before) for k in keywords) or not any(
             n.startswith(head) for n in before):
         raise AssertionError(f"{keywords} or {head} parameters are not "
@@ -2404,6 +2504,8 @@ def phase_set_loss_split(dev, cfg, state, label: str) -> None:
 def _train_check_config(cfg) -> dict:
     c = copy.deepcopy(cfg)
     m = c["model"]
+    if m["type"] == "DomainGeneral":
+        m = m["model_cfg"]
     m["hr_crop_size"] = TRAIN_CHECK_CROP
     m["backbone"]["Lora_config"]["lora_dropout"] = 0.0
     if "drop_path_rate" in m["backbone"]["backbone"]:
@@ -3235,6 +3337,519 @@ def _mit_rows(summary: list, rows: list, ln_rows: list) -> None:
         row["max_abs_err"] = max([row["max_abs_err"]] + errs)
 
 
+# ------------------------------------------------- A10: DG and DACS ----
+
+def _deterministic(cfg: dict) -> dict:
+    """Every dropout, drop-path and mask ratio of a model config at 0, in
+    place (the card-vs-CPU checks draw them on different devices)."""
+    for key, val in list(cfg.items()):
+        if isinstance(val, dict):
+            _deterministic(val)
+        elif key in ("dropout_ratio", "lora_dropout", "drop_path_rate",
+                     "dropout"):
+            cfg[key] = 0.0
+    return cfg
+
+
+def phase_dg_wrapped_prediction(dev, cfg, model) -> dict:
+    """The dense gated logits of one IMAGE_HW image through the
+    DomainGeneral wrapper and through its inner model (``unwrap_model``):
+    the wrapper adds no computation, so they must be bit-equal; launches
+    per image as the headline's."""
+    model.eval()
+    test_cfg = cfg["test_cfg"]
+    img = synthetic_images(1, IMAGE_HW, SEED + 3).to(dev)
+    logits_fn = make_logits_fn(model, test_cfg, test_cfg["mode"])
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        inner = logits_fn(unwrap_model(model), img)
+        counts = kernels.launch_counts()
+        wrapped = logits_fn(model, img)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(inner, wrapped))
+    emit("dg_wrapped_prediction", model=cfg["name"], image_hw=list(IMAGE_HW),
+         mode=test_cfg["mode"], bit_equal=equal,
+         max_abs_diff=float((inner - wrapped).abs().max()),
+         finite=bool(torch.isfinite(inner).all()), launches=counts)
+    if not equal or counts != PER_IMAGE["dinov2"]:
+        raise AssertionError(f"DomainGeneral's prediction differs from its "
+                             f"inner model's (bit-equal {equal}) or launched "
+                             f"{counts}")
+    return counts
+
+
+def run_dg_paths(dev) -> dict:
+    """dg_lora_dinov2_ms_masked_consistency (the headline in DomainGeneral
+    with the mask branch) at full width: DG_STEPS bs 2, 1024^2 steps through
+    train_loop (launches a step, mask.* losses finite and nonzero), a
+    profiled step, the wrapped dense prediction bit-equal to the inner
+    model's on one 1024x2048 image, and one 256^2 step card vs CPU with the
+    same host draws (phases dg_*)."""
+    t0 = time.perf_counter()
+    cfg = config(DG_CONFIG)
+    state, counts = phase_train_path(dev, cfg, "dg", restore=False,
+                                     steps=DG_STEPS, phase="dg_consistency")
+    records = _jsonl(os.path.join(TRAIN_WORK_DIR, "metrics.jsonl"))
+    mask_keys = [k for k in records[0] if k.startswith("mask.")
+                 and "loss" in k]
+    if not mask_keys or not all(np.isfinite(r[k]) and r[k] > 0
+                                for r in records for k in mask_keys):
+        raise AssertionError(f"DG mask losses missing or not positive: "
+                             f"{records}")
+    phase_train_breakdown(dev, cfg, state, "dg")
+    phase_dg_wrapped_prediction(dev, cfg, state.model)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    phase_train_card_vs_cpu(dev, cfg, "dg")
+    emit("dg_paths_done", seconds=time.perf_counter() - t0)
+    return {"dg_train": counts}
+
+
+class UDASynthetic:
+    """Synthetic source samples, each with a synthetic target image: the
+    items ``UDADataset`` gives (normalised, at one size)."""
+
+    def __init__(self, n: int, hw, num_classes: int, seed: int):
+        self.src = SyntheticDataset(n=n, hw=hw, num_classes=num_classes,
+                                    seed=seed)
+        self.tgt = SyntheticDataset(n=n, hw=hw, num_classes=num_classes,
+                                    seed=seed + 100)
+
+    def __len__(self):
+        return len(self.src)
+
+    def __getitem__(self, idx: int) -> dict:
+        return dict(self.src[idx], target_img=self.tgt[idx]["img"])
+
+
+class EMAWatch:
+    """A DACS step that checks the EMA head after steps 0 and 1: equal to
+    the updated head (alpha 0), then the mean of the two heads (alpha 0.5,
+    the EMA's own arithmetic)."""
+
+    def __init__(self, step_fn, head_key: str = "decode_head"):
+        self.step_fn, self.head_key = step_fn, head_key
+        self.checks, self.pseudo_weight, self._after0 = {}, [], None
+
+    def __call__(self, state, batch, seed):
+        i = state.step
+        state, metrics = self.step_fn(state, batch, seed)
+        self.pseudo_weight.append(float(metrics["pseudo_weight"]))
+        head = {f"{self.head_key}.{n}": p.detach().float()
+                for n, p in getattr(state.model,
+                                    self.head_key).named_parameters()}
+        if i == 0:
+            self._after0 = {n: p.clone() for n, p in head.items()}
+            self.checks["step0_equal_head"] = all(
+                torch.equal(state.ema[n], p) for n, p in head.items())
+        elif i == 1:
+            err = max(float((state.ema[n] - (self._after0[n] * 0.5
+                                             + p * 0.5)).abs().max())
+                      for n, p in head.items())
+            moved = any(not torch.equal(state.ema[n], self._after0[n])
+                        for n in head)
+            self.checks["step1_alpha_half_max_abs_err"] = err
+            self.checks["step1_moved"] = moved
+            self._after0 = None
+        return state, metrics
+
+    def verify(self) -> None:
+        c = self.checks
+        if not (c.get("step0_equal_head") and c.get("step1_moved")
+                and c.get("step1_alpha_half_max_abs_err", 1.0) <= 1e-6):
+            raise AssertionError(f"the EMA did not move as DACS's: {c}")
+
+
+def phase_uda_calibrated(dev, cfg, state, batch, dacs, label: str) -> dict:
+    """``pseudo_weight`` at the config's threshold (about 0 with seeded
+    weights, which silences the mixed loss), then at a threshold set to
+    the median of the teacher's top probability on the target batch: there
+    pseudo_weight must lie in PSEUDO_WEIGHT_RANGE and the mix.* losses and
+    their gradient with respect to the trainable parameters be nonzero."""
+    model = state.model
+    src, lbl, tgt = (torch.as_tensor(batch[k]).to(dev)
+                     for k in ("img", "label", "target_img"))
+    top = torch.softmax(teacher_logits(model, state.ema, tgt).float(),
+                        dim=-1).amax(dim=-1)
+    threshold = float(torch.quantile(top.flatten(), 0.5))
+    calibrated = dataclasses.replace(dacs, pseudo_threshold=threshold)
+    out = {}
+    for name, c in (("config", dacs), ("calibrated", calibrated)):
+        with rng.streams(step_generators(SEED, state.step, dev)):
+            out[name] = dacs_mix(model, c, state.ema, src, lbl, tgt)
+    pw = float(out["calibrated"]["pseudo_weight"])
+    model.train()
+    losses = student_losses(model, src, lbl, out["calibrated"], SEED,
+                            state.step)
+    mix_loss = sum(v for k, v in losses.items()
+                   if k.startswith("mix.") and "loss" in k)
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(mix_loss, params, allow_unused=True)
+    grad_norm = float(torch.sqrt(sum(g.float().pow(2).sum()
+                                     for g in grads if g is not None)))
+    mix = {k: float(v.detach()) for k, v in losses.items()
+           if k.startswith("mix.")}
+    del losses, mix_loss, grads
+    ok = (PSEUDO_WEIGHT_RANGE[0] <= pw <= PSEUDO_WEIGHT_RANGE[1]
+          and all(v > 0 for k, v in mix.items() if "loss" in k)
+          and grad_norm > 0 and bool(np.isfinite(grad_norm)))
+    row = dict(config_threshold=dacs.pseudo_threshold,
+               pseudo_weight_at_config=float(out["config"]["pseudo_weight"]),
+               calibrated_threshold=threshold, pseudo_weight=pw,
+               pseudo_weight_range=list(PSEUDO_WEIGHT_RANGE),
+               mix_losses=mix, mix_grad_norm=grad_norm, ok=ok)
+    emit(f"{label}_calibrated", model=cfg["name"], **row)
+    if not ok:
+        raise AssertionError(f"{label}: calibrated DACS check failed {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def _teacher_counts(state, batch, dev) -> dict:
+    """The launches of one teacher pass over a target batch."""
+    tgt = torch.as_tensor(batch["target_img"]).to(dev)
+    kernels.reset_launch_counts()
+    teacher_logits(state.model, state.ema, tgt)
+    torch.cuda.synchronize()
+    return kernels.launch_counts()
+
+
+def _check_ema_checkpoint(state, path: str) -> None:
+    """The ``ema`` file of a checkpoint holds the state's EMA."""
+    saved = state_dict_from_flax(
+        {"params": {state.ema_key: load_npz_tree(path, "e")}}, state.model)
+    differ = [n for n, v in state.ema.items()
+              if not torch.equal(v.cpu(), saved[n])]
+    if saved.keys() != state.ema.keys() or differ:
+        raise AssertionError(f"the EMA checkpoint differs: {differ[:5]}")
+
+
+def phase_uda_train(dev, cfg, label: str, steps: int) -> tuple:
+    """``steps`` DACS steps of ``cfg`` at full width through train_loop
+    over synthetic source and target batches (2 loader threads): launches
+    a step (``PER_STEP[label]``) and the teacher's alone, finite losses,
+    the EMA's first two moves (``EMAWatch``), the last checkpoint's EMA,
+    steps/s and peak memory; then ``phase_uda_calibrated``. Returns the
+    state, the launches and the median step of steps 2 on, in s."""
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    model = init_params(build_segmentor(
+        cfg["model"], dtype=compute_dtype(cfg),
+        attn_impl=compute_attn_impl(cfg)), SEED)
+    state = create_train_state(model, cfg)
+    dacs = train_cli.dacs_config(cfg)
+    state.ema, state.ema_key = init_ema(model, dacs.head_key), dacs.head_key
+    build_secs = time.perf_counter() - t0
+    dataset = UDASynthetic(4, tuple(cfg["crop_size"]), cfg["num_classes"],
+                           SEED)
+    loader = InfiniteLoader(dataset, batch_size=cfg["data"]["batch_size"],
+                            num_workers=2, seed=SEED)
+    watch = EMAWatch(make_dacs_train_step(dacs), dacs.head_key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state = train_loop(state, watch, loader, max_iters=steps,
+                           work_dir=TRAIN_WORK_DIR, seed=SEED,
+                           log_interval=1, checkpoint_interval=steps,
+                           max_keep_ckpts=1)
+    finally:
+        loader.close()
+    torch.cuda.synchronize()
+    loop_secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: steps * v for k, v in PER_STEP[label].items()}
+    if counts != want:
+        raise AssertionError(f"{label} DACS launch counts {counts} != "
+                             f"{want}")
+    watch.verify()
+    records = _jsonl(os.path.join(TRAIN_WORK_DIR, "metrics.jsonl"))
+    if [r["step"] for r in records] != list(range(1, steps + 1)):
+        raise AssertionError("train_loop did not log every step")
+    losses = {k: [r[k] for r in records] for k in records[0]
+              if "loss" in k or k == "pseudo_weight"}
+    if not all(np.isfinite(v).all() for v in losses.values()) or not any(
+            k.startswith("mix.") for k in losses):
+        raise AssertionError(f"DACS metrics {losses}")
+    _check_ema_checkpoint(state, os.path.join(
+        TRAIN_WORK_DIR, "checkpoints", f"iter_{steps:07d}.ema.npz"))
+    batch = collate([dataset[0], dataset[1]])
+    teacher = _teacher_counts(state, batch, dev)
+    latency = [1.0 / r["steps_per_sec"] for r in records]
+    emit(label, model=cfg["name"], steps=steps,
+         batch=cfg["data"]["batch_size"], crop_hw=list(cfg["crop_size"]),
+         student_passes=1 if type(model).__name__ == "EncoderDecoder" else 2,
+         model_build_s=build_secs, loop_s=loop_secs, step_latency_s=latency,
+         steps_per_s=1.0 / float(np.median(latency[1:])),
+         peak_mem_bytes=peak, launches=counts,
+         launches_per_step={k: v // steps for k, v in counts.items()},
+         teacher_launches=teacher, losses=losses, ema=watch.checks)
+    phase_uda_calibrated(dev, cfg, state, batch, dacs, label)
+    return state, counts, float(np.median(latency[1:]))
+
+
+def run_uda_m2f(dev) -> dict:
+    """uda_rein_dinov2_mask2former_512x512 (sequential student passes, the
+    set loss scaled by the mean pixel weight; B8 at the Rein pyramid's
+    train shapes): UDA_M2F_STEPS DACS steps, a profiled step (phases
+    uda_m2f*)."""
+    t0 = time.perf_counter()
+    cfg = config(UDA_M2F_CONFIG)
+    state, counts, step_s = phase_uda_train(dev, cfg, "uda_m2f",
+                                            UDA_M2F_STEPS)
+    phase_uda_breakdown(dev, cfg, state, "uda_m2f", step_ms=step_s * 1e3)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    emit("uda_m2f_done", seconds=time.perf_counter() - t0)
+    return {"uda_m2f_train": counts}
+
+
+def run_uda_hrda(dev) -> dict:
+    """uda_rein_dinov2_hrda_1024x1024 (sequential, the HR crop's pixel
+    weight cut from its box): UDA_HRDA_STEPS DACS steps (phases
+    uda_hrda*)."""
+    t0 = time.perf_counter()
+    cfg = config(UDA_HRDA_CONFIG)
+    state, counts, _ = phase_uda_train(dev, cfg, "uda_hrda",
+                                       UDA_HRDA_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    emit("uda_hrda_done", seconds=time.perf_counter() - t0)
+    return {"uda_hrda_train": counts}
+
+
+def phase_uda_breakdown(dev, cfg, state, label: str,
+                        step_ms: float = None) -> dict:
+    """One more DACS step, synchronised wall time, then a profiled one:
+    the kernels' device time by family and the idle share against
+    ``step_ms`` (the loop's steady step), or else the unprofiled step."""
+    ds = UDASynthetic(2, tuple(cfg["crop_size"]), cfg["num_classes"],
+                      SEED + 5)
+    batch = collate([ds[0], ds[1]])
+    step_fn = make_dacs_train_step(train_cli.dacs_config(cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batch, SEED)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch, SEED)
+        torch.cuda.synchronize()
+    row = dict(unprofiled_step_ms=wall_ms,
+               **_breakdown(prof, step_ms or wall_ms))
+    emit(f"{label}_breakdown", model=cfg["name"], **row)
+    return row
+
+
+def uda_loader_rate(cfg, source, target) -> tuple:
+    """The UDA data pipeline alone: UDADataset (RCS source, a target
+    sample an item) + the config's TrainPipeline on its worker threads,
+    LOADER_SAMPLES samples, no model."""
+    dcfg = cfg["data"]
+    pipeline = TrainPipeline(**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in dcfg["train_pipeline"].items()})
+    dataset = UDADataset(source, target, pipeline,
+                         rare_class_sampling=dcfg.get("rare_class_sampling"),
+                         seed=SEED)
+    bs = dcfg["batch_size"]
+    t0 = time.perf_counter()
+    loader = InfiniteLoader(dataset, batch_size=bs,
+                            num_workers=dcfg["num_workers"], seed=SEED)
+    try:
+        batches = [next(loader) for _ in range(LOADER_SAMPLES // bs)]
+    finally:
+        loader.close()
+    secs = time.perf_counter() - t0
+    b = batches[0]
+    crop = tuple(pipeline.crop_size)
+    if b["target_img"].shape != (bs, *crop, 3):
+        raise AssertionError(f"UDA batch shapes {b['target_img'].shape}")
+    return dict(samples=LOADER_SAMPLES, seconds=secs,
+                samples_per_s=LOADER_SAMPLES / secs,
+                threads=dcfg["num_workers"]), b
+
+
+def phase_uda_card_vs_cpu(dev, cfg, label: str) -> dict:
+    """One DACS step of ``cfg`` at UDA_CHECK_HW on the card (bf16) and on
+    the CPU (fp32) from the same seeded weights and host draws, dropout
+    off, at a pseudo_threshold set to the median of the CPU teacher's top
+    probability: the teachers' argmax agreement over all pixels and beyond
+    a top-2 gap of CLEAR_GAP, pseudo_weight, the loss entries and the
+    trainable gradients' cosine (TEACHER_AGREE, CLEAR_AGREE,
+    PSEUDO_WEIGHT_ABS, TRAIN_LOSS_REL, TRAIN_GRAD_COS)."""
+    c = copy.deepcopy(cfg)
+    _deterministic(c["model"])
+    ds = UDASynthetic(2, UDA_CHECK_HW, c["num_classes"], SEED + 9)
+    batch = collate([ds[0], ds[1]])
+    tgt = torch.from_numpy(batch["target_img"])
+
+    def state_on(device, dtype):
+        model = init_params(build_segmentor(
+            c["model"], dtype=dtype, device=device,
+            attn_impl=compute_attn_impl(c)), SEED)
+        state = create_train_state(model, c)
+        state.ema = init_ema(model)
+        return state
+
+    runs = {}
+    for side, device, dtype in (("cpu", torch.device("cpu"), torch.float32),
+                                ("card", dev, compute_dtype(cfg))):
+        state = state_on(device, dtype)
+        probs = torch.softmax(teacher_logits(
+            state.model, state.ema, tgt.to(device)).float(), dim=-1).cpu()
+        if side == "cpu":
+            threshold = float(torch.quantile(probs.amax(-1).flatten(), 0.5))
+            dacs = dataclasses.replace(train_cli.dacs_config(c),
+                                       pseudo_threshold=threshold)
+        t0 = time.perf_counter()
+        _, metrics = make_dacs_train_step(dacs)(state, batch, SEED)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        secs = time.perf_counter() - t0
+        grad = torch.cat([p.grad.float().flatten().cpu()
+                          for p in state.model.parameters()
+                          if p.requires_grad])
+        runs[side] = dict(probs=probs, metrics=metrics, grad=grad, secs=secs)
+        del state
+    card, cpu = runs["card"], runs["cpu"]
+    same = card["probs"].argmax(-1) == cpu["probs"].argmax(-1)
+    agree = float(same.float().mean())
+    top2 = torch.log(cpu["probs"]).topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) >= CLEAR_GAP
+    clear_agree = float(same[clear].float().mean())
+    pw_err = abs(card["metrics"]["pseudo_weight"]
+                 - cpu["metrics"]["pseudo_weight"])
+    rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-9)
+           for k, v in cpu["metrics"].items() if "loss" in k}
+    cos = float(F.cosine_similarity(card["grad"].double(),
+                                    cpu["grad"].double(), dim=0))
+    ok = (agree >= TEACHER_AGREE and clear_agree >= CLEAR_AGREE
+          and pw_err <= PSEUDO_WEIGHT_ABS
+          and max(rel.values()) <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
+          and bool(np.isfinite(list(card["metrics"].values())).all()))
+    row = dict(image_hw=list(UDA_CHECK_HW), threshold=threshold,
+               teacher_argmax_agreement=agree, agreement_limit=TEACHER_AGREE,
+               clear_gap=CLEAR_GAP, clear_share=float(clear.float().mean()),
+               clear_agreement=clear_agree,
+               clear_agreement_limit=CLEAR_AGREE,
+               pseudo_weight_card=card["metrics"]["pseudo_weight"],
+               pseudo_weight_cpu=cpu["metrics"]["pseudo_weight"],
+               pseudo_weight_abs_err=pw_err,
+               pseudo_weight_limit=PSEUDO_WEIGHT_ABS, card=card["metrics"],
+               cpu=cpu["metrics"], loss_rel_err=rel,
+               loss_rel_limit=TRAIN_LOSS_REL, grad_cosine=cos,
+               cosine_limit=TRAIN_GRAD_COS,
+               grad_norm_card=float(card["grad"].norm()),
+               grad_norm_cpu=float(cpu["grad"].norm()),
+               card_step_s=card["secs"], cpu_step_s=cpu["secs"], ok=ok)
+    emit(f"{label}_card_vs_cpu", model=cfg["name"], **row)
+    if not ok:
+        raise AssertionError(f"{label} DACS card vs CPU: {row}")
+    return row
+
+
+def phase_uda_cli(dev) -> dict:
+    """uda_rein_dinov2_segformer_512x512 (exactly EncoderDecoder: one 2B
+    student pass) through the train CLI (``tools/train.py``'s ``run``) at
+    full width in bf16: 8 in-memory GTA-frame source samples with RCS
+    statistics in a temporary data root and 4 Cityscapes-frame target
+    images, through the config's pipeline (scale jitter, 512^2 crop, flip,
+    photometric distortion) on 4 loader threads; UDA_CLI_STEPS steps with
+    a checkpoint (ema included) at the last. Launches a step, the EMA's
+    first moves, the logged metrics; the loader's samples/s, the CLI's
+    steps/s, a profiled DACS step's device time and idle share, peak
+    memory; then the calibrated threshold and one step card vs CPU."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(UDA_CLI_DIR, ignore_errors=True)
+    data_root = os.path.join(UDA_CLI_DIR, "data")
+    work_dir = os.path.join(UDA_CLI_DIR, "run")
+    cfg = load_config(UDA_SEGFORMER_CONFIG, [
+        f"data.source.data_root={data_root}", "schedule.log_interval=1",
+        f"schedule.checkpoint_interval={UDA_CLI_STEPS}",
+        "schedule.val_interval=0"])
+    t0 = time.perf_counter()
+    rs = np.random.default_rng(SEED + 41)
+    source = MemorySource([synthetic_sample(rs, TRAIN_CLI_SOURCE_HW, 19)
+                           for _ in range(TRAIN_CLI_SAMPLES)], data_root)
+    target = [dict(img=synthetic_sample(rs, TARGET_HW, 19)["img"])
+              for _ in range(4)]
+    data_secs = time.perf_counter() - t0
+    loader_stats, batch = uda_loader_rate(cfg, source, target)
+
+    watches = []
+    make_step = train_cli.make_dacs_train_step
+
+    def watched(dacs):
+        watches.append(EMAWatch(make_step(dacs), dacs.head_key))
+        return watches[-1]
+
+    train_cli.make_dacs_train_step = watched
+    try:
+        args = train_cli.parse_args([UDA_SEGFORMER_CONFIG, "--work-dir",
+                                     work_dir, "--max-iters",
+                                     str(UDA_CLI_STEPS)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_cli.run(cfg, args, source=source, val_sets={},
+                              target=target)
+        torch.cuda.synchronize()
+        run_secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        train_cli.make_dacs_train_step = make_step
+    want = {k: UDA_CLI_STEPS * v for k, v in PER_STEP["uda_segformer"].items()}
+    if counts != want:
+        raise AssertionError(f"UDA CLI launch counts {counts} != {want}")
+    watches[0].verify()
+    train = [r for r in _jsonl(os.path.join(work_dir, "metrics.jsonl"))
+             if r["prefix"] == "train"]
+    if [r["step"] for r in train] != list(range(1, UDA_CLI_STEPS + 1)):
+        raise AssertionError("the train CLI did not log every step")
+    keys = {"src.decode.loss_ce", "mix.decode.loss_ce", "loss",
+            "pseudo_weight"}
+    if not all(keys <= r.keys() and np.isfinite([r[k] for k in keys]).all()
+               for r in train):
+        raise AssertionError(f"UDA CLI metrics {train}")
+    ckpt = os.path.join(work_dir, "checkpoints",
+                        f"iter_{UDA_CLI_STEPS:07d}.ema.npz")
+    _check_ema_checkpoint(state, ckpt)
+    cli_step_s = [1.0 / r["steps_per_sec"] for r in train]
+    steady_s = float(np.mean(cli_step_s[1:]))
+    profiled = phase_uda_breakdown(dev, cfg, state, "uda_segformer",
+                                   step_ms=steady_s * 1e3)
+    teacher = _teacher_counts(state, batch, dev)
+    calibrated = phase_uda_calibrated(dev, cfg, state, batch,
+                                      train_cli.dacs_config(cfg),
+                                      "uda_segformer")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(UDA_CLI_DIR, ignore_errors=True)
+    emit("uda_segformer", model=cfg["name"], batch=cfg["data"]["batch_size"],
+         crop_hw=list(cfg["data"]["train_pipeline"]["crop_size"]),
+         student_passes=1, data_build_s=data_secs, loader=loader_stats,
+         run_s=run_secs, step_s=cli_step_s,
+         steps_per_s_2_to_last=1.0 / steady_s, peak_mem_bytes=peak,
+         launches=counts,
+         launches_per_step={k: v // UDA_CLI_STEPS for k, v in counts.items()},
+         teacher_launches=teacher, ema=watches[0].checks,
+         pseudo_weight=[r["pseudo_weight"] for r in train],
+         losses={k: [r[k] for r in train] for k in sorted(keys)},
+         idle_share=profiled["idle_share"],
+         calibrated_threshold=calibrated["calibrated_threshold"],
+         seconds=time.perf_counter() - t_phase)
+    phase_uda_card_vs_cpu(dev, cfg, "uda_segformer")
+    return {"uda_segformer": counts}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -3270,6 +3885,8 @@ def main() -> None:
     mit_rows, mit_ln_rows, mit_paths = run_mit_paths(dev)
     _mit_rows(summary, mit_rows, mit_ln_rows)
     by_path.update(mit_paths)
+    for run in (run_dg_paths, phase_uda_cli, run_uda_m2f, run_uda_hrda):
+        by_path.update(run(dev))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}
         row["launches"] = sum(paths.values())

@@ -7,10 +7,10 @@ heads at 16 channels; Mask2Former at 32 channels, 10 queries, one layer,
 16 points; HR crops of 64), built with ``build_segmentor(device="cpu")``,
 filled by ``init_params`` and run once in training mode inside
 ``rng.streams`` on a 64 px batch (128 px for the two-scale segmentors): at
-least one loss entry, all finite. The ``DomainGeneral`` config raises the
-``NotImplementedError`` that names its queue item, A10. The shrinking
-itself is the JAX test's (``_shrink_model``), so both packages build the
-same shapes.
+least one loss entry, all finite. The ``DomainGeneral`` config wraps the
+shrunk headline with its mask branch on: its ``mask.*`` losses are there
+too, and finite. The shrinking itself is the JAX test's
+(``_shrink_model``), so both packages build the same shapes.
 """
 
 import glob
@@ -54,15 +54,16 @@ def test_config_builds_and_forwards(path):
         return
     model_cfg = cfg.model.to_dict()
     _shrink_model(model_cfg)
-    if model_cfg["type"] == "DomainGeneral":
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            build_segmentor(model_cfg, device="cpu")
-        return
+    wrapped = model_cfg["type"] == "DomainGeneral"
+    inner_type = model_cfg["model_cfg"]["type"] if wrapped else (
+        model_cfg["type"])
     model = init_params(build_segmentor(model_cfg, device="cpu"), 0).train()
-    img, labels = _batch(128 if model_cfg["type"] in TWO_SCALE else 64)
+    img, labels = _batch(128 if inner_type in TWO_SCALE else 64)
     with rng.streams(step_generators(0, 0, torch.device("cpu"))):
         losses = model(img, labels)
     loss_keys = [k for k in losses if "loss" in k]
     assert loss_keys, f"{path}: no loss entries in {sorted(losses)}"
+    if wrapped and model_cfg.get("enable_mask_loss"):
+        assert any(k.startswith("mask.") for k in loss_keys), sorted(losses)
     for k in loss_keys:
         assert torch.isfinite(losses[k]), f"{path}: {k} not finite"

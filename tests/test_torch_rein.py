@@ -450,8 +450,8 @@ def test_unported_configs_name_their_queue_item(name, item):
     """The configs that named their queue item while CLIP (A7) and the
     remaining heads and segmentors (A9) were not ported now build, shrunk
     as the build-all test shrinks them: the item is done, and
-    ``QUEUE_ITEMS`` holds only A10's DomainGeneral."""
-    assert QUEUE_ITEMS == {"DomainGeneral": "A10"}
+    ``QUEUE_ITEMS`` is empty (A10's DomainGeneral builds too)."""
+    assert QUEUE_ITEMS == {}
     assert item not in QUEUE_ITEMS.values()
     model_cfg = presets.config(name)["model"].to_dict()
     _shrink_model(model_cfg)
@@ -461,11 +461,18 @@ def test_unported_configs_name_their_queue_item(name, item):
 
 
 def test_uda_configs_refuse_to_train_naming_a10():
-    """The uda_* configs build (the Rein Mask2Former one is this slice's
-    model) but the train CLI refuses their DACS step, naming A10."""
+    """The train CLI takes the three uda_* configs (A10 ported their DACS
+    step) and still refuses data parallelism over several cards, naming
+    A11."""
     from vfmseg_tpu_torch.tools import train as train_cli
 
-    cfg = presets.config("uda_rein_dinov2_mask2former_512x512")
-    args = train_cli.parse_args(["uda_rein_dinov2_mask2former_512x512"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        train_cli._check_ported(cfg, args)
+    for name in ("uda_rein_dinov2_mask2former_512x512",
+                 "uda_rein_dinov2_segformer_512x512",
+                 "uda_rein_dinov2_hrda_1024x1024"):
+        cfg = presets.config(name)
+        assert cfg["uda"]["type"] == "DACS"
+        train_cli._check_ported(cfg, train_cli.parse_args([name]))
+        assert train_cli.dacs_config(cfg).pseudo_threshold == 0.968
+    cfg.setdefault("compute", {})["data_parallel"] = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        train_cli._check_ported(cfg, train_cli.parse_args([name]))

@@ -6,6 +6,8 @@ As in the JAX package, the functions built here take the weights at call
 time: there the flax ``variables``, here the segmentor module that holds
 them, so one predictor serves any copy of the model (CPU fp32 or CUDA bf16).
 
+* ``unwrap_model`` gives DomainGeneral's inner segmentor, through which
+  every function below predicts.
 * ``make_logits_fn`` gives ``(model, img) -> input-sized logits`` for the
   MsVFM modes: ``ms_slide_inference`` (the dense gated two-stage slide),
   ``lr_slide_inference``, ``hr_slide_inference`` and
@@ -53,6 +55,7 @@ from vfmseg_tpu_torch.eval.slide import (
     slide_inference,
 )
 from vfmseg_tpu_torch.eval.tta import tta_logits
+from vfmseg_tpu_torch.models.algorithms.dg import DomainGeneral
 from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
 from vfmseg_tpu_torch.ops.resize import resize
 
@@ -61,12 +64,10 @@ MSVFM_MODES = ("ms_slide_inference", "lr_slide_inference",
 
 
 def unwrap_model(model):
-    """The segmentor that predicts. The JAX package unwraps its DomainGeneral
-    wrapper here; the port has none yet (A10), so it raises for one and
-    passes every other model through."""
-    if type(model).__name__ == "DomainGeneral":
-        raise NotImplementedError("DomainGeneral is not ported")
-    return model
+    """The segmentor that predicts: DomainGeneral's inner model (reference
+    Wrapper.py:24-45), any other model itself. The functions built here
+    unwrap the model they are given at call time too."""
+    return model.model if isinstance(model, DomainGeneral) else model
 
 
 def _model_device(model) -> torch.device:
@@ -85,10 +86,10 @@ def make_logits_fn(model, test_cfg: Dict, mode: str) -> Callable:
             raise NotImplementedError(
                 f"mode {mode!r} on {type(model).__name__} is not ported")
         if mode == "whole":
-            return lambda m, img: m.encode_decode(img)
+            return lambda m, img: unwrap_model(m).encode_decode(img)
         slide_stride = tuple(test_cfg.get("stride", (341, 341)))
-        return lambda m, img: slide_inference(m.encode_decode, img, crop,
-                                              slide_stride)
+        return lambda m, img: slide_inference(unwrap_model(m).encode_decode,
+                                              img, crop, slide_stride)
     if mode not in MSVFM_MODES:
         raise NotImplementedError(
             f"mode {mode!r} on {type(model).__name__} is not ported")
@@ -96,6 +97,7 @@ def make_logits_fn(model, test_cfg: Dict, mode: str) -> Callable:
     lr_size = tuple(test_cfg.get("lr_img_size", (512, 1024)))
 
     def logits_fn(m: MsVFMSegmentor, img: torch.Tensor) -> torch.Tensor:
+        m = unwrap_model(m)
         if mode == "ms_slide_inference":
             return ms_slide_inference(
                 m.lr_forward, m.hr_forward, img, crop=crop, stride=stride,
@@ -149,10 +151,10 @@ def _is_compact(test_cfg: Dict, tta: bool) -> bool:
 def make_compact_ms_slide(model, test_cfg: Dict, **kwargs) -> CompactMsSlide:
     """The compact gated engine for ``model`` and ``test_cfg``; ``kwargs``
     go to ``CompactMsSlide`` (``buckets``, ``forced_bucket``)."""
-    unwrap_model(model)
     test_cfg = test_cfg or {}
     return CompactMsSlide(
-        lambda m, x: m.lr_forward(x), lambda m, c, t: m.hr_forward(c, t),
+        lambda m, x: unwrap_model(m).lr_forward(x),
+        lambda m, c, t: unwrap_model(m).hr_forward(c, t),
         crop=tuple(test_cfg.get("crop_size", (512, 512))),
         stride=tuple(test_cfg.get("stride", (320, 320))),
         lr_size=tuple(test_cfg.get("lr_img_size", (512, 1024))),

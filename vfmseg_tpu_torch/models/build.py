@@ -6,9 +6,8 @@ segmentor), FrozenBackboneEncoderDecoder, LoraBackboneEncoderDecoder,
 HRDAEncoderDecoder and FrozenHRDAEncoderDecoder (with an HRDAHead over a
 seg head and an AttentionHead) and MultiScaleEncoderDecoder; the heads
 LinearHead, VFMHead, SegformerHead, AttentionHead, DAFormerHead and
-DINOhead; the backbones of ``backbones/dinov2.py`` ``build_backbone``.
-DomainGeneral raises ``NotImplementedError`` naming the ROADMAP item that
-ports it (A10).
+DINOhead; the backbones of ``backbones/dinov2.py`` ``build_backbone``; and
+the DomainGeneral wrapper around any of those segmentors.
 ``attn_impl`` (a config's ``compute.attn_impl``) reaches every backbone and
 head, as in the JAX builder. A key that a builder neither uses nor names
 as ignored raises ``TypeError``, so no config option is dropped silently.
@@ -20,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from vfmseg_tpu_torch.models.algorithms.dg import DomainGeneral
 from vfmseg_tpu_torch.models.backbones.dinov2 import build_backbone
 from vfmseg_tpu_torch.models.backbones.vit import ATTN_IMPLS
 from vfmseg_tpu_torch.models.common import not_ported
@@ -270,13 +270,41 @@ def build_multiscale_encoder_decoder(
         crop_coord_divisible=crop_coord_divisible, detail_loss=detail_loss)
 
 
+def build_domain_general(
+    model_cfg: Dict[str, Any], dtype: torch.dtype = torch.float32,
+    attn_impl: str = "auto", train_cfg: Optional[dict] = None,
+    enable_mask_loss: bool = False, color_jitter_strength: float = 0.25,
+    color_jitter_probability: float = 0.2, blur: bool = True,
+    mask_ratio: float = 0.7, mask_block_size: int = 64,
+    lamda_mask: float = 0.5,
+) -> DomainGeneral:
+    """JAX build.py:230-247: the wrapper around the segmentor of
+    ``model_cfg``, built with the same ``dtype`` and ``attn_impl``, with
+    the seven keys the JAX builder passes on (any other key raises
+    ``TypeError`` here, where the JAX builder drops it); ``train_cfg``:
+    read by neither builder."""
+    del train_cfg
+    inner = dict(model_cfg)
+    kind = inner.pop("type")
+    if kind not in _SEGMENTORS:
+        raise not_ported("segmentor", kind)
+    return DomainGeneral(
+        _SEGMENTORS[kind](dtype=dtype, attn_impl=attn_impl, **inner),
+        enable_mask_loss=enable_mask_loss,
+        color_jitter_strength=color_jitter_strength,
+        color_jitter_probability=color_jitter_probability, blur=blur,
+        mask_ratio=mask_ratio, mask_block_size=mask_block_size,
+        lamda_mask=lamda_mask)
+
+
 _SEGMENTORS = {"MsVFMEncoderDecoder": build_ms_vfm_encoder_decoder,
                "EncoderDecoder": build_encoder_decoder,
                "FrozenBackboneEncoderDecoder": build_frozen_encoder_decoder,
                "LoraBackboneEncoderDecoder": build_lora_encoder_decoder,
                "HRDAEncoderDecoder": build_hrda_encoder_decoder,
                "FrozenHRDAEncoderDecoder": build_frozen_hrda_encoder_decoder,
-               "MultiScaleEncoderDecoder": build_multiscale_encoder_decoder}
+               "MultiScaleEncoderDecoder": build_multiscale_encoder_decoder,
+               "DomainGeneral": build_domain_general}
 
 
 def build_segmentor(model_cfg: Dict[str, Any],

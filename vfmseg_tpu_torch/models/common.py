@@ -1,8 +1,9 @@
 """Shared model helpers.
 
 ``gn_groups`` ports vfmseg_tpu/models/common.py. :func:`not_ported` is the
-error the builders raise for a config type the port does not build yet,
-naming the ROADMAP Queue A item that ports it. The layers below hold fp32
+error the builders raise for a config type the port does not build, naming
+the ROADMAP Queue A item that ports it where there is one (none is left:
+``QUEUE_ITEMS`` is empty). The layers below hold fp32
 parameters and compute in a ``dtype`` given at construction, as the flax
 layers of the JAX package do with ``dtype=``; the convolutions, the norms
 and the pooling take and return NHWC tensors and go NCHW only inside.
@@ -22,7 +23,7 @@ from torch import nn
 
 
 # config type -> the ROADMAP Queue A item that ports it
-QUEUE_ITEMS = {"DomainGeneral": "A10"}
+QUEUE_ITEMS: dict = {}
 
 
 def not_ported(what: str, kind: str) -> NotImplementedError:

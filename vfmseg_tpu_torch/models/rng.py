@@ -1,7 +1,9 @@
 """Named random streams for the training forward, flax's ``make_rng``.
 
-The JAX package's training forward draws from three named streams: ``crop``
-(the HR crop box), ``mask`` (the decoder's mask tokens) and ``dropout``. Here
+The JAX package's training forward draws from four named streams: ``crop``
+(the HR crop box), ``mask`` (the decoder's mask tokens), ``dropout`` and
+``augment`` (the strong augmentations of DomainGeneral and DACS: jitter
+factors, coins, blur sigma, ClassMix scores, the block-mask grid). Here
 the train step installs one ``torch.Generator`` per name with :func:`streams`
 for the length of the forward, and the modules draw through the functions
 below, so no draw touches PyTorch's global generator and a step's draws

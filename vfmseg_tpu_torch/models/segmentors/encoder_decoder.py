@@ -5,8 +5,8 @@ Port of vfmseg_tpu/models/segmentors/encoder_decoder.py:21-58.
 ``forward``), ``encode_decode(img)`` resizes them to the image (mmseg
 ``encode_decode``), which the ``whole`` and ``slide`` modes call, and
 ``forward(img, labels)`` the training losses (the JAX ``__call__``):
-``decode.loss_ce`` and ``decode.acc_seg`` on the logits resized bilinearly to
-the labels. With ``frozen_backbone`` (FrozenBackboneEncoderDecoder) the
+``decode.loss_ce`` (optionally weighted per pixel) and ``decode.acc_seg`` on
+the logits resized bilinearly to the labels. With ``frozen_backbone`` (FrozenBackboneEncoderDecoder) the
 backbone runs deterministic (in eval mode, also while the segmentor trains)
 and without a graph, as the JAX module stops the features' gradient. NHWC
 in and out.
@@ -66,15 +66,19 @@ class EncoderDecoder(nn.Module):
             return backbone_outputs(self.backbone, img)
 
     def forward(self, img: torch.Tensor,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                pixel_weight: Optional[torch.Tensor] = None):
         """Head logits at the head's stride for a [B, H, W, 3] image; with
-        ``labels`` [B, H, W] (255 ignored), the training loss dict."""
+        ``labels`` [B, H, W] (255 ignored), the training loss dict, the CE
+        weighted per pixel by ``pixel_weight`` [B, H, W] where given (DACS's
+        pseudo-label confidence)."""
         logits = self.decode_head(self.features(img)[0])
         if labels is None:
             return logits
         logits = resize(logits, size=labels.shape[1:3], method="bilinear",
                         align_corners=self.align_corners)
-        return {"decode.loss_ce": cross_entropy_loss(logits, labels),
+        return {"decode.loss_ce": cross_entropy_loss(
+                    logits, labels, pixel_weight=pixel_weight),
                 "decode.acc_seg": seg_accuracy(logits, labels)}
 
     def encode_decode(self, img: torch.Tensor) -> torch.Tensor:

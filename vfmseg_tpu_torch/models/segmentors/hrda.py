@@ -17,7 +17,9 @@ context logits and, through the scale-attention head, the per-pixel weight
   the LR-seg grid, pastes the HR logits into a zero canvas at the box and
   resizes x2. The losses are the fused ``loss_seg`` (weight 1 - lr - hr),
   ``lr.loss_seg`` where ``lr_loss_weight`` > 0 and ``hr.loss_seg`` /
-  ``hr.acc_seg`` on the crop where ``hr_loss_weight`` > 0. The LR image
+  ``hr.acc_seg`` on the crop where ``hr_loss_weight`` > 0; an optional
+  ``pixel_weight`` weights each CE, cut to the crop for the HR loss
+  (hrda.py:107-124). The LR image
   and the crop go through the backbone in two calls, as in JAX.
 * Inference (``encode_decode``, hrda.py:154-182): the LR pass, then every
   HR crop of the slide grid at stride crop / ``hr_slide_stride_divider``
@@ -118,10 +120,12 @@ class HRDAEncoderDecoder(nn.Module):
         return y1, x1
 
     def forward(self, img: torch.Tensor,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                pixel_weight: Optional[torch.Tensor] = None):
         """``encode_decode(img)``; with ``labels`` [B, H, W] (255 ignored),
         the training loss dict (needs the ``crop`` and ``dropout`` streams,
-        ``rng.streams``)."""
+        ``rng.streams``), each CE weighted per pixel by ``pixel_weight``
+        [B, H, W] where given (the HR loss by its crop)."""
         if labels is None:
             return self.encode_decode(img)
         h, w = img.shape[1:3]
@@ -136,17 +140,20 @@ class HRDAEncoderDecoder(nn.Module):
         main_w = 1.0 - head.lr_loss_weight - head.hr_loss_weight
         fused_up = self._resize(fused, size=(h, w))
         losses: Dict[str, torch.Tensor] = {
-            "loss_seg": main_w * cross_entropy_loss(fused_up, labels),
+            "loss_seg": main_w * cross_entropy_loss(
+                fused_up, labels, pixel_weight=pixel_weight),
             "acc_seg": seg_accuracy(fused_up, labels)}
         if head.lr_loss_weight > 0:
             lr_up = self._resize(lr_seg, size=(h, w))
             losses["lr.loss_seg"] = head.lr_loss_weight * cross_entropy_loss(
-                lr_up, labels)
+                lr_up, labels, pixel_weight=pixel_weight)
         if head.hr_loss_weight > 0:
             hr_labels = labels[:, y1:y1 + ch, x1:x1 + cw]
+            hr_weight = (None if pixel_weight is None
+                         else pixel_weight[:, y1:y1 + ch, x1:x1 + cw])
             hr_up = self._resize(hr_seg, size=(ch, cw))
             losses["hr.loss_seg"] = head.hr_loss_weight * cross_entropy_loss(
-                hr_up, hr_labels)
+                hr_up, hr_labels, pixel_weight=hr_weight)
             losses["hr.acc_seg"] = seg_accuracy(hr_up, hr_labels)
         return losses
 

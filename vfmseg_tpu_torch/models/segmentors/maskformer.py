@@ -8,8 +8,9 @@ vector where there is one (rein_mask2former.py:26-30).
   semantic logits at the mask features' resolution (``semantic_inference``);
   ``encode_decode`` resizes them to the image.
 * ``forward(img, labels)``: every stage's predictions through the
-  set-prediction loss (``heads/m2f_loss.py``) with ``num_points`` points; it
-  draws from the ``mask`` stream. A frozen backbone runs in the segmentor's
+  set-prediction loss (``heads/m2f_loss.py``) with ``num_points`` points,
+  scaled by the mean of an optional ``pixel_weight`` (maskformer.py:66-67);
+  it draws from the ``mask`` stream. A frozen backbone runs in the segmentor's
   mode (the JAX ``__call__`` runs it with ``train=True``) without a graph,
   its maps and queries detached.
 """
@@ -37,16 +38,24 @@ class MaskFormerSegmentor(EncoderDecoder):
         self.num_points = num_points
 
     def forward(self, img: torch.Tensor,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                pixel_weight: Optional[torch.Tensor] = None):
         """Semantic logits [B, h, w, num_classes] in fp32 at the mask
         features' resolution (the first backbone map's); with ``labels``
-        [B, H, W] (255 ignored), the multi-stage loss dict."""
+        [B, H, W] (255 ignored), the multi-stage loss dict, every loss
+        scaled by the mean of ``pixel_weight`` where given (a per-pixel
+        weight has no direct analogue in set prediction)."""
         feats, queries = self.features(img)
         cls_preds, mask_preds = self.decode_head(feats, queries,
                                                  train=labels is not None)
         if labels is None:
             return semantic_inference(cls_preds[-1], mask_preds[-1],
                                       self.num_classes)
-        return mask2former_loss(cls_preds, mask_preds, labels,
-                                num_classes=self.num_classes,
-                                num_points=self.num_points)
+        losses = mask2former_loss(cls_preds, mask_preds, labels,
+                                  num_classes=self.num_classes,
+                                  num_points=self.num_points)
+        if pixel_weight is not None:
+            scale = pixel_weight.float().mean()
+            losses = {k: (v * scale if "loss" in k else v)
+                      for k, v in losses.items()}
+        return losses

@@ -15,7 +15,9 @@ package's ``CheckpointManager`` saves it) and the converted backbone (flax
 paths below ``backbone/``) are loaded through ``state_dict_from_flax``. The
 JAX CLI never reads the BatchNorm statistics that training saves beside the
 trainable file (``iter_N.batch_stats.npz``), so it evaluates with zero
-running statistics; this CLI loads that file when it is there.
+running statistics; this CLI loads that file when it is there. A
+DomainGeneral config evaluates its inner segmentor (``unwrap_model``), and a
+checkpoint saved from the wrapper (paths under ``model/``) loads into it.
 
 Each test set of ``data.test`` (else ``data.val``) goes through its own
 ``TestPipeline`` (``test_resize_wh``, ``keep_ratio``), and
@@ -40,6 +42,7 @@ from vfmseg_tpu_torch.eval.evaluator import (
     _is_compact,
     make_shape_aware_predict_fn,
     stream_evaluate,
+    unwrap_model,
 )
 from vfmseg_tpu_torch.eval.metrics import CITYSCAPES_CLASSES, IoUAccumulator
 from vfmseg_tpu_torch.models.build import (
@@ -72,6 +75,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _unwrapped(tree: dict) -> dict:
+    """A tree saved from the DomainGeneral wrapper (everything under
+    ``model/``) as its inner segmentor's."""
+    return tree["model"] if set(tree) == {"model"} else tree
+
+
 def _load(model: torch.nn.Module, variables: dict, what: str) -> None:
     unexpected = model.load_state_dict(
         state_dict_from_flax(variables, model), strict=False).unexpected_keys
@@ -89,10 +98,12 @@ def load_weights(model: torch.nn.Module, checkpoint: Optional[str],
     for t in model.state_dict().values():
         t.zero_()
     if checkpoint:
-        _load(model, {"params": load_npz_tree(checkpoint, "t")}, checkpoint)
+        _load(model, {"params": _unwrapped(load_npz_tree(checkpoint, "t"))},
+              checkpoint)
         stats = checkpoint.replace(".trainable.npz", ".batch_stats.npz")
         if stats != checkpoint and os.path.exists(stats):
-            _load(model, {"batch_stats": load_npz_tree(stats, "b")}, stats)
+            _load(model, {"batch_stats": _unwrapped(
+                load_npz_tree(stats, "b"))}, stats)
     if backbone:
         _load(model, {"params": {"backbone": load_npz_tree(backbone)}},
               backbone)
@@ -170,9 +181,9 @@ def _saver(show_dir: Optional[str], key: str):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = config(args.config, args.cfg_options)
-    model = build_segmentor(cfg["model"], dtype=compute_dtype(cfg),
-                            device=args.device,
-                            attn_impl=compute_attn_impl(cfg))
+    model = unwrap_model(build_segmentor(
+        cfg["model"], dtype=compute_dtype(cfg), device=args.device,
+        attn_impl=compute_attn_impl(cfg)))
     load_weights(model, args.checkpoint, args.backbone)
 
     test_sets = cfg.get_path("data.test") or cfg.get_path("data.val") or []

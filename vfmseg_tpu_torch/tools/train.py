@@ -11,21 +11,26 @@ Port of tools/train.py (the JAX package's), with the same flags but
 read by the port's loader. The model's weights come from
 ``schedule.seed`` (``weights.init_params``); ``--backbone-init`` loads a
 converted backbone (``.npz`` in the JAX package's layout, from either
-package's ``convert_*`` tool) under the ``backbone`` prefix. The source
-dataset (``data.source``) goes through ``data.train_pipeline`` with
-Rare-Class Sampling (``data.rare_class_sampling``) into ``InfiniteLoader``;
+package's ``convert_*`` tool) under the backbone's prefix (``backbone``, or
+``model.backbone`` under the DomainGeneral wrapper). The source dataset
+(``data.source``) goes through ``data.train_pipeline`` with Rare-Class
+Sampling (``data.rare_class_sampling``) into ``InfiniteLoader``;
 ``train_loop`` runs ``make_train_step`` with AdamW + PolyLR on the
 trainable partition (``peft``), logs to ``<work_dir>/metrics.jsonl``,
 checkpoints under ``<work_dir>/checkpoints`` and, every
 ``schedule.val_interval`` steps, evaluates ``data.val`` (at most
 ``data.val_max_images`` images each) with the dense predictor, keeping
-``best.trainable.npz`` by ``schedule.save_best``.
+``best.trainable.npz`` by ``schedule.save_best``. A config with a ``uda``
+section trains DACS instead (``train/uda.py``): each item pairs the source
+sample with a target sample from ``data.target`` (``UDADataset``), the
+state carries the EMA copy of the head (``uda.head_key``), and the step is
+``make_dacs_train_step`` with a ``DACSConfig`` from that section.
 
-:func:`run` takes a loaded config, the parsed arguments and, optionally, an
-in-memory source dataset and validation sets in place of the config's.
-Not ported yet, and raising: UDA configs (the DACS step, ROADMAP A10),
-data parallelism over several cards (A11) and the debug image grids
-(``schedule.debug_interval``, ``log_config.img_interval``; A11).
+:func:`run` takes a loaded config, the parsed arguments and, optionally,
+in-memory source and target datasets and validation sets in place of the
+config's. Not ported yet, and raising: data parallelism over several cards
+(ROADMAP A11) and the debug image grids (``schedule.debug_interval``,
+``log_config.img_interval``; A11).
 """
 
 from __future__ import annotations
@@ -38,7 +43,11 @@ import numpy as np
 import torch
 
 from vfmseg_tpu_torch.core.config import Config, load_config
-from vfmseg_tpu_torch.data.datasets import DGDataset, build_dataset
+from vfmseg_tpu_torch.data.datasets import (
+    DGDataset,
+    UDADataset,
+    build_dataset,
+)
 from vfmseg_tpu_torch.data.loader import InfiniteLoader
 from vfmseg_tpu_torch.data.transforms import TestPipeline, TrainPipeline
 from vfmseg_tpu_torch.eval.evaluator import make_predict_fn
@@ -53,8 +62,14 @@ from vfmseg_tpu_torch.train.checkpoint import (
     trainable_state_dict,
 )
 from vfmseg_tpu_torch.train.loop import train_loop
+from vfmseg_tpu_torch.train.optim import resolve_backbone_prefix
 from vfmseg_tpu_torch.train.state import TrainState, create_train_state
 from vfmseg_tpu_torch.train.step import make_train_step
+from vfmseg_tpu_torch.train.uda import (
+    DACSConfig,
+    init_ema,
+    make_dacs_train_step,
+)
 from vfmseg_tpu_torch.weights import (
     flax_from_state_dict,
     init_params,
@@ -94,20 +109,38 @@ def build_model(cfg: Config, device: str, amp: bool) -> torch.nn.Module:
 
 
 @torch.no_grad()
-def load_backbone(model: torch.nn.Module, path: str) -> None:
-    """Load a converted backbone tree (flax paths) under ``backbone``."""
-    sd = state_dict_from_flax({"params": {"backbone": load_pytree(path)}},
-                              model)
+def load_backbone(model: torch.nn.Module, path: str) -> str:
+    """Load a converted backbone tree (flax paths) under the backbone's
+    prefix; returns the prefix."""
+    tree = load_pytree(path)
+    prefix = resolve_backbone_prefix(model)
+    for seg in reversed(prefix):
+        tree = {seg: tree}
+    sd = state_dict_from_flax({"params": tree}, model)
     unexpected = model.load_state_dict(sd, strict=False).unexpected_keys
     if unexpected:
         raise ValueError(f"{path} holds entries the model does not have: "
                          f"{sorted(unexpected)[:5]}")
+    return "/".join(prefix)
+
+
+def dacs_config(cfg: Config) -> DACSConfig:
+    """The ``DACSConfig`` of a config's ``uda`` section (the keys of
+    tools/train.py:182-194)."""
+    uda = cfg["uda"]
+    return DACSConfig(
+        pseudo_threshold=uda.get("pseudo_threshold", 0.968),
+        psweight_ignore_top=uda.get("pseudo_weight_ignore_top", 15),
+        psweight_ignore_bottom=uda.get("pseudo_weight_ignore_bottom", 120),
+        color_jitter_strength=uda.get("color_jitter_strength", 0.25),
+        color_jitter_probability=uda.get("color_jitter_probability", 0.2),
+        blur=uda.get("blur", True),
+        num_classes=cfg.get("num_classes", 19),
+        alpha=uda.get("alpha", 0.999),
+        head_key=uda.get("head_key", "decode_head"))
 
 
 def _check_ported(cfg: Config, args) -> None:
-    if cfg.get("uda"):
-        raise NotImplementedError("UDA training (the DACS step) is not "
-                                  "ported yet (ROADMAP A10)")
     if args.distributed or cfg.get_path("compute.data_parallel", 1) > 1:
         raise NotImplementedError("data-parallel training over several "
                                   "cards is not ported yet (ROADMAP A11)")
@@ -153,20 +186,22 @@ def make_val_fn(model: torch.nn.Module, cfg: Config,
 
 
 def run(cfg: Config, args, source=None,
-        val_sets: Optional[Mapping[str, object]] = None) -> TrainState:
+        val_sets: Optional[Mapping[str, object]] = None,
+        target=None) -> TrainState:
     """Train by ``cfg`` and ``args`` (``parse_args``'s namespace); the
-    source dataset is ``source`` if given, else ``data.source``; the
-    validation sets (key -> dataset) ``val_sets`` if given, else
-    ``data.val``. Returns the final state."""
+    source dataset is ``source`` if given, else ``data.source``; with a
+    ``uda`` section the target is ``target`` if given, else
+    ``data.target``; the validation sets (key -> dataset) ``val_sets`` if
+    given, else ``data.val``. Returns the final state."""
     _check_ported(cfg, args)
     work_dir = args.work_dir or os.path.join("work_dirs",
                                              cfg.get("name", "run"))
     os.makedirs(work_dir, exist_ok=True)
     model = build_model(cfg, args.device, args.amp)
     if args.backbone_init:
-        load_backbone(model, args.backbone_init)
+        prefix = load_backbone(model, args.backbone_init)
         print(f"loaded backbone weights from {args.backbone_init} "
-              f"-> backbone")
+              f"-> {prefix}")
 
     dcfg = cfg["data"]
     seed = cfg.get_path("schedule.seed", 0)
@@ -174,12 +209,25 @@ def run(cfg: Config, args, source=None,
         source = build_dataset(dcfg["source"])
     pipeline = TrainPipeline(**{k: tuple(v) if isinstance(v, list) else v
                                 for k, v in dcfg["train_pipeline"].items()})
-    dataset = DGDataset(source, pipeline,
-                        rare_class_sampling=dcfg.get("rare_class_sampling"),
-                        seed=seed)
+    rcs = dcfg.get("rare_class_sampling")
+    if cfg.get("uda"):
+        if target is None:
+            target = build_dataset(dcfg["target"])
+        dataset = UDADataset(source, target, pipeline,
+                             rare_class_sampling=rcs, seed=seed)
+    else:
+        dataset = DGDataset(source, pipeline, rare_class_sampling=rcs,
+                            seed=seed)
 
     max_iters = args.max_iters or cfg.get_path("schedule.max_iters", 40000)
     state = create_train_state(model, cfg, max_iters=max_iters)
+    if cfg.get("uda"):
+        dacs = dacs_config(cfg)
+        state.ema = init_ema(model, dacs.head_key)  # a copy, not an alias
+        state.ema_key = dacs.head_key
+        step_fn = make_dacs_train_step(dacs)
+    else:
+        step_fn = make_train_step()
     trainable = trainable_state_dict(model)
     n_train = sum(p.numel() for p in trainable.values())
     n_total = sum(p.numel() for p in model.parameters())
@@ -202,7 +250,7 @@ def run(cfg: Config, args, source=None,
                             seed=seed)
     try:
         return train_loop(
-            state, make_train_step(), loader, max_iters=max_iters,
+            state, step_fn, loader, max_iters=max_iters,
             work_dir=work_dir, seed=seed,
             log_interval=sched.get("log_interval", 50),
             checkpoint_interval=sched.get("checkpoint_interval", 4000),

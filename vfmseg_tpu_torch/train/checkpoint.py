@@ -9,6 +9,9 @@ layout so that checkpoints cross both ways:
   reads the JAX package's;
 * ``iter_XXXXXXX.batch_stats.npz``: the BatchNorm statistics under
   ``b/<flax path>``;
+* ``iter_XXXXXXX.ema.npz``: DACS's EMA head (``TrainState.ema``) under
+  ``e/<flax path below the head>``, the JAX ``TrainState.ema`` subtree
+  (vfmseg_tpu/train/checkpoint.py:89-90,130-133);
 * ``iter_XXXXXXX.torch_opt.pt``: the port's own AdamW state (moments and
   counts), beside them. The JAX package's ``.opt.npz`` holds optax leaves by
   position and is neither written nor read here.
@@ -139,7 +142,8 @@ class CheckpointManager:
             trainable=_host_copy(trainable_state_dict(state.model)),
             stats=_host_copy(batch_stats_state_dict(state.model)),
             model=state.model,
-            optimizer=_host_copy(state.optimizer.state_dict()))
+            optimizer=_host_copy(state.optimizer.state_dict()),
+            ema=_host_copy(state.ema), ema_key=state.ema_key)
         if not self.async_save:
             self._write(snapshot)
             return
@@ -162,6 +166,10 @@ class CheckpointManager:
         if stats["batch_stats"]:
             save_pytree(self._path(step, "batch_stats"),
                         {"b": stats["batch_stats"]})
+        if snapshot["ema"] is not None:
+            ema = flax_from_state_dict(snapshot["ema"], model)["params"]
+            save_pytree(self._path(step, "ema"),
+                        {"e": ema[snapshot["ema_key"]]})
         torch.save({"optimizer": snapshot["optimizer"]},
                    self._path(step, "torch_opt", "pt"))
         self._prune()
@@ -174,8 +182,8 @@ class CheckpointManager:
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
-        """Load the trainable parameters, BatchNorm statistics and optimizer
-        state of ``step`` (default: the latest) into ``state``."""
+        """Load the trainable parameters, BatchNorm statistics, EMA head and
+        optimizer state of ``step`` (default: the latest) into ``state``."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -196,9 +204,19 @@ class CheckpointManager:
         if unexpected:
             raise ValueError(f"checkpoint {step} holds unknown entries "
                              f"{sorted(unexpected)[:5]}")
+        device = next(model.parameters()).device
+        ema_path = self._path(step, "ema")
+        if os.path.exists(ema_path):
+            ema = state_dict_from_flax(
+                {"params": {state.ema_key: load_npz_tree(ema_path, "e")}},
+                model)
+            if state.ema is not None and ema.keys() != state.ema.keys():
+                raise ValueError(f"checkpoint {step}'s EMA holds "
+                                 f"{sorted(ema)[:5]}, the state's "
+                                 f"{sorted(state.ema)[:5]}")
+            state.ema = {k: v.to(device) for k, v in ema.items()}
         opt_path = self._path(step, "torch_opt", "pt")
         if os.path.exists(opt_path):
-            device = next(model.parameters()).device
             saved = torch.load(opt_path, map_location=device,
                                weights_only=True)
             state.optimizer.load_state_dict(saved["optimizer"])

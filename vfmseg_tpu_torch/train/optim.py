@@ -9,6 +9,7 @@ Port of vfmseg_tpu/train/optim.py:26-157.
   reads ``/``-joined flax paths; ``backbone`` is matched as a whole path
   segment and the keywords as substrings in both, so the two select the same
   set.
+* :func:`resolve_backbone_prefix` finds the backbone under a wrapper.
 * :func:`decays` is ``decay_mask``'s rule, applied to the flax path of the
   parameter (``weights.flax_name``): rank >= 2 and no ``NO_DECAY_KEYWORDS``.
 * :func:`make_optimizer` is ``torch.optim.AdamW`` over the trainable
@@ -51,6 +52,17 @@ def trainable_predicate(peft: bool = True,
         return True
 
     return pred
+
+
+def resolve_backbone_prefix(model: nn.Module) -> Tuple[str, ...]:
+    """Module names leading to the backbone: ``("backbone",)`` on a bare
+    segmentor, ``("model", "backbone")`` under the DomainGeneral wrapper
+    (vfmseg_tpu/train/optim.py:74-93)."""
+    if hasattr(model, "backbone"):
+        return ("backbone",)
+    if hasattr(getattr(model, "model", None), "backbone"):
+        return ("model", "backbone")
+    raise ValueError(f"{type(model).__name__} has no backbone")
 
 
 def partition(model: nn.Module, pred: Callable[[str], bool]

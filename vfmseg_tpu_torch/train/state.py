@@ -1,17 +1,20 @@
 """Train state: the model (which holds the trainable and frozen parameters
-and the BatchNorm statistics), its optimizer, the learning-rate schedule and
-the step count.
+and the BatchNorm statistics), its optimizer, the learning-rate schedule,
+the step count and, for DACS, the EMA teacher's head.
 
 Port of vfmseg_tpu/train/state.py. The JAX ``TrainState`` splits the
 parameters into trainable and frozen trees beside ``batch_stats`` and
 ``opt_state``; here the module holds them, ``requires_grad`` marks the
 trainable ones (``train/optim.py``), and the optimizer holds the moments.
+``ema`` holds the EMA copy of the ``ema_key`` submodule's parameters
+(trainable and frozen, fp32, no buffers) under the model's names, e.g.
+``decode_head.conv_seg.weight`` (``train/uda.py``); None without DACS.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -30,6 +33,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+    ema_key: str = "decode_head"
 
 
 def create_train_state(model: nn.Module, cfg: dict,

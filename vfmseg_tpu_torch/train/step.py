@@ -9,9 +9,10 @@ state is updated in place and returned.
 
 Randomness: per step, one ``torch.Generator`` per stream name, seeded from
 (seed, step, index of the name) as ``fold_in`` seeds the JAX step's keys, so
-a resumed run draws what an unbroken one draws. ``crop`` lives on the CPU
-(the box is needed on the host); ``mask`` and ``dropout`` live on the
-model's device. Gradients stay in ``.grad`` until the next step clears them.
+a resumed run draws what an unbroken one draws. ``crop`` and ``augment``
+live on the CPU (the box is needed on the host; every augment draw is a
+scalar or a tiny array, so the card and the CPU draw the same numbers from
+one seed); ``mask`` and ``dropout`` live on the model's device. Gradients stay in ``.grad`` until the next step clears them.
 
 A trainable parameter that the loss does not reach (a Rein backbone's
 query layers under a head that takes no queries: HRDA, SegFormer,
@@ -29,8 +30,8 @@ import torch
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.train.state import TrainState
 
-RNG_NAMES: Tuple[str, ...] = ("crop", "mask", "dropout")
-HOST_STREAMS = ("crop",)
+RNG_NAMES: Tuple[str, ...] = ("crop", "mask", "dropout", "augment")
+HOST_STREAMS = ("crop", "augment")
 
 
 def sum_losses(losses: Mapping[str, torch.Tensor]) -> torch.Tensor:

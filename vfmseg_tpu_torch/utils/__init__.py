@@ -1,1 +1,1 @@
-"""Host-side helpers: label colouring."""
+"""Host-side helpers: label colouring and loss-dict prefixes."""
