@@ -11,7 +11,9 @@ Mask2Former head, HRDA and SegFormer on Rein DINOv2-L and MiT-B5 with the
 DAFormer head, each served and trained; and the algorithms: the headline
 trained in DomainGeneral with its masked-consistency branch, and the DACS
 UDA step with its EMA teacher on Rein DINOv2-L with SegFormer (through the
-train CLI), Mask2Former and HRDA.
+train CLI), Mask2Former and HRDA; and the scale-out and tooling: the train
+and eval CLIs in a one-rank NCCL group, DINOhead at head dim 32 (B5's D-32
+instantiations), the headline step with remat, the debug grids.
 
 Usage, from the root of the repository: ``python3 chip_smoke.py``
 
@@ -24,8 +26,9 @@ Phases, each printing one JSON line:
    process per source started together (or loaded from the build cache),
    with the build seconds and ptxas' register counts; registers, spills and
    static shared memory by instantiation of B2/B3's warp-specialised
-   kernel and of B5's forward and fused backward, and any wgmma ptxas
-   serialised.
+   kernel and of B5's forward and fused backward, and ptxas' lines on any
+   wgmma it serialised or fenced (``wgmma_warnings``: C75xx codes,
+   injected ``warpgroup.arrive`` / ``warpgroup.wait``).
 3. kernels: the DINOv2 inference kernels (LayerNorm, fused-qkv attention)
    against their plain PyTorch versions on the card, at the shapes the
    inference path gives them, from seeded bf16 inputs (the plain version
@@ -225,6 +228,30 @@ Phases, each printing one JSON line:
 24. uda_hrda / uda_hrda_calibrated: ``uda_rein_dinov2_hrda_1024x1024``
    (two sequential passes, the HR crop's weight cut from its box):
    UDA_HRDA_STEPS DACS steps with the same checks.
+25. ddp_world1: data parallelism (``parallel/mesh.py``) at world size 1 on
+   NCCL: the headline's train CLI for DDP_STEPS steps without and with
+   ``--distributed`` (torchrun's variables set for one rank) on an
+   in-memory source at the crop size; the first step's losses bit-equal,
+   later ones within DDP_LOSS_REL, the weights within AdamW's 2 lr a step;
+   both runs' step times, a fixed batch's step with and without the group
+   and the gradient all-reduce alone; the eval CLI plain and at
+   ``--data-parallel 1`` from the run's checkpoint and backbone, equal
+   metrics. The group is destroyed after.
+26. kernel_attention_hm_d32: B5's D-32 instantiations (forward with and
+   without the LSE, fused backward) at DINOhead's shapes
+   (DINOHEAD_HM_SHAPES) against the plain versions, the dispatcher's
+   route to them, times beside SDPA's and the bound.
+27. dinohead_path / dinohead_train_card_vs_cpu: ``MultiScaleEncoderDecoder``
+   + DINOhead (8 heads of 32) on LoRA DINOv2-L at full width: one 512 x
+   1024 image through the context-conditioned slide card vs CPU, one bs2
+   1024^2 step, B5's D-32 launches and the shapes they ran at; one 256^2
+   step bf16 vs fp32.
+28. remat: the headline's bs2 1024^2 step with ``remat=True`` against
+   ``remat=False``: losses, LoRA gradient cosine, the recomputed blocks'
+   launches, peak memory and time of each.
+29. debug_grids: the train CLI with ``schedule.debug_interval=1`` for one
+   step on the headline and on UDA SegFormer: the panels computed on the
+   card, and whether a PNG was written (matplotlib present or not).
 
 Every kernel's time is CUDA events around 10 back-to-back calls, the median
 of 10 such windows after warm-up, beside its plain version's, the time of
@@ -274,6 +301,7 @@ from vfmseg_tpu_torch.eval.slide import (
     compute_slide_grid,
     confident_mask,
     extract_crops,
+    ms_slide_inference,
 )
 from vfmseg_tpu_torch.kernels.time_hm_bwd import device_ms as profiled_ms
 from vfmseg_tpu_torch.kernels.time_layer_norm import eager_and_graph_ms
@@ -297,6 +325,7 @@ from vfmseg_tpu_torch.models.presets import (
     mask2former_config,
     sam_config,
 )
+from vfmseg_tpu_torch.ops import attention as attention_mod
 from vfmseg_tpu_torch.ops.attention import (
     attention_bwd_plain,
     attention_bwd_tm,
@@ -328,12 +357,15 @@ from vfmseg_tpu_torch.ops.window_blend import (
     blend_windows_cuda,
     blend_windows_plain,
 )
+from vfmseg_tpu_torch.parallel import mesh
+from vfmseg_tpu_torch.tools import test as test_cli
 from vfmseg_tpu_torch.tools import train as train_cli
 from vfmseg_tpu_torch.tools.test import evaluate_dataset
 from vfmseg_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_npz_tree,
     load_pytree,
+    save_pytree,
     trainable_state_dict,
 )
 from vfmseg_tpu_torch.train.loop import train_loop
@@ -350,7 +382,11 @@ from vfmseg_tpu_torch.train.uda import (
     student_losses,
     teacher_logits,
 )
-from vfmseg_tpu_torch.weights import init_params, state_dict_from_flax
+from vfmseg_tpu_torch.weights import (
+    flax_from_state_dict,
+    init_params,
+    state_dict_from_flax,
+)
 
 SEED = 0
 N_IMAGES = 3
@@ -565,6 +601,26 @@ UDA_CHECK_HW = (256, 256)
 # the calibrated pseudo_threshold's share of confident target pixels
 PSEUDO_WEIGHT_RANGE = (0.3, 0.7)
 MIT_HM_SHAPES = [(2, 1, 16384, 256), (2, 2, 4096, 256), (2, 5, 1024, 256)]
+# A11 + A13 (phases 25-29): data parallelism at world size 1 on NCCL, B5 at
+# head dim 32 under DINOhead, remat and the debug grids
+DDP_DIR = os.path.join(REPO, "work_dirs", "chip_smoke_ddp")
+DDP_STEPS = 3
+DDP_SAMPLES = 4
+DDP_EVAL_IMAGES = 2
+DDP_TIMED_STEPS = 5
+# Steps after the first of the two runs (with and without the process
+# group): B5's fused backward adds dq over key tiles with fp32 atomics in
+# an order that changes from run to run, so the gradients, and from step 2
+# the weights and losses, differ in rounding. AdamW's first steps move a
+# weight by about lr whatever its gradient's size, so a rounding-noise
+# gradient can flip a step: |delta p| <= 2 lr a step (+ decay).
+DDP_LOSS_REL = 1e-2
+# DINOhead's attention (8 heads of 32 over the fused 32 x 32 grid of a 512^2
+# crop): the inference's three refine windows of a 512 x 1024 image, the bs2
+# train step's HR crops at 1024^2, the card-vs-CPU step's 128^2 crops (8 x 8)
+DINOHEAD_HM_SHAPES = [(3, 8, 1024, 1024), (2, 8, 1024, 1024), (2, 8, 64, 64)]
+DINOHEAD_HW = (512, 1024)
+DINOHEAD_TRAIN_HW = (1024, 1024)
 
 # The headline's compact gated engine: launches per stage-1 call (the ViT
 # over a batch of whole images at 512x1024) and per finish step that refines
@@ -956,6 +1012,17 @@ def ptxas_by_kernel(log: str, marker: str) -> dict:
     return found
 
 
+def wgmma_warnings(log: str) -> list:
+    """ptxas' lines about wgmma it serialised (C7512/C7518, "wgmma ...
+    serialized") or fenced: the warpgroup.arrive / warpgroup.wait it
+    injects to let registers cross a GMMA (C7519/C7517), which do not say
+    "wgmma"."""
+    return [ln.strip() for ln in log.splitlines()
+            if re.search(r"\(C75\d\d\)|warpgroup\.(arrive|wait)|GMMA", ln)
+            or ("wgmma" in ln and ("warning" in ln.lower()
+                                   or "Performance Loss" in ln))]
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     kernels.library()
@@ -974,9 +1041,7 @@ def phase_build() -> None:
     # instantiations by type and access width
     emit("build", seconds=round(secs, 3), ptxas=ptxas,
          attention_qkv_ptxas=ptxas_by_kernel(log, "attention_qkv_kernel"),
-         wgmma_warnings=[ln.strip() for ln in log.splitlines()
-                         if "wgmma" in ln and ("warning" in ln.lower()
-                                               or "Performance Loss" in ln)],
+         wgmma_warnings=wgmma_warnings(log),
          attention_hm_fwd_ptxas=ptxas_by_kernel(log, "attention_hm_fwd"),
          attention_hm_bwd_ptxas=ptxas_by_kernel(log, "attention_hm_bwd"),
          attention_hm_dq_round_ptxas=ptxas_by_kernel(log, "dq_round"),
@@ -1035,10 +1100,10 @@ def _qkv_views(randn, b_, n, h, fused):
     return tuple(randn(b_, n, e).to(torch.bfloat16) for _ in range(3))
 
 
-def _hm(t, h):
-    """[B, N, H*64] -> a [B, H, N, 64] view."""
+def _hm(t, h, d=64):
+    """[B, N, H*d] -> a [B, H, N, d] view."""
     b_, n, _ = t.shape
-    return t.reshape(b_, n, h, 64).transpose(1, 2)
+    return t.reshape(b_, n, h, d).transpose(1, 2)
 
 
 def _summary(name, source, replaces, row, err, **extra) -> dict:
@@ -1222,6 +1287,7 @@ B5_ENTRIES = (
      "vfmseg_tpu/ops/flash_attention.py:344"))
 B5_BIAS_ENTRIES = tuple((name.replace("hm_", "hm_bias_"), *rest)
                         for name, *rest in B5_ENTRIES)
+B5_D32_ENTRIES = tuple((f"{name}_d32", *rest) for name, *rest in B5_ENTRIES)
 
 
 def _train_summaries(rows, entries) -> list:
@@ -1343,23 +1409,27 @@ def check_rope_attention(randn, dev) -> list:
 
 def check_headmajor(randn, dev, shapes=HM_SHAPES,
                     phase: str = "kernel_attention_headmajor",
-                    kv_fused: bool = False) -> list:
-    """B5's forward (with the LSE) and fused backward at ``shapes`` against
-    the fp32 plain versions; with ``kv_fused`` k and v are the two halves
-    of one token-major kv tensor (MiT's ``kv`` projection)."""
+                    kv_fused: bool = False, d: int = 64) -> list:
+    """B5's forward (with the LSE; at D 32 also without it) and fused
+    backward at ``shapes`` and head dim ``d`` against the fp32 plain
+    versions; with ``kv_fused`` k and v are the two halves of one
+    token-major kv tensor (MiT's ``kv`` projection)."""
     rows = []
+    fwd_entry = (kernels.ATTENTION_HM_FWD_D32 if d == 32
+                 else kernels.ATTENTION_HM_FWD)
     for b_, h, nq, nk in shapes:
-        scale = 64 ** -0.5
-        # token-major [B, N, H*64] tensors, as the projections give them,
-        # seen as [B, H, N, 64] views
-        q = _hm(randn(b_, nq, h * 64).to(torch.bfloat16), h)
+        scale = d ** -0.5
+        e = h * d
+        # token-major [B, N, H*d] tensors, as the projections give them,
+        # seen as [B, H, N, d] views
+        q = _hm(randn(b_, nq, e).to(torch.bfloat16), h, d)
         if kv_fused:
-            kv = randn(b_, nk, 2 * h * 64).to(torch.bfloat16)
-            k, v = _hm(kv[..., :h * 64], h), _hm(kv[..., h * 64:], h)
+            kv = randn(b_, nk, 2 * e).to(torch.bfloat16)
+            k, v = _hm(kv[..., :e], h, d), _hm(kv[..., e:], h, d)
         else:
-            k, v = (_hm(randn(b_, nk, h * 64).to(torch.bfloat16), h)
+            k, v = (_hm(randn(b_, nk, e).to(torch.bfloat16), h, d)
                     for _ in range(2))
-        dout = _hm(randn(b_, nq, h * 64).to(torch.bfloat16), h)
+        dout = _hm(randn(b_, nq, e).to(torch.bfloat16), h, d)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
 
         out, lse = attention_hm_fwd(q, k, v, scale)
@@ -1372,29 +1442,37 @@ def check_headmajor(randn, dev, shapes=HM_SHAPES,
         want_out.backward(dout.float().transpose(1, 2))
         want_out = want_out.detach()
         routed_err = routed_launches = None
-        if nq != nk:
-            # the dispatcher's route for Nq != Nk on the card: B5
-            before = kernels.ATTENTION_HM_FWD.launches
+        if nq != nk or d != 64:
+            # the dispatcher's route for Nq != Nk, or a head dim other than
+            # 64, on the card: B5
+            before = fwd_entry.launches
             routed = multi_head_attention(
                 *(t.transpose(1, 2) for t in (q, k, v)), scale=scale)
-            routed_launches = kernels.ATTENTION_HM_FWD.launches - before
+            routed_launches = fwd_entry.launches - before
             routed_err = float((routed.float() - want_out).abs().max())
+        nolse_err = None
+        if d == 32:
+            nolse = attention_hm_fwd(q, k, v, scale, with_lse=False)[0]
+            nolse_err = float((nolse.float().transpose(1, 2)
+                               - want_out).abs().max())
         torch.cuda.synchronize()
         out_err = float((out.float().transpose(1, 2) - want_out).abs().max())
         lse_err = float((lse - want_lse.detach()).abs().max())
         grad_err = _grad_errors(
             (t.transpose(1, 2) for t in (dq, dk, dv)), ref,
-            (b_, -1, h, 64))
+            (b_, -1, h, d))
         ok = (out_err <= ATTN_ATOL and lse_err <= LSE_ATOL
               and max(grad_err.values()) <= GRAD_REL
-              and (nq == nk or (routed_err <= ATTN_ATOL
-                                and routed_launches == 1)))
+              and (nolse_err is None or nolse_err <= ATTN_ATOL)
+              and (routed_err is None or (routed_err <= ATTN_ATOL
+                                          and routed_launches == 1)))
         plain_in = [t.transpose(1, 2) for t in (q, k, v)]
         p_out, p_lse = attention_fwd_lse_plain(*plain_in, scale=scale)
         n_ = (nq, nk, nk)
         row = dict(
-            shape=[b_, h, nq, nk, 64], out_max_abs_err=out_err,
-            lse_max_abs_err=lse_err, grad_rel_err=grad_err,
+            shape=[b_, h, nq, nk, d], out_max_abs_err=out_err,
+            lse_max_abs_err=lse_err, nolse_max_abs_err=nolse_err,
+            grad_rel_err=grad_err,
             routed_max_abs_err=routed_err, routed_b5_launches=routed_launches,
             ok=ok,
             fwd_ms=time_ms(lambda: attention_hm_fwd(q, k, v, scale)),
@@ -1417,8 +1495,14 @@ def check_headmajor(randn, dev, shapes=HM_SHAPES,
             bwd_plain_ms=time_ms(lambda: attention_bwd_plain(
                 *plain_in, p_out, p_lse, dout.transpose(1, 2), scale=scale)),
             bwd_library_ms=time_ms(sdpa_bwd_fn(q, k, v, dout, scale)),
-            fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1),
-            bwd_bound=attn_bound(b_, h, nq, nk, 5, n_ + (nq,), n_, 2))
+            fwd_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 1, d=d),
+            bwd_bound=attn_bound(b_, h, nq, nk, 5, n_ + (nq,), n_, 2, d=d))
+        if d == 32:
+            row.update(
+                fwd_nolse_ms=time_ms(lambda: attention_hm_fwd(
+                    q, k, v, scale, with_lse=False)),
+                fwd_nolse_bound=attn_bound(b_, h, nq, nk, 2, n_, (nq,), 0,
+                                           d=d))
         emit(phase, out_atol=ATTN_ATOL, lse_atol=LSE_ATOL, grad_rel=GRAD_REL,
              kv_fused=kv_fused, **row)
         if not ok:
@@ -2516,8 +2600,8 @@ def _train_check_config(cfg) -> dict:
     return c
 
 
-def phase_train_card_vs_cpu(dev, cfg, label: str) -> None:
-    c = _train_check_config(cfg)
+def phase_train_card_vs_cpu(dev, cfg, label: str, check_cfg=None) -> None:
+    c = _train_check_config(cfg) if check_cfg is None else check_cfg
     ds = SyntheticDataset(n=2, hw=TRAIN_CHECK_HW,
                           num_classes=c["num_classes"], seed=SEED + 7)
     batch = collate([ds[0], ds[1]])
@@ -3850,6 +3934,468 @@ def phase_uda_cli(dev) -> dict:
     return {"uda_segformer": counts}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _write_gta_set(root: str, n: int) -> None:
+    """``n`` labelled 1024 x 2048 frames as a GTA-layout PNG set."""
+    from PIL import Image
+
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        item = _val_image(SEED + 71 + i)
+        Image.fromarray(item["img"]).save(
+            os.path.join(root, "images", f"f{i}.png"))
+        Image.fromarray(item["label"]).save(
+            os.path.join(root, "labels", f"f{i}_labelTrainIds.png"))
+
+
+def _timed_steps(step_fn, state, batch, n: int) -> float:
+    """The mean wall ms of ``n`` steps after one warm-up, synchronised."""
+    state, _ = step_fn(state, batch, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step_fn(state, batch, SEED)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_ddp_world1(dev, smi: str) -> dict:
+    """Data parallelism at world size 1 on NCCL (``parallel/mesh.py``): the
+    headline's train CLI for DDP_STEPS steps without ``--distributed`` and
+    with it (torchrun's variables set here: one rank, a free port on
+    127.0.0.1), on an in-memory source at the crop size (no resize, one
+    loader thread, so both runs see the same batches): the first step's
+    losses bit-identical (the collectives at world 1 change no value before
+    the backward), later losses within DDP_LOSS_REL and the weights within
+    AdamW's 2 lr a step; the CLI's steady step times of both runs and a
+    fixed batch's step with and without the group, and the gradient
+    all-reduce alone: what the collectives cost on one rank. Then the eval
+    CLI on DDP_EVAL_IMAGES PNG frames, plain and at ``--data-parallel 1``,
+    from the run's checkpoint and its backbone: equal metrics. The group
+    is destroyed at the end, so later phases run without one."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    data_root = os.path.join(DDP_DIR, "data")
+    crop = (1024, 1024)
+    options = [f"data.source.data_root={data_root}",
+               "data.rare_class_sampling=None", "data.num_workers=1",
+               f"data.train_pipeline.resize_scale_wh={crop}",
+               "schedule.log_interval=1",
+               f"schedule.checkpoint_interval={DDP_STEPS}",
+               "schedule.val_interval=0"]
+    cfg = load_config(TRAIN_CLI_CONFIG, options)
+    rs = np.random.default_rng(SEED + 67)
+    source = MemorySource([synthetic_sample(rs, crop, 19)
+                           for _ in range(DDP_SAMPLES)], data_root)
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    runs = {}
+    try:
+        for tag in ("plain", "distributed"):
+            if tag == "distributed":
+                os.environ.update(env)
+            work_dir = os.path.join(DDP_DIR, tag)
+            argv = [TRAIN_CLI_CONFIG, "--work-dir", work_dir, "--max-iters",
+                    str(DDP_STEPS)]
+            args = train_cli.parse_args(
+                argv + (["--distributed"] if tag == "distributed" else []))
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_cli.run(cfg, args, source=source, val_sets={})
+            torch.cuda.synchronize()
+            records = [r for r in _jsonl(os.path.join(work_dir,
+                                                      "metrics.jsonl"))
+                       if r["prefix"] == "train"]
+            runs[tag] = dict(
+                state=state, records=records, run_s=time.perf_counter() - t0,
+                counts=kernels.launch_counts(),
+                trainable={n: p.detach().float().cpu().clone()
+                           for n, p in trainable_state_dict(
+                               state.model).items()})
+            if tag == "plain":
+                del state
+                runs[tag].pop("state")
+                torch.cuda.empty_cache()
+        if torch.distributed.get_backend() != "nccl" or (
+                torch.distributed.get_world_size() != 1):
+            raise AssertionError("--distributed did not join a one-rank "
+                                 "NCCL group")
+        plain, dist_run = runs["plain"], runs["distributed"]
+        if plain["counts"] != dist_run["counts"]:
+            raise AssertionError(f"launches differ: {plain['counts']} != "
+                                 f"{dist_run['counts']}")
+        loss_keys = sorted(k for k in plain["records"][0] if "loss" in k)
+        first_equal = all(plain["records"][0][k] == dist_run["records"][0][k]
+                          for k in loss_keys)
+        later_rel = max(
+            abs(a[k] - b[k]) / max(abs(a[k]), 1e-9)
+            for a, b in zip(plain["records"][1:], dist_run["records"][1:])
+            for k in loss_keys)
+        lr = cfg["optimizer"]["lr"]
+        param_bound = 2 * lr * DDP_STEPS * 1.05
+        param_diff = max(float((plain["trainable"][n]
+                                - dist_run["trainable"][n]).abs().max())
+                         for n in plain["trainable"])
+        cli_step_s = {tag: [1.0 / r["steps_per_sec"] for r in run["records"]]
+                      for tag, run in runs.items()}
+
+        # one fixed batch's step inside the group and without it, and the
+        # gradient all-reduce alone
+        state = dist_run["state"]
+        batch = collate([DGDataset(source, TrainPipeline(**{
+            k: tuple(v) if isinstance(v, list) else v
+            for k, v in cfg["data"]["train_pipeline"].items()}),
+            seed=SEED)[i] for i in range(2)])
+        step_fn = make_train_step()
+        with_group_ms = _timed_steps(step_fn, state, batch, DDP_TIMED_STEPS)
+        params = [p for g in state.optimizer.param_groups
+                  for p in g["params"]]
+        allreduce_ms = time_ms(lambda: mesh.average_gradients(params))
+        bucket_mb = sum(p.numel() for p in params) * 4 / 2**20
+
+        # the eval CLI, plain and at --data-parallel 1, from the
+        # distributed run's checkpoint and its backbone
+        eval_root = os.path.join(DDP_DIR, "eval")
+        _write_gta_set(os.path.join(eval_root, "synth"), DDP_EVAL_IMAGES)
+        frozen = {n: p for n, p in state.model.named_parameters()
+                  if n.startswith("backbone.") and not p.requires_grad}
+        backbone = os.path.join(eval_root, "backbone.npz")
+        save_pytree(backbone, flax_from_state_dict(
+            frozen, state.model)["params"]["backbone"])
+        ckpt = os.path.join(DDP_DIR, "distributed", "checkpoints",
+                            f"iter_{DDP_STEPS:07d}.trainable.npz")
+        test_args = [TRAIN_CLI_CONFIG, ckpt, "--backbone", backbone,
+                     "--max-images", str(DDP_EVAL_IMAGES), "--cfg-options",
+                     "data.test=[{'type': 'GTADataset', 'data_root': "
+                     f"{os.path.join(eval_root, 'synth')!r}, "
+                     "'key': 'synth'}]"]
+        metrics = {}
+        for tag, extra in (("plain", []), ("data_parallel_1",
+                                           ["--data-parallel", "1"])):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics[tag] = dict(results=test_cli.main(test_args + extra),
+                                seconds=time.perf_counter() - t0,
+                                counts=kernels.launch_counts())
+    finally:
+        mesh.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    # the same step on the same batch without a process group
+    without_group_ms = _timed_steps(step_fn, state, batch, DDP_TIMED_STEPS)
+    del state, step_fn, params, dist_run["state"]
+    torch.cuda.empty_cache()
+    eval_equal = (metrics["plain"]["results"]
+                  == metrics["data_parallel_1"]["results"])
+    ok = (first_equal and later_rel <= DDP_LOSS_REL
+          and param_diff <= param_bound and eval_equal
+          and all(np.isfinite(r["loss"]) for r in plain["records"]))
+    emit("ddp_world1", model=cfg["name"], card=smi, backend="nccl",
+         world_size=1, steps=DDP_STEPS, crop_hw=list(crop),
+         first_step_losses_bit_equal=first_equal,
+         losses={tag: [{k: r[k] for k in loss_keys} for r in run["records"]]
+                 for tag, run in runs.items()},
+         later_loss_rel_err=later_rel, later_loss_rel_limit=DDP_LOSS_REL,
+         param_max_abs_diff=param_diff, param_bound=param_bound,
+         cli_step_s=cli_step_s,
+         cli_steady_step_s={tag: float(np.mean(v[1:]))
+                            for tag, v in cli_step_s.items()},
+         run_s={tag: run["run_s"] for tag, run in runs.items()},
+         step_ms_in_group=with_group_ms, step_ms_without_group=without_group_ms,
+         grad_allreduce_ms=allreduce_ms, grad_bucket_mb=bucket_mb,
+         launches_per_step={k: v // DDP_STEPS
+                            for k, v in runs["plain"]["counts"].items()},
+         eval=dict(images=DDP_EVAL_IMAGES, equal=eval_equal, **metrics),
+         ok=ok, seconds=time.perf_counter() - t_phase)
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    if not ok:
+        raise AssertionError(
+            f"world-1 data parallelism: first losses equal {first_equal}, "
+            f"later loss rel {later_rel}, weights {param_diff} (bound "
+            f"{param_bound}), eval metrics equal {eval_equal}")
+    return {"ddp_train": runs["distributed"]["counts"],
+            "ddp_eval": metrics["data_parallel_1"]["counts"]}
+
+
+def phase_kernels_dinohead(dev) -> list:
+    """B5's D-32 instantiations (forward with and without the LSE, the
+    fused backward) at DINOhead's shapes (DINOHEAD_HM_SHAPES) against the
+    plain versions, at B5's tolerances; ``multi_head_attention`` must route
+    the matched D-32 views to B5."""
+    randn = _randn(np.random.RandomState(SEED + 61), dev)
+    rows = check_headmajor(randn, dev, shapes=DINOHEAD_HM_SHAPES,
+                           phase="kernel_attention_hm_d32", d=32)
+    summary = _train_summaries(rows, B5_D32_ENTRIES)
+    summary[0].update(
+        nolse_ms=rows[0]["fwd_nolse_ms"],
+        nolse_max_abs_err=max(r["nolse_max_abs_err"] for r in rows),
+        nolse_bound_ms=rows[0]["fwd_nolse_bound"]["bound_ms"])
+    return summary
+
+
+def dinohead_config():
+    """The headline's LoRA DINOv2-L under a full-width DINOhead (channels
+    256, 8 heads of 32) in ``MultiScaleEncoderDecoder``, the headline's
+    test_cfg; no config file names one."""
+    cfg = copy.deepcopy(headline_config())
+    cfg["name"] = "lora_dinov2_l_multiscale_dinohead"
+    cfg["model"] = dict(
+        type="MultiScaleEncoderDecoder", backbone=cfg["model"]["backbone"],
+        decode_head=dict(type="DINOhead", in_channels=[1024] * 4,
+                         channels=256, num_classes=19, dropout_ratio=0.1),
+        hr_crop_size=(512, 512), crop_coord_divisible=32)
+    return cfg
+
+
+def phase_dinohead_path(dev) -> dict:
+    """``MultiScaleEncoderDecoder`` + DINOhead at full width: one
+    DINOHEAD_HW image through the context-conditioned two-stage slide
+    (stage 1 without context, the refine windows with it), card against
+    the fp32 CPU (DRIFT_Q99, ARGMAX_AGREE); one bs2 DINOHEAD_TRAIN_HW train
+    step; B5's D-32 launches on each (2 an image: the refine's self- and
+    cross-attention; 2 forward and 2 backward a step) and the shapes they
+    ran at, each among those phase kernel_attention_hm_d32 checked; then one
+    TRAIN_CHECK_HW step bf16 against fp32 at the TRAIN_* limits."""
+    t_phase = time.perf_counter()
+    cfg = dinohead_config()
+    tc = cfg["test_cfg"]
+    kw = dict(crop=tuple(tc["crop_size"]), stride=tuple(tc["stride"]),
+              lr_size=tuple(tc["lr_img_size"]), threshold=tc["threshold"],
+              conf=tc["conf"])
+    model = init_params(build_segmentor(
+        cfg["model"], dtype=compute_dtype(cfg),
+        attn_impl=compute_attn_impl(cfg)), SEED).eval()
+    shapes = set()
+    real_fwd = attention_mod.attention_hm_fwd
+
+    def recording(q, *a, **k):
+        if q.shape[-1] == 32:
+            shapes.add(tuple(q.shape))
+        return real_fwd(q, *a, **k)
+
+    img = synthetic_images(1, DINOHEAD_HW, SEED + 63)
+    attention_mod.attention_hm_fwd = recording
+    try:
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            card = ms_slide_inference(model.lr_forward, model.hr_forward,
+                                      img.to(dev), **kw)
+        torch.cuda.synchronize()
+        infer_counts = kernels.launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ms_slide_inference(model.lr_forward, model.hr_forward,
+                               img.to(dev), **kw)
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        ds = SyntheticDataset(n=2, hw=DINOHEAD_TRAIN_HW, num_classes=19,
+                              seed=SEED + 65)
+        state = create_train_state(model, cfg)
+        kernels.reset_launch_counts()
+        state, metrics = make_train_step()(state, collate([ds[0], ds[1]]),
+                                           SEED)
+        torch.cuda.synchronize()
+        train_counts = kernels.launch_counts()
+        metrics = {k: float(v) for k, v in metrics.items()}
+    finally:
+        attention_mod.attention_hm_fwd = real_fwd
+    del state
+    card = card.float().cpu()
+    cpu_model = init_params(build_segmentor(
+        cfg["model"], dtype=torch.float32, device="cpu",
+        attn_impl=compute_attn_impl(cfg)), SEED).eval()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu = ms_slide_inference(cpu_model.lr_forward, cpu_model.hr_forward,
+                                 img, **kw)
+    cpu_s = time.perf_counter() - t0
+    del cpu_model, model
+    torch.cuda.empty_cache()
+    got = _agreement(card, cpu)
+    checked = {(b_, h, nq, 32) for b_, h, nq, _ in DINOHEAD_HM_SHAPES}
+    ok = (got["q99_rel_drift"] < DRIFT_Q99
+          and got["argmax_agreement"] >= ARGMAX_AGREE
+          and infer_counts["attention_hm_fwd_d32"] == 2
+          and train_counts["attention_hm_fwd_d32"] == 2
+          and train_counts["attention_hm_bwd_d32"] == 2
+          and shapes <= checked
+          and all(np.isfinite(list(metrics.values()))))
+    emit("dinohead_path", model=cfg["name"], image_hw=list(DINOHEAD_HW),
+         train_hw=list(DINOHEAD_TRAIN_HW), d32_shapes=sorted(shapes),
+         infer_launches=infer_counts, train_launches=train_counts,
+         infer_s=infer_s, cpu_infer_s=cpu_s, train_metrics=metrics,
+         drift_limit=DRIFT_Q99, agreement_limit=ARGMAX_AGREE, ok=ok, **got,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"DINOhead path: {got}, launches "
+                             f"{infer_counts}, {train_counts}, shapes "
+                             f"{shapes} (checked {checked})")
+    check = copy.deepcopy(cfg)
+    m = check["model"]
+    m["hr_crop_size"] = TRAIN_CHECK_CROP
+    m["backbone"]["Lora_config"]["lora_dropout"] = 0.0
+    m["backbone"]["backbone"]["drop_path_rate"] = 0.0
+    m["decode_head"]["dropout_ratio"] = 0.0
+    phase_train_card_vs_cpu(dev, cfg, "dinohead", check_cfg=check)
+    return {"dinohead_infer": infer_counts, "dinohead_train": train_counts}
+
+
+def phase_remat(dev) -> dict:
+    """The headline's bs2 1024^2 train step with ``remat=True`` against
+    ``remat=False`` from one seed and batch: the losses within
+    TRAIN_LOSS_REL and the LoRA gradients' cosine within TRAIN_GRAD_COS
+    (the recomputation replays the forward's draws, and B5's backward sums
+    dq with fp32 atomics in a changing order), the peak memory of the step
+    and the time of a second one, and the recomputed blocks' launches (one
+    more B3 forward and two more LayerNorms a ViT block)."""
+    t_phase = time.perf_counter()
+    ds = SyntheticDataset(n=2, hw=(1024, 1024), num_classes=19,
+                          seed=SEED + 69)
+    batch = collate([ds[0], ds[1]])
+    runs = {}
+    for remat in (False, True):
+        cfg = copy.deepcopy(headline_config())
+        cfg["model"]["backbone"]["backbone"]["remat"] = remat
+        model = init_params(build_segmentor(
+            cfg["model"], dtype=compute_dtype(cfg),
+            attn_impl=compute_attn_impl(cfg)), SEED)
+        state = create_train_state(model, cfg)
+        step_fn = make_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        state, metrics = step_fn(state, batch, SEED)
+        torch.cuda.synchronize()
+        runs[remat] = dict(
+            peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+            counts=kernels.launch_counts(),
+            metrics={k: float(v) for k, v in metrics.items()},
+            grad=torch.cat([p.grad.float().flatten().cpu()
+                            for n, p in model.named_parameters()
+                            if "lora" in n]))
+        t0 = time.perf_counter()
+        step_fn(state, batch, SEED)
+        torch.cuda.synchronize()
+        runs[remat]["second_step_s"] = time.perf_counter() - t0
+        depth = len(model.backbone.blocks)
+        del model, state, step_fn
+        torch.cuda.empty_cache()
+    plain, remat = runs[False], runs[True]
+    rel = {k: abs(remat["metrics"][k] - plain["metrics"][k])
+           / max(abs(plain["metrics"][k]), 1e-9)
+           for k in plain["metrics"] if "loss" in k}
+    cos = float(F.cosine_similarity(plain["grad"].double(),
+                                    remat["grad"].double(), dim=0))
+    extra = {k: remat["counts"][k] - plain["counts"][k] for k in KERNEL_NAMES}
+    want_extra = _counts(attention_fwd_lse=depth, layer_norm=2 * depth)
+    ok = (max(rel.values()) <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
+          and extra == want_extra)
+    emit("remat", model=headline_config()["name"], batch=2,
+         image_hw=[1024, 1024], loss_rel_err=rel,
+         loss_rel_limit=TRAIN_LOSS_REL, lora_grad_cosine=cos,
+         cosine_limit=TRAIN_GRAD_COS,
+         peak_mem_bytes={"remat": remat["peak_mem_bytes"],
+                         "plain": plain["peak_mem_bytes"]},
+         second_step_s={"remat": remat["second_step_s"],
+                        "plain": plain["second_step_s"]},
+         extra_launches=extra, ok=ok, seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"remat: loss rel {rel}, cosine {cos}, extra "
+                             f"launches {extra} != {want_extra}")
+    return {"remat": remat["counts"]}
+
+
+def _debug_run(cfg_name: str, options: list, work_dir: str, source,
+               target=None) -> tuple:
+    """One step of the train CLI with ``schedule.debug_interval=1``; the
+    panels its debug_fn made and what ``save_debug_grid`` returned."""
+    cfg = load_config(cfg_name, options + [
+        "schedule.debug_interval=1", "schedule.checkpoint_interval=0",
+        "schedule.log_interval=1", "schedule.val_interval=0",
+        "data.num_workers=1"])
+    seen = []
+    save = train_cli.save_debug_grid
+
+    def recording(out_dir, step, panels, cols=4):
+        path = save(out_dir, step, panels, cols)
+        seen.append(dict(step=step, path=path, panels={
+            k: (list(np.shape(v)), str(np.asarray(v).dtype),
+                bool(np.isfinite(np.asarray(v, np.float64)).all()))
+            for k, v in panels.items()}))
+        return path
+
+    train_cli.save_debug_grid = recording
+    try:
+        args = train_cli.parse_args([cfg_name, "--work-dir", work_dir,
+                                     "--max-iters", "1"])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_cli.run(cfg, args, source=source, val_sets={}, target=target)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        train_cli.save_debug_grid = save
+    return seen, kernels.launch_counts(), secs
+
+
+def phase_debug_grids(dev) -> dict:
+    """The train CLI with ``schedule.debug_interval=1`` for one step on the
+    headline and on UDA SegFormer: the panels computed on the card (every
+    one finite, each key the JAX CLI's), whether a PNG was written (not
+    without matplotlib)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "work_dirs", "chip_smoke_debug")
+    shutil.rmtree(root, ignore_errors=True)
+    rs = np.random.default_rng(SEED + 73)
+    source = MemorySource([synthetic_sample(rs, (1024, 1024), 19)
+                           for _ in range(2)], os.path.join(root, "data"))
+    ms, ms_counts, ms_s = _debug_run(
+        TRAIN_CLI_CONFIG, [f"data.source.data_root={source.data_root}",
+                           "data.rare_class_sampling=None",
+                           "data.train_pipeline.resize_scale_wh=(1024, "
+                           "1024)"],
+        os.path.join(root, "headline"), source)
+    target = [dict(img=synthetic_sample(rs, (512, 1024), 19)["img"])
+              for _ in range(2)]
+    uda, uda_counts, uda_s = _debug_run(
+        UDA_SEGFORMER_CONFIG, [f"data.source.data_root={source.data_root}",
+                               "data.rare_class_sampling=None"],
+        os.path.join(root, "uda"), source, target)
+    shutil.rmtree(root, ignore_errors=True)
+    want = {"headline": ["image", "gt", "lr_pred", "lr_entropy",
+                         "hr_refined"],
+            "uda": ["image", "gt", "pred", "entropy", "target",
+                    "pseudo_label", "mix_mask", "mixed_image", "mixed_label",
+                    "teacher_entropy"]}
+    got = {"headline": ms, "uda": uda}
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    ok = all(len(runs) == 1 and list(runs[0]["panels"]) == want[name]
+             and all(v[2] for v in runs[0]["panels"].values())
+             and (runs[0]["path"] is not None) == have_mpl
+             for name, runs in got.items())
+    emit("debug_grids", matplotlib=have_mpl,
+         png_written={k: v[0]["path"] is not None if v else None
+                      for k, v in got.items()},
+         panels={k: v[0]["panels"] if v else None for k, v in got.items()},
+         run_s={"headline": ms_s, "uda": uda_s}, ok=ok,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"debug grids: {got}")
+    return {"debug_headline": ms_counts, "debug_uda": uda_counts}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev_info = phase_device()
@@ -3886,6 +4432,10 @@ def main() -> None:
     _mit_rows(summary, mit_rows, mit_ln_rows)
     by_path.update(mit_paths)
     for run in (run_dg_paths, phase_uda_cli, run_uda_m2f, run_uda_hrda):
+        by_path.update(run(dev))
+    by_path.update(phase_ddp_world1(dev, dev_info["smi"]))
+    summary += phase_kernels_dinohead(dev)
+    for run in (phase_dinohead_path, phase_remat, phase_debug_grids):
         by_path.update(run(dev))
     for row in summary:
         paths = {p: c[row["name"]] for p, c in by_path.items()}

@@ -232,14 +232,18 @@ def _with(cfg, path, value):
     ("dinov2", "decode_head/not_a_key", 1, TypeError),
     ("dinov2", "aux_head/transformer/not_a_key", 1, TypeError),
     ("dinov2", "not_a_key", 1, TypeError),
-    ("dinov2", "backbone/backbone/remat", True, NotImplementedError),
-    ("sam", "backbone/backbone/remat", True, NotImplementedError),
+    ("dinov2", "backbone/backbone/ffn_layer", "swiglufused",
+     NotImplementedError),
+    ("sam", "backbone/Lora_config/target_modules", ["not_a_linear"],
+     NotImplementedError),
 ])
 def test_builders_refuse_keys_they_do_not_take(family, path, value, error):
-    """A key that no builder uses or names as ignored raises, and so does
-    the option the port does not implement (remat), where the builders used
-    to drop them silently. The keys the JAX builders ignore
-    by name build: DINOv2's block_chunks, a head's in_index."""
+    """A key that no builder uses or names as ignored raises, and so do the
+    values the port does not implement (an FFN other than the MLP, a LoRA
+    target that is no linear of the ViT), where the builders used to drop
+    them silently. The keys the JAX builders ignore by name build: DINOv2's
+    block_chunks, a head's in_index. (``remat=True``, refused here before,
+    builds since the port took it: tests/test_torch_remat.py.)"""
     with pytest.raises(error):
         build_segmentor(_with(toy_config(family=family), path, value)["model"],
                         device="cpu")

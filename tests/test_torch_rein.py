@@ -462,8 +462,9 @@ def test_unported_configs_name_their_queue_item(name, item):
 
 def test_uda_configs_refuse_to_train_naming_a10():
     """The train CLI takes the three uda_* configs (A10 ported their DACS
-    step) and still refuses data parallelism over several cards, naming
-    A11."""
+    step) and refuses a ``compute.data_parallel`` that differs from the
+    world size it runs in (A11 ported data parallelism over torchrun's
+    ranks; the JAX CLI would shrink the axis instead)."""
     from vfmseg_tpu_torch.tools import train as train_cli
 
     for name in ("uda_rein_dinov2_mask2former_512x512",
@@ -471,8 +472,8 @@ def test_uda_configs_refuse_to_train_naming_a10():
                  "uda_rein_dinov2_hrda_1024x1024"):
         cfg = presets.config(name)
         assert cfg["uda"]["type"] == "DACS"
-        train_cli._check_ported(cfg, train_cli.parse_args([name]))
+        train_cli.check_data_parallel(cfg, 1)
         assert train_cli.dacs_config(cfg).pseudo_threshold == 0.968
     cfg.setdefault("compute", {})["data_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        train_cli._check_ported(cfg, train_cli.parse_args([name]))
+    with pytest.raises(ValueError, match="data_parallel=2 over 1"):
+        train_cli.check_data_parallel(cfg, 1)

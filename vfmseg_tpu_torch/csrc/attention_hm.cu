@@ -38,8 +38,10 @@
 // own element strides (batch, head, token) and unit stride along the head dim,
 // so the training route hands in the token-major outputs of its projections as
 // [B, N, H, D] views with no transpose, and SAM's route its q, k, v as views of
-// one fused qkv tensor. D is 64 or 80 (SAM ViT-H), a template parameter. Nq and
-// Nk are separate. lse and delta are contiguous fp32 [B, H, Nq]. The bias is a
+// one fused qkv tensor. D is 32 (DINOhead's heads, no bias), 64 or 80 (SAM
+// ViT-H), a template parameter; the D = 32 instantiations have entries of
+// their own (vfmseg_attention_hm_fwd_d32, vfmseg_attention_hm_bwd_d32), so
+// their launches are counted apart. Nq and Nk are separate. lse and delta are contiguous fp32 [B, H, Nq]. The bias is a
 // [B, H, Nq, Nk] bf16 or fp32 view with unit stride along Nk and any other
 // strides (0 for a dimension it is broadcast over); dbias is contiguous
 // [B, H, Nq, Nk] in the bias's dtype.
@@ -148,6 +150,13 @@
 // an MN-major one (contraction over the rows): only the descriptor's leading-
 // and stride-byte offsets trade places. A quarter warp's cp.async fills one
 // core matrix (8 rows x 16 bytes), so the copies are free of bank conflicts.
+//
+// Head dim 32. A row is 64 bytes, four core-matrix columns; the layout and
+// the descriptors above need nothing more (every tile stays a multiple of
+// 128 bytes). Q.K^T and K.Q^T are two k16 steps; O += P.V, dV and dK are
+// wgmma m64n32 with A from registers (16 accumulator registers a thread);
+// each warpgroup's half of dQ is 16 columns, wgmma m64n16 over the staged
+// dS^T. No bias path runs at this head dim, so only kNoBias is built.
 
 #include <math.h>
 
@@ -899,6 +908,10 @@ int launch_fwd_d(int bias_kind, const HmArgs& a, int batch, cudaStream_t stream)
 int launch_fwd(int head_dim, int bias_kind, const HmArgs& a, int batch, void* stream) {
   if (bias_kind < kNoBias || bias_kind > kBiasF32) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 32) {
+    if (bias_kind != kNoBias) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_fwd_kernel<32, kNoBias>(a, batch, s);
+  }
   if (head_dim == 64) return launch_fwd_d<64>(bias_kind, a, batch, s);
   if (head_dim == 80) return launch_fwd_d<80>(bias_kind, a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -971,6 +984,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* dqp = static_cast<bf16*>(dq);
+  if (head_dim == 32) {
+    if (bias_kind != kNoBias) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bwd_kernel<32, kNoBias>(a, dqp, sdq, batch, s);
+  }
   if (head_dim == 64) return launch_bwd_d<64>(bias_kind, a, dqp, sdq, batch, s);
   if (head_dim == 80) return launch_bwd_d<80>(bias_kind, a, dqp, sdq, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -986,6 +1003,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 extern "C" int vfmseg_attention_hm_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* lse, const long long* strides, int batch, int heads,
                                        int nq, int nk, int head_dim, float scale, void* stream) {
+  if (head_dim == 32) return static_cast<int>(cudaErrorInvalidValue);
+  const HmArgs a = fwd_args(q, k, v, out, lse, strides, heads, nq, nk, scale);
+  return launch_fwd(head_dim, kNoBias, a, batch, stream);
+}
+
+// The forward at head dim 32 (head_dim must be 32): as
+// vfmseg_attention_hm_fwd.
+extern "C" int vfmseg_attention_hm_fwd_d32(const void* q, const void* k, const void* v,
+                                           void* out, void* lse, const long long* strides,
+                                           int batch, int heads, int nq, int nk, int head_dim,
+                                           float scale, void* stream) {
+  if (head_dim != 32) return static_cast<int>(cudaErrorInvalidValue);
   const HmArgs a = fwd_args(q, k, v, out, lse, strides, heads, nq, nk, scale);
   return launch_fwd(head_dim, kNoBias, a, batch, stream);
 }
@@ -1017,6 +1046,20 @@ extern "C" int vfmseg_attention_hm_bwd(const void* q, const void* k, const void*
                                        void* dq_acc, void* dq, void* dk, void* dv,
                                        const long long* strides, int batch, int heads, int nq,
                                        int nk, int head_dim, float scale, void* stream) {
+  if (head_dim == 32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(q, k, v, dout, lse, delta, nullptr, dq_acc, dq, dk, dv, nullptr, strides,
+                    kNoBias, batch, heads, nq, nk, head_dim, scale, stream);
+}
+
+// The fused backward at head dim 32 (head_dim must be 32): as
+// vfmseg_attention_hm_bwd.
+extern "C" int vfmseg_attention_hm_bwd_d32(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse,
+                                           const void* delta, void* dq_acc, void* dq, void* dk,
+                                           void* dv, const long long* strides, int batch,
+                                           int heads, int nq, int nk, int head_dim, float scale,
+                                           void* stream) {
+  if (head_dim != 32) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(q, k, v, dout, lse, delta, nullptr, dq_acc, dq, dk, dv, nullptr, strides,
                     kNoBias, batch, heads, nq, nk, head_dim, scale, stream);
 }

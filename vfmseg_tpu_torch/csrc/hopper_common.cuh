@@ -85,9 +85,10 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// wgmma.m64nNk16, bf16 in, fp32 accumulators: d (+)= A.B, N = 32, 40 or 64
-// with both operands in shared memory (the dQ halves, S^T and dP^T, the
-// forward's S), 64 or 80 with A from registers (dV and dK, the forward's O).
+// wgmma.m64nNk16, bf16 in, fp32 accumulators: d (+)= A.B, N = 16, 32, 40
+// or 64 with both operands in shared memory (the dQ halves, S^T and dP^T,
+// the forward's S), 32, 64 or 80 with A from registers (dV and dK, the
+// forward's O).
 // SS: A and B from shared memory (kTransA / kTransB: 0 K-major, 1 MN-major);
 // RS: A from registers (the mma.m16n8k16 A fragment of each warp's 16 rows).
 // `accumulate` 0 ignores d's old value.
@@ -131,6 +132,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x 32] (+)= A . B, A from registers, B in shared memory (B5's O,
+// dV and dK at head dim 32).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(kTransB));
 }
 
 // d[64 x 64] (+)= A . B, A from registers, B in shared memory.

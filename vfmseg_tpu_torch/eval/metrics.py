@@ -19,6 +19,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from vfmseg_tpu_torch.parallel import mesh
+
 CITYSCAPES_CLASSES = (
     "road", "sidewalk", "building", "wall", "fence", "pole", "traffic light",
     "traffic sign", "vegetation", "terrain", "sky", "person", "rider", "car",
@@ -83,6 +85,26 @@ class IoUAccumulator:
             pred, label, self.num_classes, self.ignore_index))
         key = self._key_for(path)
         self._acc[key] = self._acc[key] + stats if key in self._acc else stats
+
+    def all_reduce(self, device: torch.device) -> None:
+        """Sum the integer areas over the data group (images sharded over
+        its ranks), so :meth:`compute` gives every rank the global results.
+        A key that no rank saw stays out; the keys follow
+        ``dataset_keys``, then ``default``. ``device``: where the group's
+        backend takes tensors (the card under NCCL, the CPU under gloo)."""
+        if mesh.world_size() == 1:
+            return
+        keys = self.dataset_keys + ["default"]
+        width = 4 * self.num_classes
+        flat = torch.zeros((len(keys), width + 1), dtype=torch.int64,
+                           device=device)
+        for i, key in enumerate(keys):
+            if key in self._acc:
+                flat[i, :width] = self._acc[key].reshape(-1).to(device)
+                flat[i, width] = 1
+        flat = mesh.all_reduce_sum(flat)
+        self._acc = {key: flat[i, :width].reshape(4, self.num_classes)
+                     for i, key in enumerate(keys) if flat[i, width] > 0}
 
     def _stats(self, key: str) -> np.ndarray:
         return self._acc[key].cpu().numpy().astype(np.float64)

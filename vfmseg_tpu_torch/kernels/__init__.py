@@ -42,8 +42,8 @@ ATTENTION_QKV_ROPE = Kernel("attention_qkv_rope", "vfmseg_attention_qkv_rope",
 ATTENTION_FWD_LSE = Kernel("attention_fwd_lse", "vfmseg_attention_qkv_fwd_lse",
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
 # csrc/attention_hm.cu: q, k, v, out, lse (or null), strides (int64 array:
-# batch, head, token of q, k, v, out), batch, heads, nq, nk, head_dim, scale,
-# stream
+# batch, head, token of q, k, v, out), batch, heads, nq, nk, head_dim (64 or
+# 80), scale, stream
 ATTENTION_HM_FWD = Kernel("attention_hm_fwd", "vfmseg_attention_hm_fwd",
                           [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])
 # csrc/attention_hm.cu, the fused backward: q, k, v, dout, lse, delta, dq_acc
@@ -52,6 +52,14 @@ ATTENTION_HM_FWD = Kernel("attention_hm_fwd", "vfmseg_attention_hm_fwd",
 # launches the backward and the kernel that rounds dq_acc into dq
 ATTENTION_HM_BWD = Kernel("attention_hm_bwd", "vfmseg_attention_hm_bwd",
                           [_P] * 11 + [_I] * 5 + [_F, _P])
+# csrc/attention_hm.cu, the same two entries at head dim 32 (DINOhead's
+# heads; no bias), counted apart: same arguments, head_dim 32
+ATTENTION_HM_FWD_D32 = Kernel("attention_hm_fwd_d32",
+                              "vfmseg_attention_hm_fwd_d32",
+                              ATTENTION_HM_FWD.argtypes)
+ATTENTION_HM_BWD_D32 = Kernel("attention_hm_bwd_d32",
+                              "vfmseg_attention_hm_bwd_d32",
+                              ATTENTION_HM_BWD.argtypes)
 # csrc/attention_hm.cu, with an additive bias: q, k, v, bias, out, lse (or
 # null), strides (q, k, v, out, bias), bias_kind (1 bf16, 2 fp32), batch,
 # heads, nq, nk, head_dim, scale, stream
@@ -84,9 +92,9 @@ DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
 KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
-           ATTENTION_HM_FWD, ATTENTION_HM_BWD, ATTENTION_HM_BIAS_FWD,
-           ATTENTION_HM_BIAS_BWD, ATTENTION_RELPOS, WINDOW_BLEND,
-           DEFORM_SAMPLE)
+           ATTENTION_HM_FWD, ATTENTION_HM_BWD, ATTENTION_HM_FWD_D32,
+           ATTENTION_HM_BWD_D32, ATTENTION_HM_BIAS_FWD, ATTENTION_HM_BIAS_BWD,
+           ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -183,8 +183,8 @@ def class_mix_masks(labels: torch.Tensor, num_classes: int = 19,
     present.scatter_(1, safe.reshape(b, -1), True)
     present = present[:, :num_classes]
     k = (present.sum(dim=1) + 1) // 2
-    scores = rng.uniform("augment", (b, num_classes), _HOST).to(
-        labels.device)
+    scores = rng.uniform("augment", rng.PerSample((b, num_classes)),
+                         _HOST).to(labels.device)
     scores = torch.where(present, scores, torch.full_like(scores,
                                                           float("inf")))
     order = torch.argsort(scores, dim=1, stable=True)
@@ -210,7 +210,8 @@ def block_mask(img: torch.Tensor, mask_ratio: float = 0.7,
     b, h, w, _ = img.shape
     mh = max(round(h / block_size), 1)
     mw = max(round(w / block_size), 1)
-    keep = (rng.uniform("augment", (b, mh, mw, 1), _HOST) > mask_ratio)
+    keep = (rng.uniform("augment", rng.PerSample((b, mh, mw, 1)), _HOST)
+            > mask_ratio)
     keep = resize(keep.to(device=img.device, dtype=img.dtype), size=(h, w),
                   method="nearest")
     return img * keep

@@ -32,7 +32,6 @@ from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, ReinsSpec
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
-    check_unported,
 )
 from vfmseg_tpu_torch.models.common import (
     BatchNorm,
@@ -63,7 +62,6 @@ def build_clip(
     config parity, read by neither builder: the backbone returns the
     feature maps."""
     del output_dim, get_embeddings
-    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=width, depth=layers, num_heads=heads,
         mlp_ratio=4.0, img_size=input_resolution,
@@ -71,7 +69,7 @@ def build_clip(
         init_values=None, drop_path_rate=drop_path_rate, ln_eps=1e-5,
         pos_interp="bilinear", cls_style="clip_embed", pre_norm=True,
         patch_embed_bias=False, attn_impl=attn_impl, resize_feat=resize_feat,
-        dtype=dtype)
+        remat=remat, dtype=dtype)
     return VisionTransformer(cfg, lora=lora, reins=reins)
 
 

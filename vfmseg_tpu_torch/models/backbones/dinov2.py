@@ -9,7 +9,7 @@ and ``mit_b0``..``mit_b5`` through ``mit.py`` and ``ResNetV1c`` and
 ``ReinsResNetV1c`` through ``resnet.py``; any other type raises
 (``common.not_ported``). A key that a builder neither uses nor names as
 ignored raises ``TypeError``, and a value the port does not implement
-raises (``check_unported``).
+raises.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from vfmseg_tpu_torch.models.backbones.sam import build_sam
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
-    check_unported,
 )
 
 # the linears of the ported ViT that LoRA may target
@@ -61,14 +60,13 @@ def build_dinov2(
     del block_chunks
     if ffn_layer != "mlp":
         raise NotImplementedError(f"ffn_layer={ffn_layer!r} is not ported")
-    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
         out_indices=tuple(out_indices), qkv_bias=qkv_bias,
         proj_bias=proj_bias, ffn_bias=ffn_bias, init_values=init_values,
         drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_impl=attn_impl,
-        resize_feat=resize_feat, dtype=dtype)
+        resize_feat=resize_feat, remat=remat, dtype=dtype)
     return VisionTransformer(cfg, lora=lora, reins=reins)
 
 

@@ -19,7 +19,6 @@ from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, ReinsSpec
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
-    check_unported,
 )
 
 
@@ -51,7 +50,6 @@ def build_eva02(
         raise NotImplementedError("EVA02 without the sub-LN attention, the "
                                   "SwiGLU or the absolute pos-embed is not "
                                   "ported")
-    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -60,7 +58,7 @@ def build_eva02(
         drop_path_rate=drop_path_rate, ln_eps=1e-6, attn_type="split_subln",
         use_rope=rope, rope_pt_seq_len=pt_hw_seq_len,
         rope_intp_freq=intp_freq, attn_impl=attn_impl,
-        resize_feat=resize_feat, dtype=dtype)
+        resize_feat=resize_feat, remat=remat, dtype=dtype)
     return VisionTransformer(cfg, lora=lora, reins=reins)
 
 

@@ -20,7 +20,6 @@ from vfmseg_tpu_torch.models.backbones.adapters import LoRASpec, ReinsSpec
 from vfmseg_tpu_torch.models.backbones.vit import (
     ViTConfig,
     VisionTransformer,
-    check_unported,
 )
 
 
@@ -55,7 +54,6 @@ def build_sam(
                                   "ported")
     if drop_path_rate:
         raise NotImplementedError("drop-path on SAM's blocks is not ported")
-    check_unported(remat=remat)
     cfg = ViTConfig(
         patch_size=patch_size, embed_dim=embed_dim, depth=depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, img_size=img_size,
@@ -65,7 +63,7 @@ def build_sam(
         global_attn_indexes=tuple(global_attn_indexes),
         use_rel_pos=use_rel_pos,
         rel_pos_pretrain_extent=pretrain_img_size // patch_size,
-        attn_impl=attn_impl, resize_feat=resize_feat, dtype=dtype)
+        attn_impl=attn_impl, resize_feat=resize_feat, remat=remat, dtype=dtype)
     return VisionTransformer(cfg, lora=lora, reins=reins)
 
 

@@ -53,7 +53,8 @@ at ``apply_indices`` (SAM's global blocks), and with ``link_token_to_query``
 the forward returns ``(feats, queries)`` (vit.py:478-548):
 ``returns_queries`` says so, so no caller guesses from the output's shape.
 ``resize_feat`` turns the four maps into a pyramid: x4, x2, x1 and x0.5
-bilinear (vit.py:536-544).
+bilinear (vit.py:536-544). ``remat`` recomputes each block's activations
+in the backward (``nn.remat`` at vit.py:508-509; :func:`remat_call`).
 
 Module and parameter names follow the flax tree (``blocks.<i>`` for
 ``blocks_<i>``), so ``weights.state_dict_from_flax`` maps one onto the other.
@@ -63,12 +64,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.backbones.adapters import (
@@ -153,6 +155,8 @@ class ViTConfig:
     attn_impl: str = "auto"
     # the Rein pyramid: the four maps resized x4, x2, x1, x0.5
     resize_feat: bool = False
+    # recompute each block's activations in the backward (vit.py:508-509)
+    remat: bool = False
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -167,11 +171,26 @@ class ViTConfig:
                 raise ValueError(f"{key} {value!r} is not one of {allowed}")
 
 
-def check_unported(*, remat: bool) -> None:
-    """Raise for the backbone option the port does not implement:
-    rematerialisation (``remat``, a memory option no ported config needs)."""
-    if remat:
-        raise NotImplementedError("remat=True is not ported")
+def remat_call(fn: Callable, *args):
+    """``fn(*args)`` under activation checkpointing (``nn.remat``): its
+    activations are dropped after the forward and recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant). The recomputation
+    must draw the numbers the forward drew, as ``nn.remat`` replays its
+    keys; ``checkpoint`` restores only PyTorch's global generators, so the
+    streams of ``models/rng.py`` (drop-path, LoRA dropout) are snapshot
+    before the call and replayed from fresh generators in the recompute,
+    which may run after the step's ``rng.streams`` has closed."""
+    saved = rng.snapshot()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        with rng.replay(saved):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class RopeTables(NamedTuple):
@@ -197,7 +216,7 @@ def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = rng.uniform("dropout", shape, x.device) < keep
+    mask = rng.uniform("dropout", rng.PerSample(shape), x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -507,8 +526,12 @@ class VisionTransformer(nn.Module):
         rope = self.rope_tables(gh, gw, x.device) if cfg.use_rope else None
         reins = self.reins
         outs = []
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, rope, (gh, gw))
+            if remat:
+                x = remat_call(blk, x, rope, (gh, gw))
+            else:
+                x = blk(x, rope, (gh, gw))
             if reins is not None and reins.spec.applies_at(i):
                 x = reins.adapt(x, i, num_prefix_tokens=p)
             if i in cfg.out_indices:
@@ -525,7 +548,9 @@ class VisionTransformer(nn.Module):
     def rope_tables(self, gh: int, gw: int,
                     device: torch.device) -> RopeTables:
         """The blocks' RoPE tables at a (gh, gw) grid on ``device``, built
-        once and kept."""
+        once and kept (normal tensors even when first built under
+        ``torch.inference_mode``: the training route saves them for its
+        backward)."""
         key = (gh, gw, device)
         if key not in self._rope:
             cfg = self.cfg
@@ -533,9 +558,10 @@ class VisionTransformer(nn.Module):
                 gh, gw, cfg.embed_dim // cfg.num_heads, 1,
                 cfg.rope_pt_seq_len, cfg.rope_intp_freq)
             cos_p, sin_p = permuted_rope_tables(cos, sin)
-            self._rope[key] = RopeTables(*(
-                torch.from_numpy(np.ascontiguousarray(t)).to(device)
-                for t in (cos, sin, cos_p, sin_p)))
+            with torch.inference_mode(False):
+                self._rope[key] = RopeTables(*(
+                    torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                    for t in (cos, sin, cos_p, sin_p)))
         return self._rope[key]
 
     def interpolated_pos_embed(self, gh: int, gw: int) -> torch.Tensor:

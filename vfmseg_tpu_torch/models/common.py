@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vfmseg_tpu_torch.parallel import mesh
+
 
 # config type -> the ROADMAP Queue A item that ports it
 QUEUE_ITEMS: dict = {}
@@ -176,7 +178,14 @@ class BatchNorm(nn.BatchNorm2d):
     convention: 0.9 keeps 90%; PyTorch's momentum 0.1) towards them, the
     biased variance included (``F.batch_norm(training=True)`` would store the
     unbiased one); in eval mode it uses the running statistics. The result
-    is in ``dtype``."""
+    is in ``dtype``.
+
+    Under data parallelism (a process group of several) the training
+    moments are the global batch's, as under the JAX mesh: the fp32
+    per-channel sums and the count are summed over the group with autograd
+    for the mean, then the centred sums of squares for the biased variance
+    (two passes, as ``torch.var_mean`` takes them; ``nn.SyncBatchNorm`` is
+    NCHW and refuses CPU tensors). Eval mode stays local."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9, dtype: torch.dtype = torch.float32):
@@ -187,8 +196,15 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            var, mean = torch.var_mean(xf, dim=tuple(range(x.dim() - 1)),
-                                       unbiased=False)
+            dims = tuple(range(x.dim() - 1))
+            if mesh.world_size() > 1:
+                count = mesh.all_reduce_sum(xf.new_tensor(
+                    float(xf.numel() // xf.shape[-1])))
+                mean = mesh.all_reduce_sum(xf.sum(dim=dims)) / count
+                var = mesh.all_reduce_sum(
+                    (xf - mean).square().sum(dim=dims)) / count
+            else:
+                var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
             with torch.no_grad():
                 m = self.flax_momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.ops.deform_attn import sample_plain
+from vfmseg_tpu_torch.parallel import mesh
 
 _DUMMY_COST = 1e6
 
@@ -128,13 +129,14 @@ def _uncertain_points(mask_logits: torch.Tensor, num_points: int,
     b, k = mask_logits.shape[:2]
     hw = mask_logits.shape[2:]
     dev = mask_logits.device
-    coords = rng.uniform("mask", (b * k, int(num_points * oversample), 2),
-                         dev)
+    coords = rng.uniform(
+        "mask", rng.PerSample((b * k, int(num_points * oversample), 2)), dev)
     pts = _sample_points_per(mask_logits.float().reshape(b * k, *hw), coords)
     n_unc = int(importance * num_points)
     top_idx = torch.topk(-pts.abs(), n_unc, dim=1).indices
     top = torch.gather(coords, 1, top_idx[..., None].expand(-1, -1, 2))
-    rand = rng.uniform("mask", (b * k, num_points - n_unc, 2), dev)
+    rand = rng.uniform("mask", rng.PerSample((b * k, num_points - n_unc, 2)),
+                       dev)
     return torch.cat([top, rand], dim=1).reshape(b, k, num_points, 2)
 
 
@@ -191,7 +193,12 @@ def mask2former_loss(
     assigned = assigned.to(dev, torch.long).reshape(num_stages, b,
                                                     num_classes)
 
-    num_total = exists.float().sum().clamp(min=1.0)
+    # Under data parallelism the normalisers count the global batch, as
+    # under the JAX mesh, and each rank's loss is scaled by the world size,
+    # so the group's mean gradient is the global batch's (mmdet's
+    # reduce_mean of num_masks)
+    world = mesh.world_size()
+    num_total = mesh.all_reduce_sum(exists.float().sum()).clamp(min=1.0)
     class_weight = torch.ones(num_classes + 1, device=dev)
     class_weight[num_classes] = bg_class_weight
     e = exists.float()
@@ -206,7 +213,8 @@ def mask2former_loss(
         nll = -torch.gather(F.log_softmax(cls_pred, dim=-1), -1,
                             q_labels[..., None])[..., 0]
         w = class_weight[q_labels]
-        loss_cls = cls_loss_weight * (nll * w).sum() / w.sum().clamp(min=1.0)
+        loss_cls = (cls_loss_weight * (nll * w).sum() * world
+                    / mesh.all_reduce_sum(w.sum()).clamp(min=1.0))
 
         hw = mask_pred.shape[2:]
         matched = torch.gather(mask_pred, 1, assign[:, :, None, None].expand(
@@ -222,13 +230,13 @@ def mask2former_loss(
             coords).reshape(b, num_classes, num_points)
 
         bce = F.softplus(pred_pts) - pred_pts * gt_pts
-        loss_mask = (mask_loss_weight * (bce * e[..., None]).sum()
+        loss_mask = (mask_loss_weight * (bce * e[..., None]).sum() * world
                      / (num_total * num_points))
         sig = torch.sigmoid(pred_pts)
         numer = 2.0 * (sig * gt_pts).sum(-1)
         denom = sig.sum(-1) + gt_pts.sum(-1)
         dice = 1.0 - (numer + 1.0) / (denom + 1.0)
-        loss_dice = dice_loss_weight * (dice * e).sum() / num_total
+        loss_dice = dice_loss_weight * (dice * e).sum() * world / num_total
 
         prefix = "" if s == num_stages - 1 else f"d{s}."
         losses[f"{prefix}loss_cls"] = loss_cls

@@ -74,9 +74,12 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 128,
 def _sine_on(h: int, w: int, num_feats: int,
              device: torch.device) -> torch.Tensor:
     """:func:`sine_positional_encoding` on ``device``, copied there once per
-    shape (a host-to-device copy waits for the stream)."""
-    return torch.from_numpy(sine_positional_encoding(h, w, num_feats)).to(
-        device)
+    shape (a host-to-device copy waits for the stream); a normal tensor even
+    when first made under ``torch.inference_mode``, since a later training
+    step may save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(sine_positional_encoding(
+            h, w, num_feats)).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -84,15 +87,16 @@ def _reference_points(shapes: Tuple[Tuple[int, int], ...],
                       device: torch.device) -> Tuple[torch.Tensor, ...]:
     """Each token's normalised centre over the levels' ``shapes``, as fp32
     x and y vectors on ``device`` (shared by every level: all-valid
-    ratios)."""
+    ratios); normal tensors, as :func:`_sine_on`'s."""
     refs = []
     for (h, w) in shapes:
         ys = (np.arange(h, dtype=np.float32) + 0.5) / h
         xs = (np.arange(w, dtype=np.float32) + 0.5) / w
         refs.append(np.stack(np.meshgrid(xs, ys), axis=-1).reshape(h * w, 2))
     ref = np.concatenate(refs, axis=0)
-    return tuple(torch.from_numpy(np.ascontiguousarray(ref[:, i])).to(device)
-                 for i in range(2))
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(ref[:, i])).to(
+            device) for i in range(2))
 
 
 class MSDeformAttention(nn.Module):

@@ -120,7 +120,7 @@ class TransformerDecoder(nn.Module):
         b, qh, qw, c = query.shape
         ch, cw = context.shape[1], context.shape[2]
         if self.mask_ratio > 0 and mask_enable:
-            keep = rng.uniform("mask", (b, qh, qw, 1),
+            keep = rng.uniform("mask", rng.PerSample((b, qh, qw, 1)),
                                query.device) > self.mask_ratio
             query = torch.where(keep, query,
                                 self.mask_token.to(query.dtype))

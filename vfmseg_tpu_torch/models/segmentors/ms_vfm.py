@@ -88,7 +88,8 @@ class MsVFMSegmentor(nn.Module):
         hr_labels = labels[:, y1:y1 + ch, x1:x1 + cw]
 
         if tuple(lr_img.shape[1:3]) == (ch, cw):
-            feats = self._feats(torch.cat([lr_img, hr_img], dim=0))
+            with rng.batch_blocks(2):
+                feats = self._feats(torch.cat([lr_img, hr_img], dim=0))
             lr_feats = tuple(f[:b] for f in feats)
             hr_feats = tuple(f[b:] for f in feats)
         else:

@@ -21,7 +21,8 @@ with its custom VJP ``_flash_qkv_tm``, ``flash_attention_headmajor`` with
   :func:`attention_qkv_rope_plain` rotates q and k by RoPE first.
   :func:`attention_decomposed_plain` adds SAM's decomposed rel-pos bias from
   its two k-separable terms.
-* Kernels, on bf16 views with head dim 64 (B5 and B7: 64 or 80):
+* Kernels, on bf16 views with head dim 64 (B5: 32, 64 or 80, with a bias
+  64 or 80; B7: 64 or 80):
 
   - :func:`attention_qkv_tm` (``csrc/attention_qkv.cu``, B2) and
     :func:`attention_fwd_lse_tm` (same kernel template, B3), the inference
@@ -70,7 +71,9 @@ from vfmseg_tpu_torch.kernels import (
     ATTENTION_HM_BIAS_BWD,
     ATTENTION_HM_BIAS_FWD,
     ATTENTION_HM_BWD,
+    ATTENTION_HM_BWD_D32,
     ATTENTION_HM_FWD,
+    ATTENTION_HM_FWD_D32,
     ATTENTION_QKV,
     ATTENTION_QKV_ROPE,
     ATTENTION_RELPOS,
@@ -78,7 +81,8 @@ from vfmseg_tpu_torch.kernels import (
 from vfmseg_tpu_torch.ops.rope import apply_rope_permuted
 
 HEAD_DIM = 64  # the only head dim B2 and B3 take
-HM_HEAD_DIMS = (64, 80)  # the head dims B5 and B7 are built for
+HM_HEAD_DIMS = (32, 64, 80)  # the head dims B5 is built for
+BIAS_HEAD_DIMS = (64, 80)  # B5 with a bias, and B7
 _INT_MAX = 2**31 - 1
 
 
@@ -415,18 +419,21 @@ def _hm_strides_ok(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _hm_views(fn: str, *views: torch.Tensor, bias=None):
-    """Check bf16 CUDA ``[B, H, N, D]`` views (D in ``HM_HEAD_DIMS``, one D
+def _hm_views(fn: str, *views: torch.Tensor, bias=None,
+              head_dims=HM_HEAD_DIMS):
+    """Check bf16 CUDA ``[B, H, N, D]`` views (D in ``head_dims``, one D
     for all) on one device, unit stride along the head dim, other strides
     multiples of 8 and 16-byte aligned data; return their (batch, head,
     token) strides as the int64 array the B5 and B7 entries read, with the
     bias's last (``_hm_bias``)."""
     first = views[0]
+    if bias is not None:
+        head_dims = BIAS_HEAD_DIMS
     for t in views:
-        if (t.dim() != 4 or t.shape[-1] not in HM_HEAD_DIMS
+        if (t.dim() != 4 or t.shape[-1] not in head_dims
                 or t.shape[-1] != first.shape[-1]):
             raise ValueError(f"{fn} takes [B, H, N, D] views with head dim D "
-                             f"in {HM_HEAD_DIMS}, got {tuple(t.shape)}")
+                             f"in {head_dims}, got {tuple(t.shape)}")
         if not t.is_cuda:
             raise ValueError(f"{fn} needs CUDA tensors, got one on {t.device}")
         if t.dtype != torch.bfloat16:
@@ -485,10 +492,11 @@ def attention_hm_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch B5's forward on bf16 CUDA ``[B, H, Nq, D]`` q and
-    ``[B, H, Nk, D]`` k, v views (D 64 or 80, each view with its own
-    strides), with an optional bias as ``_hm_bias`` takes it (then through
-    the bias entry). Returns (out: a ``[B, H, Nq, D]`` view of a token-major
-    tensor, lse: contiguous fp32 ``[B, H, Nq]`` or None)."""
+    ``[B, H, Nk, D]`` k, v views (D 32, 64 or 80, each view with its own
+    strides; D 32 through its own entry), with an optional bias as
+    ``_hm_bias`` takes it (then through the bias entry, D 64 or 80).
+    Returns (out: a ``[B, H, Nq, D]`` view of a token-major tensor, lse:
+    contiguous fp32 ``[B, H, Nq]`` or None)."""
     fn = "attention_hm_fwd"
     b, h, nq, d = q.shape
     nk = k.shape[2]
@@ -503,9 +511,10 @@ def attention_hm_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     lse_ptr = lse.data_ptr() if with_lse else None
     if bias is None:
-        ATTENTION_HM_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), lse_ptr, ctypes.addressof(strides),
-                         b, h, nq, nk, d, float(scale), _stream(q))
+        entry = ATTENTION_HM_FWD_D32 if d == 32 else ATTENTION_HM_FWD
+        entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse_ptr, ctypes.addressof(strides), b, h, nq, nk, d,
+              float(scale), _stream(q))
     else:
         ATTENTION_HM_BIAS_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               bias.data_ptr(), out.data_ptr(), lse_ptr,
@@ -545,8 +554,9 @@ def attention_hm_bwd(q, k, v, dout, lse, delta, scale: float,
             lse.data_ptr(), delta.data_ptr())
     outs = (dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if bias is None:
-        ATTENTION_HM_BWD(*args, *outs, ctypes.addressof(strides), b, h, nq,
-                         nk, d, float(scale), _stream(q))
+        entry = ATTENTION_HM_BWD_D32 if d == 32 else ATTENTION_HM_BWD
+        entry(*args, *outs, ctypes.addressof(strides), b, h, nq, nk, d,
+              float(scale), _stream(q))
     else:
         ATTENTION_HM_BIAS_BWD(*args, bias.data_ptr(), *outs, dbias.data_ptr(),
                               ctypes.addressof(strides), kind, b, h, nq, nk,
@@ -688,7 +698,7 @@ def attention_relpos_hm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{fn} needs q, k and v of one shape")
     out = _hm_out(q, q.shape[2])
-    strides = _hm_views(fn, q, k, v, out)
+    strides = _hm_views(fn, q, k, v, out, head_dims=BIAS_HEAD_DIMS)
     b, h, n, d = q.shape
     kh, kw = rel_h.shape[-1], rel_w.shape[-1]
     for name, t, c in (("rel_h", rel_h, kh), ("rel_w", rel_w, kw)):
@@ -801,22 +811,34 @@ def multi_head_attention_qkv_tm(qkv: torch.Tensor, num_heads: int, *,
     return out.reshape(b, n, num_heads * d)
 
 
+def takes_qkv_kernel(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> bool:
+    """Whether :func:`multi_head_attention` reads [B, N, H, D] q, k, v
+    with B2/B3's kernels: matched shapes at head dim 64, where the JAX
+    package takes its fused-qkv kernel (vfmseg_tpu/ops/attention.py:292-293:
+    matched shapes, an even head count, 2*D a multiple of 128). Every other
+    case runs on B5, as JAX's ``flash_attention``: head dim 32 (DINOhead)
+    with matched shapes among them. An odd head count at D 64 stays on B2,
+    which computes the same function."""
+    return q.shape == k.shape == v.shape and q.shape[-1] == HEAD_DIM
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None) -> torch.Tensor:
     """MHA over [B, N, H, D] q and [B, Nk, H, D] k/v; returns [B, N, H, D].
 
-    Matched shapes (the decoder's self- and cross-attention at equal
-    lengths) run on the same kernels as the ViT (B2, or under
-    differentiation B3 and B5's fused backward), read from three separate
-    tensors. Other shapes run on
-    B5 through :func:`multi_head_attention_headmajor` on CUDA or under
-    differentiation, as the JAX package takes ``flash_attention`` there;
-    otherwise the plain version."""
+    Where :func:`takes_qkv_kernel` holds (the decoder's self- and
+    cross-attention at equal lengths, head dim 64) the same kernels as the
+    ViT run (B2, or under differentiation B3 and B5's fused backward), read
+    from three separate tensors. Every other case runs on B5 through
+    :func:`multi_head_attention_headmajor` on CUDA or under differentiation,
+    as the JAX package takes ``flash_attention`` there; otherwise the plain
+    version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"attention on {q.device}")
-    matched = q.shape == k.shape == v.shape
+    matched = takes_qkv_kernel(q, k, v)
     if not matched and (q.device.type == "cuda" or _wants_grad(q, k, v)):
         return _tok(multi_head_attention_headmajor(_tok(q), _tok(k), _tok(v),
                                                    scale=scale))

@@ -70,7 +70,8 @@ def relative_coords(q_size: int, k_size: int) -> np.ndarray:
 def _linear_matrix(in_size: int, out_size: int, device: torch.device
                    ) -> torch.Tensor:
     """[out_size, in_size] fp32 linear interpolation weights (torch rules,
-    align_corners=False, size-based) on ``device``."""
+    align_corners=False, size-based) on ``device``; a normal tensor, as
+    :func:`_coords_on`'s."""
     src = (np.arange(out_size, dtype=np.float64) + 0.5) * in_size / out_size
     src = np.clip(src - 0.5, 0.0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
@@ -80,16 +81,20 @@ def _linear_matrix(in_size: int, out_size: int, device: torch.device
     rows = np.arange(out_size)
     np.add.at(mat, (rows, lo), (1.0 - frac).astype(np.float32))
     np.add.at(mat, (rows, hi), frac.astype(np.float32))
-    return torch.from_numpy(mat).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(mat).to(device)
 
 
 @functools.lru_cache(maxsize=64)
 def _coords_on(q_size: int, k_size: int, device: torch.device
                ) -> torch.Tensor:
     """:func:`relative_coords` as an int64 tensor on ``device``, copied there
-    once per shape."""
-    return torch.from_numpy(relative_coords(q_size, k_size).astype(
-        np.int64)).to(device)
+    once per shape (a normal tensor even when first made under
+    ``torch.inference_mode``: a later training step saves it for its
+    backward)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(relative_coords(q_size, k_size).astype(
+            np.int64)).to(device)
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor

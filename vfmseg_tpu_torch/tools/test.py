@@ -1,12 +1,25 @@
 """Evaluation CLI of the port.
 
-Port of tools/test.py (the JAX package's), with the same flags but
-``--data-parallel``, plus ``--device`` (the card unless asked otherwise)::
+Port of tools/test.py (the JAX package's), with the same flags, plus
+``--device`` (the card unless asked otherwise)::
 
     python -m vfmseg_tpu_torch.tools.test <config> [checkpoint.trainable.npz]
         [--backbone converted.npz] [--max-images N] [--tta]
         [--show-dir DIR] [--out metrics.json] [--cfg-options k.path=value ...]
-        [--device cuda|cpu]
+        [--data-parallel N] [--device cuda|cpu]
+
+``--data-parallel N`` evaluates over N processes launched by torchrun
+(``torchrun --nproc-per-node N -m vfmseg_tpu_torch.tools.test ...
+--data-parallel N``; NCCL on the cards, gloo with ``--device cpu``); N must
+equal the world size, and 1 needs no launcher. The JAX CLI shards one
+image's crop batch over the devices of one process; PyTorch has no
+single-process SPMD, so here the images are sharded: rank r evaluates
+images i = r (mod N), the IoU areas and the compact gate's window counts
+are summed over the ranks, each rank writes the ``--show-dir`` PNGs it
+predicted, and rank 0 prints and writes ``--out``. The compact engine stays
+whole on each rank, so it pads no windows to a shard size: its counts equal
+the JAX engine's unsharded ones (the JAX mesh mode counts shard-pad windows
+in its forced-bucket stats, vfmseg_tpu/eval/compact.py:481).
 
 ``config`` is a config file's bare name under ``configs/`` or its path,
 read by the port's loader (``core/config.py``). The weights start at zero, as
@@ -38,8 +51,10 @@ import torch
 
 from vfmseg_tpu_torch.data.datasets import build_dataset
 from vfmseg_tpu_torch.data.transforms import TestPipeline
+from vfmseg_tpu_torch.eval.compact import CompactMsSlide
 from vfmseg_tpu_torch.eval.evaluator import (
     _is_compact,
+    make_compact_ms_slide,
     make_shape_aware_predict_fn,
     stream_evaluate,
     unwrap_model,
@@ -51,8 +66,12 @@ from vfmseg_tpu_torch.models.build import (
     compute_dtype,
 )
 from vfmseg_tpu_torch.models.presets import config
+from vfmseg_tpu_torch.parallel import mesh
 from vfmseg_tpu_torch.train.checkpoint import load_npz_tree
 from vfmseg_tpu_torch.weights import state_dict_from_flax
+
+LAUNCH = ("torchrun --nproc-per-node N -m vfmseg_tpu_torch.tools.test "
+          "<config> <checkpoint> --data-parallel N")
 
 
 def parse_args(argv=None):
@@ -70,6 +89,9 @@ def parse_args(argv=None):
                    help="save colourised prediction PNGs here")
     p.add_argument("--out", default=None, help="write metrics JSON here")
     p.add_argument("--cfg-options", nargs="+", default=[])
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="evaluate over N torchrun processes (images "
+                        "sharded over them)")
     p.add_argument("--device", default="cuda",
                    help="torch device to evaluate on (default: the card)")
     return p.parse_args(argv)
@@ -121,19 +143,25 @@ def _out_hw(proc: dict):
 def evaluate_dataset(model, test_cfg: dict, dataset, pipeline, acc,
                      key: str, *, max_images: Optional[int] = None,
                      tta: bool = False, pad_multiple: Optional[int] = None,
-                     on_pred: Optional[Callable] = None) -> int:
+                     on_pred: Optional[Callable] = None, rank: int = 0,
+                     world: int = 1,
+                     engine: Optional[CompactMsSlide] = None) -> int:
     """Evaluate up to ``max_images`` items of ``dataset`` into ``acc`` under
-    ``key``. ``dataset``: anything with ``__len__`` and ``__getitem__``
-    returning ``img`` (uint8 HWC), optionally ``label`` and ``img_path``;
+    ``key``: of those, the images i = ``rank`` (mod ``world``).
+    ``dataset``: anything with ``__len__`` and ``__getitem__`` returning
+    ``img`` (uint8 HWC), optionally ``label`` and ``img_path``;
     ``pipeline(img, label)`` preprocesses it. ``on_pred(pred, item, i)``
-    sees each prediction. Returns the number of images."""
+    sees each prediction. ``engine``: the compact engine to stream through
+    (whose counters the caller reads), else one made here. Returns the
+    number of images this rank evaluated."""
     n = min(max_images or len(dataset), len(dataset))
+    mine = range(rank, n, world)
     device = next(model.parameters()).device
     if _is_compact(test_cfg, tta):
         meta = deque()
 
         def items():
-            for i in range(n):
+            for i in mine:
                 raw = dataset[i]
                 proc = pipeline(raw["img"], raw.get("label"))
                 meta.append((raw, proc.get("label"), i))
@@ -141,16 +169,16 @@ def evaluate_dataset(model, test_cfg: dict, dataset, pipeline, acc,
 
         preds = stream_evaluate(model, test_cfg, items(),
                                 group=test_cfg.get("stream_group", 8),
-                                pad_multiple=pad_multiple)
+                                pad_multiple=pad_multiple, engine=engine)
         for pred in preds:
             raw, label, i = meta.popleft()
             acc.update(pred, label, key)
             if on_pred:
                 on_pred(pred, raw, i)
-        return n
+        return len(mine)
     predict = make_shape_aware_predict_fn(model, test_cfg, tta=tta,
                                           pad_multiple=pad_multiple)
-    for i in range(n):
+    for i in mine:
         raw = dataset[i]
         proc = pipeline(raw["img"], raw.get("label"))
         img = torch.from_numpy(proc["img"])[None].to(device)
@@ -158,7 +186,31 @@ def evaluate_dataset(model, test_cfg: dict, dataset, pipeline, acc,
         acc.update(pred, proc.get("label"), key)
         if on_pred:
             on_pred(pred, raw, i)
-    return n
+    return len(mine)
+
+
+def gate_counts(engine: CompactMsSlide, device: torch.device) -> dict:
+    """The compact engine's windows seen and refined, summed over the data
+    group."""
+    counts = mesh.all_reduce_sum(torch.tensor(
+        [engine.stat_windows, engine.stat_refined], device=device))
+    return dict(windows=int(counts[0]), refined=int(counts[1]))
+
+
+def _data_group(data_parallel: Optional[int], device: str) -> mesh.Mesh:
+    """The data group ``--data-parallel`` asks for: an initialised process
+    group as it is, else torchrun's (N > 1 needs it), else one process."""
+    if data_parallel is None:
+        return mesh.make_mesh(1, device=device)
+    if (not torch.distributed.is_initialized()
+            and (data_parallel > 1 or "WORLD_SIZE" in os.environ)):
+        mesh.init_distributed(device, launch=LAUNCH)
+    group = mesh.make_mesh(device=device)
+    if group.data != data_parallel:
+        raise ValueError(f"--data-parallel {data_parallel} over "
+                         f"{group.data} processes: launch {data_parallel} "
+                         f"(``{LAUNCH}``)")
+    return group
 
 
 def _saver(show_dir: Optional[str], key: str):
@@ -181,8 +233,10 @@ def _saver(show_dir: Optional[str], key: str):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = config(args.config, args.cfg_options)
+    group = _data_group(args.data_parallel, args.device)
+    main_rank = group.rank == 0
     model = unwrap_model(build_segmentor(
-        cfg["model"], dtype=compute_dtype(cfg), device=args.device,
+        cfg["model"], dtype=compute_dtype(cfg), device=group.device,
         attn_impl=compute_attn_impl(cfg)))
     load_weights(model, args.checkpoint, args.backbone)
 
@@ -197,6 +251,8 @@ def main(argv=None) -> dict:
     kr_default = bool(cfg.get_path("data.test_keep_ratio", True))
     test_cfg = cfg.get("test_cfg", {})
     pad_mult = cfg.get_path("data.eval_pad_multiple")
+    engine = (make_compact_ms_slide(model, test_cfg)
+              if _is_compact(test_cfg, args.tta) else None)
     for dset_cfg, key in zip(test_sets, keys):
         wh = tuple(dset_cfg.get("test_resize_wh", wh_default))
         pipeline = TestPipeline(
@@ -205,22 +261,31 @@ def main(argv=None) -> dict:
         dataset = build_dataset({k: v for k, v in dset_cfg.items()
                                  if k not in ("key", "test_resize_wh",
                                               "keep_ratio")})
-        print(f"evaluating {key}: {len(dataset)} images "
-              f"(resize_wh={wh}, keep_ratio={pipeline.keep_ratio})")
+        if main_rank:
+            print(f"evaluating {key}: {len(dataset)} images "
+                  f"(resize_wh={wh}, keep_ratio={pipeline.keep_ratio})")
         evaluate_dataset(model, test_cfg, dataset, pipeline, acc, key,
                          max_images=args.max_images, tta=args.tta,
                          pad_multiple=pad_mult,
-                         on_pred=_saver(args.show_dir, key))
+                         on_pred=_saver(args.show_dir, key),
+                         rank=group.rank, world=group.data, engine=engine)
 
+    comm = next(model.parameters()).device
+    acc.all_reduce(comm)
     results = acc.compute()
-    for key in list(acc._acc):
-        print(f"--- {key} per-class IoU ---")
-        for cls, iou in acc.per_class_iou(key).items():
-            print(f"  {cls:>15s}: {iou}")
-    print(json.dumps(results, indent=2))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=2)
+    gate = gate_counts(engine, comm) if engine is not None else None
+    if main_rank:
+        for key in list(acc._acc):
+            print(f"--- {key} per-class IoU ---")
+            for cls, iou in acc.per_class_iou(key).items():
+                print(f"  {cls:>15s}: {iou}")
+        if gate is not None:
+            print(f"compact gate: refined {gate['refined']} of "
+                  f"{gate['windows']} windows")
+        print(json.dumps(results, indent=2))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=2)
     return results
 
 

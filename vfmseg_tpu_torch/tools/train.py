@@ -1,11 +1,12 @@
 """Training CLI of the port.
 
-Port of tools/train.py (the JAX package's), with the same flags but
-``--distributed``, plus ``--device`` (the card unless asked otherwise)::
+Port of tools/train.py (the JAX package's), with the same flags, plus
+``--device`` (the card unless asked otherwise)::
 
     python -m vfmseg_tpu_torch.tools.train <config> [--work-dir D] [--resume]
         [--amp] [--cfg-options k.path=value ...] [--max-iters N]
-        [--backbone-init converted.npz] [--list-params] [--device cuda|cpu]
+        [--backbone-init converted.npz] [--list-params] [--distributed]
+        [--device cuda|cpu]
 
 ``config`` is a config file's bare name under ``configs/`` or its path,
 read by the port's loader. The model's weights come from
@@ -26,18 +27,36 @@ sample with a target sample from ``data.target`` (``UDADataset``), the
 state carries the EMA copy of the head (``uda.head_key``), and the step is
 ``make_dacs_train_step`` with a ``DACSConfig`` from that section.
 
+Data parallelism. ``--distributed`` joins the process group of a torchrun
+launch (``torchrun --nproc-per-node N -m vfmseg_tpu_torch.tools.train
+<config> --distributed``; NCCL with each rank on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``). Each rank builds its ``batch_size / N`` rows of
+every global batch and the step reduces what the JAX mesh reduces over the
+global batch (``parallel/mesh.py``); rank 0 logs and checkpoints, and
+validation shards its images over the ranks. ``compute.data_parallel``
+defaults to the world size, as the JAX CLI's to its device count; another
+value, or a ``batch_size`` the world size does not divide, raises (the JAX
+CLI shrinks the axis to a divisor, which would leave launched ranks idle).
+
+Every ``log_config.img_interval`` (else ``schedule.debug_interval``) steps,
+``debug_fn`` writes a grid of debug panels to ``<work_dir>/class_mix_debug``
+on rank 0 (tools/train.py:244-321 of the JAX package): the image and its
+labels; MsVFM's LR prediction and entropy and the refined centre crop; any
+other segmentor's prediction and entropy; under DACS the target, the
+pseudo-label, the mix mask, the mixed image and labels and the teacher's
+entropy. Without matplotlib no file is written.
+
 :func:`run` takes a loaded config, the parsed arguments and, optionally,
 in-memory source and target datasets and validation sets in place of the
-config's. Not ported yet, and raising: data parallelism over several cards
-(ROADMAP A11) and the debug image grids (``schedule.debug_interval``,
-``log_config.img_interval``; A11).
+config's.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -50,13 +69,15 @@ from vfmseg_tpu_torch.data.datasets import (
 )
 from vfmseg_tpu_torch.data.loader import InfiniteLoader
 from vfmseg_tpu_torch.data.transforms import TestPipeline, TrainPipeline
-from vfmseg_tpu_torch.eval.evaluator import make_predict_fn
+from vfmseg_tpu_torch.eval.evaluator import make_predict_fn, unwrap_model
 from vfmseg_tpu_torch.eval.metrics import IoUAccumulator
 from vfmseg_tpu_torch.models.build import (
     build_segmentor,
     compute_attn_impl,
     compute_dtype,
 )
+from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
+from vfmseg_tpu_torch.parallel import mesh
 from vfmseg_tpu_torch.train.checkpoint import (
     load_pytree,
     trainable_state_dict,
@@ -68,7 +89,12 @@ from vfmseg_tpu_torch.train.step import make_train_step
 from vfmseg_tpu_torch.train.uda import (
     DACSConfig,
     init_ema,
+    make_dacs_debug_fn,
     make_dacs_train_step,
+)
+from vfmseg_tpu_torch.utils.visualization import (
+    denormalize_image,
+    save_debug_grid,
 )
 from vfmseg_tpu_torch.weights import (
     flax_from_state_dict,
@@ -91,7 +117,8 @@ def parse_args(argv=None):
     p.add_argument("--backbone-init", default=None,
                    help="converted backbone weights (.npz from convert_*)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="join a torchrun launch's process group: data "
+                        "parallelism over its ranks")
     p.add_argument("--list-params", action="store_true",
                    help="print every trainable parameter path and shape")
     p.add_argument("--device", default="cuda",
@@ -140,21 +167,28 @@ def dacs_config(cfg: Config) -> DACSConfig:
         head_key=uda.get("head_key", "decode_head"))
 
 
-def _check_ported(cfg: Config, args) -> None:
-    if args.distributed or cfg.get_path("compute.data_parallel", 1) > 1:
-        raise NotImplementedError("data-parallel training over several "
-                                  "cards is not ported yet (ROADMAP A11)")
-    if (cfg.get_path("log_config.img_interval", 0)
-            or cfg.get_path("schedule.debug_interval", 0)):
-        raise NotImplementedError("the debug image grids are not ported yet "
-                                  "(ROADMAP A11)")
+def check_data_parallel(cfg: Config, world: int) -> None:
+    """Raise unless ``compute.data_parallel`` (default: the world size)
+    equals the world size and the world size divides
+    ``data.batch_size``."""
+    n_dp = cfg.get_path("compute.data_parallel", world)
+    if n_dp != world:
+        raise ValueError(f"compute.data_parallel={n_dp} over {world} "
+                         f"processes: launch {n_dp} (``{mesh.LAUNCH}``)")
+    bs = cfg.get_path("data.batch_size", 2)
+    if bs % world:
+        raise ValueError(f"data.batch_size {bs} does not split over "
+                         f"{world} processes")
 
 
 def make_val_fn(model: torch.nn.Module, cfg: Config,
                 val_sets: Mapping[str, object]):
     """``val_fn(state) -> results``: each validation set's first
     ``data.val_max_images`` images through the dense predictor into one
-    IoU accumulator, every key in the mean (tools/train.py:200-242)."""
+    IoU accumulator, every key in the mean (tools/train.py:200-242). Under
+    data parallelism rank r predicts images i = r (mod world) and the
+    areas are summed over the ranks, so every rank gets the global
+    results."""
     keys = list(val_sets)
     wh = tuple(cfg.get_path("data.test_resize_wh", (2048, 1024)))
     pipeline = TestPipeline(resize_scale_wh=wh)
@@ -174,15 +208,100 @@ def make_val_fn(model: torch.nn.Module, cfg: Config,
                           else (wh[1], wh[0]))
                 predicts[key] = make_predict_fn(state.model, test_cfg,
                                                 tuple(out_hw))
-            for i in range(min(max_val, len(ds))):
+            for i in range(mesh.rank(), min(max_val, len(ds)),
+                           mesh.world_size()):
                 raw = ds[i]
                 proc = pipeline(raw["img"], raw.get("label"))
                 img = torch.from_numpy(proc["img"])[None].to(device)
                 acc.update(predicts[key](state.model, img)[0],
                            proc["label"], key)
+        acc.all_reduce(device)
         return acc.compute()
 
     return val_fn
+
+
+def _entropy(logits: torch.Tensor) -> torch.Tensor:
+    """The normalised entropy of the softmax over the last axis, fp32."""
+    p = torch.softmax(logits.float(), dim=-1)
+    return -(p * torch.log(p + 1e-12)).sum(dim=-1) / math.log(p.shape[-1])
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _argmax(logits: torch.Tensor) -> np.ndarray:
+    return logits.argmax(dim=-1).cpu().numpy()
+
+
+@torch.no_grad()
+def debug_panels(state: TrainState, batch: Mapping, seed: int,
+                 dacs_debug: Optional[Callable] = None) -> dict:
+    """The debug grid's panels of ``batch``'s first image (the JAX CLI's
+    ``debug_fn``, tools/train.py:267-310): image and labels; for MsVFM the
+    LR prediction and entropy (``lr_forward``) and the centre crop refined
+    with the LR logits as context (``hr_forward``); for any segmentor with
+    ``encode_decode`` its prediction and entropy; under DACS
+    (``dacs_debug``, ``make_dacs_debug_fn``'s function) the target, the
+    pseudo-label, the mix mask, the mixed image and labels and the
+    teacher's entropy. The model predicts in eval mode, its mode restored
+    after."""
+    model = state.model
+    inner = unwrap_model(model)
+    device = next(model.parameters()).device
+    img = torch.as_tensor(batch["img"][:1]).to(device)
+    panels = {"image": denormalize_image(np.asarray(batch["img"][0])),
+              "gt": np.asarray(batch["label"][0])}
+    was_training = model.training
+    model.eval()
+    try:
+        if isinstance(inner, MsVFMSegmentor):
+            lr_logits = inner.lr_forward(img)
+            panels["lr_pred"] = _argmax(lr_logits)[0]
+            panels["lr_entropy"] = _np(_entropy(lr_logits))[0]
+            ch, cw = inner.hr_crop_size
+            y0 = (img.shape[1] - ch) // 2
+            x0 = (img.shape[2] - cw) // 2
+            hr_logits = inner.hr_forward(
+                img[:, y0:y0 + ch, x0:x0 + cw],
+                lr_logits[:, y0:y0 + ch, x0:x0 + cw])
+            panels["hr_refined"] = _argmax(hr_logits)[0]
+        elif hasattr(type(inner), "encode_decode"):
+            logits = inner.encode_decode(img)
+            panels["pred"] = _argmax(logits)[0]
+            panels["entropy"] = _np(_entropy(logits))[0]
+    finally:
+        model.train(was_training)
+    if dacs_debug is not None and "target_img" in batch:
+        d = dacs_debug(state, batch, seed)
+        panels["target"] = denormalize_image(np.asarray(
+            batch["target_img"][0]))
+        panels["pseudo_label"] = d["pseudo_label"][0].cpu().numpy()
+        panels["mix_mask"] = _np(d["mix_mask"])[0]
+        panels["mixed_image"] = denormalize_image(_np(d["mixed_img"][0]))
+        panels["mixed_label"] = d["mixed_lbl"][0].cpu().numpy()
+        panels["teacher_entropy"] = _np(d["entropy"])[0]
+    return panels
+
+
+def make_debug_fn(cfg: Config, work_dir: str, seed: int,
+                  write: bool) -> Callable:
+    """``debug_fn(state, batch, step)`` for ``train_loop``: every rank
+    computes the panels (the DACS ones reduce over the data group), the
+    rank that ``write``s saves the grid under ``<work_dir>/class_mix_debug``
+    (``save_debug_grid``)."""
+    dacs_debug = (make_dacs_debug_fn(dacs_config(cfg)) if cfg.get("uda")
+                  else None)
+    out_dir = os.path.join(work_dir, "class_mix_debug")
+
+    def debug_fn(state: TrainState, batch: Mapping, step: int):
+        panels = debug_panels(state, batch, seed, dacs_debug)
+        if write:
+            return save_debug_grid(out_dir, step, panels, cols=4)
+        return None
+
+    return debug_fn
 
 
 def run(cfg: Config, args, source=None,
@@ -193,18 +312,25 @@ def run(cfg: Config, args, source=None,
     ``uda`` section the target is ``target`` if given, else
     ``data.target``; the validation sets (key -> dataset) ``val_sets`` if
     given, else ``data.val``. Returns the final state."""
-    _check_ported(cfg, args)
+    group = (mesh.init_distributed(args.device) if args.distributed
+             else mesh.make_mesh(1, device=args.device))
+    check_data_parallel(cfg, group.data)
+    say = print if group.rank == 0 else (lambda *a, **k: None)
     work_dir = args.work_dir or os.path.join("work_dirs",
                                              cfg.get("name", "run"))
     os.makedirs(work_dir, exist_ok=True)
-    model = build_model(cfg, args.device, args.amp)
+    model = build_model(cfg, str(group.device), args.amp)
     if args.backbone_init:
         prefix = load_backbone(model, args.backbone_init)
-        print(f"loaded backbone weights from {args.backbone_init} "
-              f"-> {prefix}")
+        say(f"loaded backbone weights from {args.backbone_init} -> {prefix}")
+    mesh.replicate(model)  # rank 0's weights on every rank
 
     dcfg = cfg["data"]
     seed = cfg.get_path("schedule.seed", 0)
+    # rank 0 draws the single process's samples; every other rank's
+    # augmentations and rare-class picks come from a generator of its own
+    data_seed = (seed if group.rank == 0 else int(np.random.SeedSequence(
+        [seed, group.rank]).generate_state(1)[0]))
     if source is None:
         source = build_dataset(dcfg["source"])
     pipeline = TrainPipeline(**{k: tuple(v) if isinstance(v, list) else v
@@ -214,10 +340,10 @@ def run(cfg: Config, args, source=None,
         if target is None:
             target = build_dataset(dcfg["target"])
         dataset = UDADataset(source, target, pipeline,
-                             rare_class_sampling=rcs, seed=seed)
+                             rare_class_sampling=rcs, seed=data_seed)
     else:
         dataset = DGDataset(source, pipeline, rare_class_sampling=rcs,
-                            seed=seed)
+                            seed=data_seed)
 
     max_iters = args.max_iters or cfg.get_path("schedule.max_iters", 40000)
     state = create_train_state(model, cfg, max_iters=max_iters)
@@ -231,10 +357,12 @@ def run(cfg: Config, args, source=None,
     trainable = trainable_state_dict(model)
     n_train = sum(p.numel() for p in trainable.values())
     n_total = sum(p.numel() for p in model.parameters())
-    print(f"trainable params: {n_train:,} / {n_total:,} "
-          f"({100.0 * n_train / n_total:.2f}%)")
-    if args.list_params:
+    say(f"trainable params: {n_train:,} / {n_total:,} "
+        f"({100.0 * n_train / n_total:.2f}%)")
+    if args.list_params and group.rank == 0:
         _print_tree(flax_from_state_dict(trainable, model)["params"])
+    if group.data > 1:
+        say(f"data-parallel training over {group.data} processes")
 
     sched = cfg.get("schedule", {})
     val_fn = None
@@ -244,10 +372,14 @@ def run(cfg: Config, args, source=None,
                     for i, d in enumerate(cfg.get_path("data.val") or [])}
     if val_sets and sched.get("val_interval", 0):
         val_fn = make_val_fn(model, cfg, val_sets)
+    debug_interval = (cfg.get_path("log_config.img_interval", 0)
+                      or sched.get("debug_interval", 0))
+    debug_fn = (make_debug_fn(cfg, work_dir, seed, group.rank == 0)
+                if debug_interval else None)
 
     loader = InfiniteLoader(dataset, batch_size=dcfg.get("batch_size", 2),
                             num_workers=dcfg.get("num_workers", 4),
-                            seed=seed)
+                            seed=seed, rank=group.rank, world=group.data)
     try:
         return train_loop(
             state, step_fn, loader, max_iters=max_iters,
@@ -256,6 +388,7 @@ def run(cfg: Config, args, source=None,
             checkpoint_interval=sched.get("checkpoint_interval", 4000),
             max_keep_ckpts=sched.get("max_keep_ckpts", 3),
             val_interval=sched.get("val_interval", 0), val_fn=val_fn,
+            debug_interval=debug_interval, debug_fn=debug_fn,
             save_best=sched.get("save_best"), resume=args.resume)
     finally:
         loader.close()

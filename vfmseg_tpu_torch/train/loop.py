@@ -12,6 +12,11 @@ the latest checkpoint. The loop waits for the last save before it returns.
 Reading the metrics at a log step waits for the device, so each logged
 ``steps_per_sec`` covers finished work; time spent saving checkpoints,
 validating and in ``debug_fn`` is left out of it.
+
+Under data parallelism every rank steps, validates (``val_fn`` shards its
+images and returns the global results), calls ``debug_fn`` (which writes
+on rank 0) and restores on ``resume``; rank 0 alone logs, checkpoints and
+writes ``best.trainable.npz``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import os
 import time
 from typing import Callable, Dict, Iterator, Optional
 
+from vfmseg_tpu_torch.parallel import mesh
 from vfmseg_tpu_torch.train.checkpoint import (
     CheckpointManager,
     save_pytree,
@@ -73,7 +79,8 @@ def train_loop(
 ) -> TrainState:
     ckpt = CheckpointManager(work_dir, max_keep=max_keep_ckpts,
                              async_save=True)
-    logger = MetricLogger(work_dir)
+    main = mesh.rank() == 0
+    logger = MetricLogger(work_dir) if main else None
     best_metric = float("-inf")
     if resume:
         state = ckpt.restore(state)
@@ -87,16 +94,19 @@ def train_loop(
             metrics = {k: float(v) for k, v in metrics.items()}
             now = time.perf_counter()
             metrics["steps_per_sec"] = window / max(now - t0, 1e-9)
-            logger.write(it + 1, metrics)
+            if main:
+                logger.write(it + 1, metrics)
             t0 = time.perf_counter()
         paused = time.perf_counter()
-        if checkpoint_interval and (it + 1) % checkpoint_interval == 0:
+        if (main and checkpoint_interval
+                and (it + 1) % checkpoint_interval == 0):
             ckpt.save(state)
         if val_interval and val_fn is not None and (it + 1) % val_interval == 0:
             results = val_fn(state)
-            logger.write(it + 1, results, prefix="val")
-            if save_best and results.get(save_best,
-                                         float("-inf")) > best_metric:
+            if main:
+                logger.write(it + 1, results, prefix="val")
+            if main and save_best and results.get(
+                    save_best, float("-inf")) > best_metric:
                 best_metric = results[save_best]
                 tree = flax_from_state_dict(
                     trainable_state_dict(state.model), state.model)

@@ -14,6 +14,14 @@ live on the CPU (the box is needed on the host; every augment draw is a
 scalar or a tiny array, so the card and the CPU draw the same numbers from
 one seed); ``mask`` and ``dropout`` live on the model's device. Gradients stay in ``.grad`` until the next step clears them.
 
+Data parallelism (``parallel/mesh.py``): each rank runs the step on its
+rows of the global batch with the streams seeded as one process seeds them
+(``rng.streams`` takes the rank and the world size, and per-sample draws
+keep the rank's rows of the global draw); the trainable gradients are then
+averaged over the group before the norm is taken, so ``grad_norm`` and the
+update are the global batch's, and the logged losses are averaged too.
+With no process group nothing is reduced.
+
 A trainable parameter that the loss does not reach (a Rein backbone's
 query layers under a head that takes no queries: HRDA, SegFormer,
 LinearHead) gets a zero gradient, as ``jax.grad`` gives one, so AdamW
@@ -22,12 +30,13 @@ decays it as optax's does instead of skipping it.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from vfmseg_tpu_torch.models import rng
+from vfmseg_tpu_torch.parallel import mesh
 from vfmseg_tpu_torch.train.state import TrainState
 
 RNG_NAMES: Tuple[str, ...] = ("crop", "mask", "dropout", "augment")
@@ -50,6 +59,17 @@ def step_generators(seed: int, step: int,
     return gens
 
 
+def reduced_gradients(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The optimizer's gradients, a zero one where the loss left none, each
+    averaged over the data group; returned in the optimizer's order."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    mesh.average_gradients(params)
+    return [p.grad for p in params]
+
+
 def make_train_step() -> Callable:
     """Build the train step for a segmentor whose ``forward(img, labels)``
     returns a loss dict."""
@@ -62,15 +82,12 @@ def make_train_step() -> Callable:
         label = torch.as_tensor(batch["label"]).to(device, non_blocking=True)
         model.train()
         opt.zero_grad(set_to_none=True)
-        with rng.streams(step_generators(seed, state.step, device)):
+        with rng.streams(step_generators(seed, state.step, device),
+                         mesh.rank(), mesh.world_size()):
             losses = model(img, label)
         loss = sum_losses(losses)
         loss.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        grads = [p.grad for g in opt.param_groups for p in g["params"]]
+        grads = reduced_gradients(opt)
         grad_norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
         lr = state.schedule(state.step)
         for group in opt.param_groups:
@@ -79,6 +96,7 @@ def make_train_step() -> Callable:
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = loss.detach()
+        metrics = mesh.average_losses(metrics)
         metrics["grad_norm"] = grad_norm
         return state, metrics
 

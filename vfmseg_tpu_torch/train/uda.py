@@ -34,6 +34,12 @@ generators, on the host) gives the ClassMix scores and the jitter and blur
 draws, in the JAX step's order; the student's ``crop``, ``mask`` and
 ``dropout`` streams are the plain step's. The metrics keep the JAX keys:
 ``src.*``, ``mix.*``, ``loss`` and ``pseudo_weight``.
+
+Data parallelism: the pseudo-weight is the global batch's mean (an
+all-reduce), the gradients and logged losses are averaged over the group
+as in the plain step, and the 2B pass tells the streams that its batch
+concatenates two (``rng.batch_blocks``). The EMA needs no collective:
+after the gradient all-reduce every rank's student is the same.
 """
 
 from __future__ import annotations
@@ -56,8 +62,13 @@ from vfmseg_tpu_torch.models.losses import cross_entropy_loss, seg_accuracy
 from vfmseg_tpu_torch.models.presets import IMAGENET_MEAN, IMAGENET_STD
 from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
 from vfmseg_tpu_torch.ops.resize import resize
+from vfmseg_tpu_torch.parallel import mesh
 from vfmseg_tpu_torch.train.state import TrainState
-from vfmseg_tpu_torch.train.step import step_generators, sum_losses
+from vfmseg_tpu_torch.train.step import (
+    reduced_gradients,
+    step_generators,
+    sum_losses,
+)
 from vfmseg_tpu_torch.utils.misc import add_prefix
 
 
@@ -128,7 +139,10 @@ def dacs_mix(model: nn.Module, cfg: DACSConfig,
                           dim=-1)
     max_prob = probs.amax(dim=-1)
     pseudo_label = probs.argmax(dim=-1)
-    pweight = (max_prob >= cfg.pseudo_threshold).float().mean()
+    # a mean over the global batch under data parallelism (equal local
+    # batches), as under the JAX mesh
+    pweight = mesh.all_reduce_mean(
+        (max_prob >= cfg.pseudo_threshold).float().mean())
     weight_map = pweight.expand(b, h, w).clone()
     if cfg.psweight_ignore_top > 0:
         weight_map[:, :cfg.psweight_ignore_top] = 0.0
@@ -162,11 +176,17 @@ def make_dacs_debug_fn(cfg: DACSConfig = DACSConfig()) -> Callable:
     def debug_tensors(state: TrainState, batch: Mapping, seed: int):
         device = next(state.model.parameters()).device
         src_img, src_lbl, tgt_img = _tensors(batch, device)
-        with rng.streams(step_generators(seed, state.step, device)):
+        with _streams(seed, state.step, device):
             return dacs_mix(state.model, cfg, state.ema, src_img, src_lbl,
                             tgt_img)
 
     return debug_tensors
+
+
+def _streams(seed: int, step: int, device: torch.device):
+    """Step ``step``'s generators for this rank of the data group."""
+    return rng.streams(step_generators(seed, step, device), mesh.rank(),
+                       mesh.world_size())
 
 
 def ema_alpha(step: int, cap: float) -> float:
@@ -196,7 +216,7 @@ def student_losses(model: nn.Module, src_img: torch.Tensor,
     device = src_img.device
     if type(model) is EncoderDecoder:
         b = src_img.shape[0]
-        with rng.streams(step_generators(seed, step, device)):
+        with _streams(seed, step, device), rng.batch_blocks(2):
             logits = model(torch.cat([src_img, mix["mixed_img"]], dim=0))
         logits = resize(logits, size=src_lbl.shape[1:3], method="bilinear",
                         align_corners=model.align_corners)
@@ -208,9 +228,9 @@ def student_losses(model: nn.Module, src_img: torch.Tensor,
             "mix.decode.loss_ce": cross_entropy_loss(
                 mix_logits, mixed_lbl, pixel_weight=mix["mixed_weight"]),
             "mix.decode.acc_seg": seg_accuracy(mix_logits, mixed_lbl)}
-    with rng.streams(step_generators(seed, step, device)):
+    with _streams(seed, step, device):
         losses = add_prefix(model(src_img, src_lbl), "src")
-    with rng.streams(step_generators(seed, step, device)):
+    with _streams(seed, step, device):
         losses.update(add_prefix(model(
             mix["mixed_img"], mix["mixed_lbl"],
             pixel_weight=mix["mixed_weight"]), "mix"))
@@ -230,16 +250,13 @@ def make_dacs_train_step(cfg: DACSConfig = DACSConfig()) -> Callable:
         src_img, src_lbl, tgt_img = _tensors(batch, device)
         model.train()
         opt.zero_grad(set_to_none=True)
-        with rng.streams(step_generators(seed, state.step, device)):
+        with _streams(seed, state.step, device):
             mix = dacs_mix(model, cfg, state.ema, src_img, src_lbl, tgt_img)
         losses = student_losses(model, src_img, src_lbl, mix, seed,
                                 state.step)
         loss = sum_losses(losses)
         loss.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        reduced_gradients(opt)
         lr = state.schedule(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -248,6 +265,7 @@ def make_dacs_train_step(cfg: DACSConfig = DACSConfig()) -> Callable:
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = loss.detach()
+        metrics = mesh.average_losses(metrics)
         metrics["pseudo_weight"] = mix["pseudo_weight"]
         return state, metrics
 
