@@ -52,7 +52,9 @@ from vfmseg_tpu_torch.weights import flax_from_state_dict, init_params
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLD = 2
-WAIT_S = 120
+# the ranks take ~10 s alone and several times that beside the parallel
+# suite's other workers; a stuck collective raises after its own 90 s
+WAIT_S = 240
 CASES = ["msvfm", "msvfm_fixed", "m2f", "dacs_linear", "dacs_segformer",
          "eval"]
 EVAL_SHAPES = [(96, 160), (96, 160), (96, 160), (128, 128), (128, 128)]
