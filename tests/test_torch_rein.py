@@ -472,8 +472,8 @@ def test_uda_configs_refuse_to_train_naming_a10():
                  "uda_rein_dinov2_hrda_1024x1024"):
         cfg = presets.config(name)
         assert cfg["uda"]["type"] == "DACS"
-        train_cli.check_data_parallel(cfg, 1)
+        assert train_cli.check_data_parallel(cfg).data == 1
         assert train_cli.dacs_config(cfg).pseudo_threshold == 0.968
     cfg.setdefault("compute", {})["data_parallel"] = 2
-    with pytest.raises(ValueError, match="data_parallel=2 over 1"):
-        train_cli.check_data_parallel(cfg, 1)
+    with pytest.raises(ValueError, match="data axis of 2 over 1"):
+        train_cli.check_data_parallel(cfg)

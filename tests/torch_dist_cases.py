@@ -13,8 +13,9 @@ gradients, the updated trainable parameters, the BatchNorm statistics and
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 from unittest import mock
 
 import numpy as np
@@ -53,12 +54,15 @@ FIXED_CROPS = [1, 0]
 M2F = ("smoke_tiny_rein_m2f", [])
 # DACS's batched 2B student pass on an EncoderDecoder: the tiny UDA config
 # (LinearHead, whose BatchNorm takes the moments of the 2B batch) and the
-# same backbone under a SegFormer head
+# same backbone under a SegFormer head; and the two passes of a
+# MaskFormerSegmentor, the mixed one's set losses scaled by the mixed
+# weight's mean
 DACS = {"linear": ("smoke_tiny_uda", []),
         "segformer": ("smoke_tiny_uda", [
             "model.decode_head={'type': 'SegformerHead', "
             "'in_channels': [32, 32, 32, 32], 'channels': 8, "
-            "'num_classes': 19, 'dropout_ratio': 0.1}"])}
+            "'num_classes': 19, 'dropout_ratio': 0.1}"]),
+        "m2f": M2F}
 
 
 def global_batch(seed: int, target: bool = False) -> Dict[str, np.ndarray]:
@@ -105,51 +109,66 @@ def _rows(batch):
     return {k: v[rows] for k, v in batch.items()}
 
 
+@contextlib.contextmanager
+def _matchings(matching: Optional[np.ndarray], found: Dict):
+    """The set loss's host matchings of every call, in call order, put in
+    ``found["a/matching"]`` as [calls x stages, local images, K]; with
+    ``matching`` ([calls x stages, images, K]) they are taken from it
+    instead of solved."""
+    solved: List[np.ndarray] = []
+    solve = m2f_loss._hungarian_host
+    images = GLOBAL_BATCH // mesh.world_size()
+
+    def hungarian(cost):
+        out = solve(cost)
+        if matching is not None:
+            start = sum(len(m) for m in solved)
+            out = matching[start:start + len(out) // images].reshape(
+                out.shape).astype(out.dtype)
+        solved.append(out.reshape(-1, images, out.shape[-1]))
+        return out
+
+    with mock.patch.object(m2f_loss, "_hungarian_host", hungarian):
+        yield
+    if solved:
+        found["a/matching"] = np.concatenate(solved)
+
+
 def train_case(spec, seed: int, batch_seed: int,
                crops: Optional[list] = None,
                matching: Optional[np.ndarray] = None
                ) -> Dict[str, np.ndarray]:
     """One ``make_train_step`` step on this process's rows; ``crops``:
-    the crop origins' ``randint`` draws, fixed. The set loss's host
-    matchings are returned (``a/matching``, [stages, images, K]), or with
-    ``matching`` taken from it instead of solved."""
+    the crop origins' ``randint`` draws, fixed; the set loss's matchings
+    as ``_matchings`` takes and returns them."""
     cfg, model = build(spec, seed)
     state = create_train_state(model, cfg, max_iters=100)
-    solved = []
-    solve = m2f_loss._hungarian_host
-
-    def hungarian(cost):
-        out = solve(cost)
-        if matching is not None:
-            out = matching.reshape(out.shape).astype(out.dtype)
-        solved.append(out)
-        return out
-
+    found: Dict[str, np.ndarray] = {}
     with mock.patch.object(rng, "randint",
                            side_effect=list(crops or []) or rng.randint), \
-            mock.patch.object(m2f_loss, "_hungarian_host", hungarian):
+            _matchings(matching, found):
         state, metrics = make_train_step()(
             state, _rows(global_batch(batch_seed)), 0)
-    out = _arrays(model, state, metrics)
-    if solved:
-        k = solved[0].shape[-1]
-        out["a/matching"] = solved[0].reshape(-1, GLOBAL_BATCH
-                                              // mesh.world_size(), k)
-    return out
+    return dict(_arrays(model, state, metrics), **found)
 
 
-def dacs_case(spec, seed: int, batch_seed: int,
-              threshold: float) -> Dict[str, np.ndarray]:
+def dacs_case(spec, seed: int, batch_seed: int, threshold: float,
+              matching: Optional[np.ndarray] = None
+              ) -> Dict[str, np.ndarray]:
     """One DACS step on this process's rows at the pseudo-label
-    ``threshold``."""
+    ``threshold``; the set loss's matchings as ``_matchings`` takes and
+    returns them."""
     cfg, model = build(spec, seed)
     state = create_train_state(model, cfg, max_iters=100)
     state.ema = init_ema(model)
     step = make_dacs_train_step(DACSConfig(
         pseudo_threshold=threshold, psweight_ignore_top=4,
         psweight_ignore_bottom=8))
-    state, metrics = step(state, _rows(global_batch(batch_seed, True)), 0)
-    return _arrays(model, state, metrics)
+    found: Dict[str, np.ndarray] = {}
+    with _matchings(matching, found):
+        state, metrics = step(state, _rows(global_batch(batch_seed, True)),
+                              0)
+    return dict(_arrays(model, state, metrics), **found)
 
 
 def eval_case(task: dict, out_dir: str, world: int) -> Dict[str, np.ndarray]:
@@ -199,7 +218,8 @@ def run(name: str, task: dict, out_dir: str) -> Dict[str, np.ndarray]:
     if name == "m2f":
         return train_case(M2F, 4, 6, matching=task.get("matching"))
     if name.startswith("dacs_"):
-        return dacs_case(DACS[name[5:]], 7, 8, task["threshold"][name])
+        return dacs_case(DACS[name[5:]], 7, 8, task["threshold"][name],
+                         task.get("matching"))
     if name == "eval":
         return eval_case(task, out_dir, world)
     raise KeyError(name)

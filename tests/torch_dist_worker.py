@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(HERE))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from vfmseg_tpu_torch.parallel import mesh  # noqa: E402
 

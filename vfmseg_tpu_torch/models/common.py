@@ -182,10 +182,12 @@ class BatchNorm(nn.BatchNorm2d):
 
     Under data parallelism (a process group of several) the training
     moments are the global batch's, as under the JAX mesh: the fp32
-    per-channel sums and the count are summed over the group with autograd
-    for the mean, then the centred sums of squares for the biased variance
-    (two passes, as ``torch.var_mean`` takes them; ``nn.SyncBatchNorm`` is
-    NCHW and refuses CPU tensors). Eval mode stays local."""
+    per-channel sums are summed over the group with autograd for the mean,
+    then the centred sums of squares for the biased variance (two passes,
+    as ``torch.var_mean`` takes them; ``nn.SyncBatchNorm`` is NCHW and
+    refuses CPU tensors), over a count of the local one times the world
+    size (every rank holds an equal share of the batch). Eval mode stays
+    local."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.9, dtype: torch.dtype = torch.float32):
@@ -198,8 +200,8 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training:
             dims = tuple(range(x.dim() - 1))
             if mesh.world_size() > 1:
-                count = mesh.all_reduce_sum(xf.new_tensor(
-                    float(xf.numel() // xf.shape[-1])))
+                count = xf.new_tensor(float(
+                    xf.numel() // xf.shape[-1] * mesh.world_size()))
                 mean = mesh.all_reduce_sum(xf.sum(dim=dims)) / count
                 var = mesh.all_reduce_sum(
                     (xf - mean).square().sum(dim=dims)) / count

@@ -9,8 +9,9 @@ vector where there is one (rein_mask2former.py:26-30).
   ``encode_decode`` resizes them to the image.
 * ``forward(img, labels)``: every stage's predictions through the
   set-prediction loss (``heads/m2f_loss.py``) with ``num_points`` points,
-  scaled by the mean of an optional ``pixel_weight`` (maskformer.py:66-67);
-  it draws from the ``mask`` stream. A frozen backbone runs in the segmentor's
+  scaled by the mean of an optional ``pixel_weight`` (maskformer.py:66-67),
+  over the global batch under data parallelism; it draws from the ``mask``
+  stream. A frozen backbone runs in the segmentor's
   mode (the JAX ``__call__`` runs it with ``train=True``) without a graph,
   its maps and queries detached.
 """
@@ -24,6 +25,7 @@ import torch
 from vfmseg_tpu_torch.models.heads.m2f_loss import mask2former_loss
 from vfmseg_tpu_torch.models.heads.mask2former import semantic_inference
 from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
+from vfmseg_tpu_torch.parallel import mesh
 
 
 class MaskFormerSegmentor(EncoderDecoder):
@@ -55,7 +57,10 @@ class MaskFormerSegmentor(EncoderDecoder):
                                   num_classes=self.num_classes,
                                   num_points=self.num_points)
         if pixel_weight is not None:
-            scale = pixel_weight.float().mean()
+            # the global batch's mean under data parallelism (equal local
+            # batches), as under the JAX mesh: ClassMix makes each rank's
+            # mean its own
+            scale = mesh.all_reduce_mean(pixel_weight.float().mean())
             losses = {k: (v * scale if "loss" in k else v)
                       for k, v in losses.items()}
         return losses

@@ -10,7 +10,8 @@ same numbers by reducing each of those quantities over the group:
 
 * :func:`all_reduce_sum` / :func:`all_reduce_mean` with autograd (the
   BatchNorm moments, ``models/common.py``) and without (the set loss's
-  normalisers, DACS's pseudo-weight, the accuracy's counts);
+  normalisers, DACS's pseudo-weight and the mean of the mixed weight that
+  scales a MaskFormerSegmentor's mixed set losses, the accuracy's counts);
 * :func:`average_gradients`: every trainable gradient in one flat fp32
   bucket, one ``all_reduce``, divided by the world size; no
   ``DistributedDataParallel`` wrapper, whose ``module.`` prefix would rename
@@ -78,11 +79,12 @@ def rank_device(device: str) -> torch.device:
     return dev
 
 
-def make_mesh(data: int = -1, model: int = 1,
-              device: str = "cuda") -> Mesh:
+def make_mesh(data: int = -1, model: int = 1, device: str = "cuda",
+              launch: str = LAUNCH) -> Mesh:
     """The data axis over the initialised process group (one process
     without one), this rank on ``rank_device(device)``. ``data`` -1 takes
-    the world size; any other value must equal it; ``model`` must be 1."""
+    the world size; any other value must equal it (the error names the
+    launch command ``launch``); ``model`` must be 1."""
     if model != 1:
         raise NotImplementedError("the model axis (tensor parallelism) is "
                                   "not ported: model must be 1")
@@ -91,7 +93,7 @@ def make_mesh(data: int = -1, model: int = 1,
         data = world
     if data != world:
         raise ValueError(f"a data axis of {data} over {world} processes: "
-                         f"launch {data} (``{LAUNCH}``)")
+                         f"launch {data} (``{launch}``)")
     local = int(os.environ.get("LOCAL_RANK", 0))
     return Mesh(data, rank(), local, rank_device(device))
 
@@ -120,7 +122,7 @@ def init_distributed(device: str = "cuda", timeout_s: float = TIMEOUT_S,
         dist.init_process_group(
             backend, init_method="env://", world_size=world, rank=rank_,
             timeout=datetime.timedelta(seconds=timeout_s))
-    return make_mesh(device=device)
+    return make_mesh(device=device, launch=launch)
 
 
 def shutdown() -> None:

@@ -205,12 +205,7 @@ def _data_group(data_parallel: Optional[int], device: str) -> mesh.Mesh:
     if (not torch.distributed.is_initialized()
             and (data_parallel > 1 or "WORLD_SIZE" in os.environ)):
         mesh.init_distributed(device, launch=LAUNCH)
-    group = mesh.make_mesh(device=device)
-    if group.data != data_parallel:
-        raise ValueError(f"--data-parallel {data_parallel} over "
-                         f"{group.data} processes: launch {data_parallel} "
-                         f"(``{LAUNCH}``)")
-    return group
+    return mesh.make_mesh(data_parallel, device=device, launch=LAUNCH)
 
 
 def _saver(show_dir: Optional[str], key: str):

@@ -167,18 +167,15 @@ def dacs_config(cfg: Config) -> DACSConfig:
         head_key=uda.get("head_key", "decode_head"))
 
 
-def check_data_parallel(cfg: Config, world: int) -> None:
-    """Raise unless ``compute.data_parallel`` (default: the world size)
-    equals the world size and the world size divides
+def check_data_parallel(cfg: Config, device: str = "cpu") -> mesh.Mesh:
+    """The data axis of ``compute.data_parallel`` (default: the world
+    size) over the process group; ``mesh.make_mesh`` raises unless it is
+    the world size, and ``mesh.shard_rows`` unless the world splits
     ``data.batch_size``."""
-    n_dp = cfg.get_path("compute.data_parallel", world)
-    if n_dp != world:
-        raise ValueError(f"compute.data_parallel={n_dp} over {world} "
-                         f"processes: launch {n_dp} (``{mesh.LAUNCH}``)")
-    bs = cfg.get_path("data.batch_size", 2)
-    if bs % world:
-        raise ValueError(f"data.batch_size {bs} does not split over "
-                         f"{world} processes")
+    group = mesh.make_mesh(cfg.get_path("compute.data_parallel", -1),
+                           device=device)
+    mesh.shard_rows(cfg.get_path("data.batch_size", 2))
+    return group
 
 
 def make_val_fn(model: torch.nn.Module, cfg: Config,
@@ -312,9 +309,9 @@ def run(cfg: Config, args, source=None,
     ``uda`` section the target is ``target`` if given, else
     ``data.target``; the validation sets (key -> dataset) ``val_sets`` if
     given, else ``data.val``. Returns the final state."""
-    group = (mesh.init_distributed(args.device) if args.distributed
-             else mesh.make_mesh(1, device=args.device))
-    check_data_parallel(cfg, group.data)
+    if args.distributed:
+        mesh.init_distributed(args.device)
+    group = check_data_parallel(cfg, args.device)
     say = print if group.rank == 0 else (lambda *a, **k: None)
     work_dir = args.work_dir or os.path.join("work_dirs",
                                              cfg.get("name", "run"))
