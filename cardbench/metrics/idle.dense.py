@@ -1,0 +1,4 @@
+"""idle.dense: in the per-image dense cells, the share of the profiled span in which the device
+ran nothing, in percent (``readers.idle``). Moves ``dense_images_per_s``."""
+
+from cardbench.readers import idle as read  # noqa: F401
