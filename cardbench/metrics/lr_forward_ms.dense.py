@@ -1,0 +1,10 @@
+"""lr_forward_ms.dense: in the per-image dense cells, the device time of
+the profiled span whose innermost program range is ``vfmseg.lr_forward``
+(the backbone and LinearHead at stage 1's size), in ms an image
+(``spans.phase_ms``). Moves ``dense_images_per_s``."""
+
+from cardbench import spans
+
+
+def read(r):
+    return spans.phase_ms(r, "vfmseg.lr_forward")

@@ -1,19 +1,17 @@
-"""The port's jax-free tools against the JAX package's:
+"""The port's jax-free tools:
 ``vfmseg_tpu_torch/tools/generate_full_weights.py`` against
 tools/generate_full_weights.py (the same ``.npz``, key for key and bit for
-bit), and ``vfmseg_tpu_torch/utils/profiling.py`` against
-vfmseg_tpu/utils/profiling.py."""
+bit), and ``vfmseg_tpu_torch/utils/profiling.py``'s trace and NaN
+debugging (its ranges: tests/test_torch_spans.py)."""
 
 import os
 import runpy
 import sys
-from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
-from vfmseg_tpu.utils import profiling as jax_profiling
 from vfmseg_tpu_torch.tools import generate_full_weights as gfw
 from vfmseg_tpu_torch.utils import profiling
 
@@ -105,15 +103,3 @@ def test_nan_debugging_names_the_backward():
         profiling.enable_nan_debugging(False)
     assert not torch.is_anomaly_enabled()
 
-
-def test_step_timer_equals_jax():
-    """The same clock readings give the same meter readings."""
-    clock = [0.0, 0.5, 1.25, 1.5, 3.0, 3.5, 5.0]
-    readings = []
-    for mod in (profiling, jax_profiling):
-        ticks = iter(clock)
-        timer = mod.StepTimer(batch_size=2, window=3)
-        with mock.patch.object(mod.time, "time", lambda: next(ticks)):
-            readings.append([timer.tick() for _ in clock])
-    assert readings[0] == readings[1]
-    assert readings[0][3] == {"steps_per_sec": 2.0, "images_per_sec": 4.0}

@@ -32,6 +32,13 @@ the same chain.
 waits for group j's confidences, which it copies into pinned host memory
 behind a CUDA event as soon as stage 1 is queued.
 
+Profiler ranges (``utils/profiling.py`` ``span``): ``vfmseg.stage1``
+(stage 1 and the window shares; in the stream from the group's stack
+through the readback's start) and ``vfmseg.refine`` (a finish step that
+refines, its gathers and the blend). The stream's ranges carry the group's
+ordinal, ``vfmseg.stage1#12``, so one group's two phases share it; none is
+open across a ``yield``.
+
 As in the rest of ``eval/``, the lr/hr functions take the weights at call
 time (``variables``: the segmentor, or anything the functions accept).
 """
@@ -52,6 +59,7 @@ from vfmseg_tpu_torch.eval.slide import (
 )
 from vfmseg_tpu_torch.ops.resize import resize
 from vfmseg_tpu_torch.ops.window_blend import blend_windows
+from vfmseg_tpu_torch.utils.profiling import span
 
 # refine batch sizes: spacing 2 through the operating band (a group of 8 at
 # ~0.8 skip needs ~29 windows), the JAX package's table
@@ -158,56 +166,60 @@ class CompactMsSlide:
         return full, window_confidence(full, yx, self.crop, self.threshold)
 
     def _finish_step(self, variables, img: torch.Tensor, full: torch.Tensor,
-                     confidence: torch.Tensor, real: int,
-                     k: int) -> torch.Tensor:
+                     confidence: torch.Tensor, real: int, k: int,
+                     tag: str = "") -> torch.Tensor:
         """Refine k windows chosen on the device and blend them into an
         fp32 base: ``full`` itself when it is fp32, else an fp32 copy.
-        Returns the base."""
-        base = full.float()
+        Returns the base. With k > 0 this is the range
+        ``vfmseg.refine<tag>``."""
         if k == 0:
-            return base
-        b = img.shape[0]
-        n = confidence.numel()
-        _yx, ys_tab, xs_tab, inv_full = self._geometry(img.shape[1:3],
-                                                       img.device)
-        # the k smallest masked window ids, ascending, padded with a sentinel
-        # (np.nonzero's order); batch-pad images never refine
-        w_ids = torch.arange(n, device=img.device)
-        mask = (confidence < self.conf) & ((w_ids % b) < real)
-        vals = torch.where(mask, w_ids, n)
-        if k > n:
-            vals = torch.cat([vals, vals.new_full((k - n,), n)])
-        idx = torch.sort(vals).values[:k]
-        valid = idx < n
-        idx = idx.clamp(max=n - 1)
-        img_i = idx % b
-        box_j = idx // b
-        ys, xs = ys_tab[box_j], xs_tab[box_j]
-        g_img = _gather_windows(img, img_i, ys, xs, self.crop)
-        g_ctx = _gather_windows(full, img_i, ys, xs, self.crop)
-        refined = self.hr_fn(variables, g_img, g_ctx).to(full.dtype)
-        # pad rows add a zero delta, so their duplicated origins change
-        # nothing
-        delta = torch.where(valid[:, None, None, None],
-                            refined.float() - g_ctx.float(), 0.0)
-        zeros = torch.zeros_like(img_i)
-        inv_w = _gather_windows(inv_full[None], zeros, ys, xs, self.crop)
-        return blend_windows(base, (delta * inv_w).contiguous(), img_i.int(),
-                             ys.int(), xs.int())
+            return full.float()
+        with span("vfmseg.refine" + tag):
+            base = full.float()
+            b = img.shape[0]
+            n = confidence.numel()
+            _yx, ys_tab, xs_tab, inv_full = self._geometry(img.shape[1:3],
+                                                           img.device)
+            # the k smallest masked window ids, ascending, padded with a
+            # sentinel (np.nonzero's order); batch-pad images never refine
+            w_ids = torch.arange(n, device=img.device)
+            mask = (confidence < self.conf) & ((w_ids % b) < real)
+            vals = torch.where(mask, w_ids, n)
+            if k > n:
+                vals = torch.cat([vals, vals.new_full((k - n,), n)])
+            idx = torch.sort(vals).values[:k]
+            valid = idx < n
+            idx = idx.clamp(max=n - 1)
+            img_i = idx % b
+            box_j = idx // b
+            ys, xs = ys_tab[box_j], xs_tab[box_j]
+            g_img = _gather_windows(img, img_i, ys, xs, self.crop)
+            g_ctx = _gather_windows(full, img_i, ys, xs, self.crop)
+            refined = self.hr_fn(variables, g_img, g_ctx).to(full.dtype)
+            # pad rows add a zero delta, so their duplicated origins change
+            # nothing
+            delta = torch.where(valid[:, None, None, None],
+                                refined.float() - g_ctx.float(), 0.0)
+            zeros = torch.zeros_like(img_i)
+            inv_w = _gather_windows(inv_full[None], zeros, ys, xs, self.crop)
+            return blend_windows(base, (delta * inv_w).contiguous(),
+                                 img_i.int(), ys.int(), xs.int())
 
     @torch.inference_mode()
     def __call__(self, variables, img: torch.Tensor):
         """img [B, H, W, 3] -> (logits [B, H, W, C], windows refined)."""
-        full, confidence = self._stage1_impl(variables, img,
-                                             tuple(img.shape[1:3]))
+        with span("vfmseg.stage1"):
+            full, confidence = self._stage1_impl(variables, img,
+                                                 tuple(img.shape[1:3]))
         return self._finish(variables, img, full, confidence,
                             confidence.cpu().numpy())
 
     def _finish(self, variables, img, full, confidence, conf_host: np.ndarray,
-                real: int = None):
+                real: int = None, tag: str = ""):
         """``conf_host`` (the host copy of ``confidence``) picks only the
         bucket size k and feeds the counters; the finish step chooses the
-        windows again on the device."""
+        windows again on the device. ``tag`` ends the refine range's
+        name."""
         g = img.shape[0]
         if real is None:
             real = g
@@ -223,7 +235,7 @@ class CompactMsSlide:
         k = _bucket(need, self.buckets) if need else 0
         self.stat_refine_rows += k
         return self._finish_step(variables, img, full, confidence, real,
-                                 k), need
+                                 k, tag), need
 
     @staticmethod
     def _start_readback(confidence: torch.Tensor):
@@ -288,18 +300,20 @@ class CompactMsSlide:
                 self.stat_refined += min(need, self.forced_bucket)
             return
 
-        def finish(img, full, confidence, readback):
+        def finish(g, img, full, confidence, readback):
             logits, _n = self._finish(variables, img, full, confidence,
-                                      self._wait_readback(readback))
+                                      self._wait_readback(readback),
+                                      tag=f"#{g}")
             yield from logits
 
         pending = deque()
-        for buf in chunks():
-            img = torch.stack(buf)
-            full, confidence = self._stage1_impl(variables, img,
-                                                 tuple(img.shape[1:3]))
-            pending.append((img, full, confidence,
-                            self._start_readback(confidence)))
+        for g, buf in enumerate(chunks()):
+            with span(f"vfmseg.stage1#{g}"):
+                img = torch.stack(buf)
+                full, confidence = self._stage1_impl(variables, img,
+                                                     tuple(img.shape[1:3]))
+                readback = self._start_readback(confidence)
+            pending.append((g, img, full, confidence, readback))
             if len(pending) > depth:
                 yield from finish(*pending.popleft())
         while pending:

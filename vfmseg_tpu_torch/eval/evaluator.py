@@ -58,6 +58,7 @@ from vfmseg_tpu_torch.eval.tta import tta_logits
 from vfmseg_tpu_torch.models.algorithms.dg import DomainGeneral
 from vfmseg_tpu_torch.models.segmentors.ms_vfm import MsVFMSegmentor
 from vfmseg_tpu_torch.ops.resize import resize
+from vfmseg_tpu_torch.utils.profiling import span
 
 MSVFM_MODES = ("ms_slide_inference", "lr_slide_inference",
                "hr_slide_inference", "msfull_slide_inference")
@@ -206,7 +207,8 @@ def make_shape_aware_predict_fn(model, test_cfg: Dict, tta: bool = False,
     ``img`` is a preprocessed NHWC float batch; it is padded up to one slide
     crop if smaller (and to ``pad_multiple``), the logits are cropped back
     to the valid region, resized bilinearly to ``out_hw`` and argmaxed.
-    ``tta`` averages the softmax over flips and ``test_cfg.tta_scales``."""
+    ``tta`` averages the softmax over flips and ``test_cfg.tta_scales``.
+    Each call is the profiler range ``vfmseg.predict``."""
     test_cfg = test_cfg or {}
     mode = test_cfg.get("mode", "whole")
     min_hw = (tuple(test_cfg.get("crop_size", (512, 512)))
@@ -230,8 +232,9 @@ def make_shape_aware_predict_fn(model, test_cfg: Dict, tta: bool = False,
     @torch.inference_mode()
     def predict(m, img: torch.Tensor,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
-        img, (vh, vw) = _pad_to_min(img, min_hw, multiple=pad_multiple)
-        return _finish(logits_fn(m, img)[:, :vh, :vw], tuple(out_hw))
+        with span("vfmseg.predict"):
+            img, (vh, vw) = _pad_to_min(img, min_hw, multiple=pad_multiple)
+            return _finish(logits_fn(m, img)[:, :vh, :vw], tuple(out_hw))
 
     return predict
 

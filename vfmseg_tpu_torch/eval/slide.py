@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from vfmseg_tpu_torch.ops.resize import resize
+from vfmseg_tpu_torch.utils.profiling import span
 
 
 def compute_slide_grid(img_hw: Tuple[int, int], crop: Tuple[int, int],
@@ -126,19 +127,24 @@ def ms_slide_inference(
     Stage 2: ``crop`` windows at ``stride``; a window whose fraction of
     pixels with max softmax above ``threshold`` is >= ``conf`` keeps the
     stage-1 context, the others take the refined logits. All windows are
-    refined in one batched call."""
+    refined in one batched call. Profiler ranges: ``vfmseg.stage1`` (the
+    whole-image pass and the gate), ``vfmseg.refine`` (the windows' pass,
+    the select and the overlap average)."""
     h, w = img.shape[1], img.shape[2]
-    lr_img = resize(img, size=lr_size, method="bilinear",
-                    align_corners=align_corners)
-    full_logits = resize(lr_logits_fn(lr_img), size=(h, w), method="bilinear",
-                         align_corners=align_corners)
+    with span("vfmseg.stage1"):
+        lr_img = resize(img, size=lr_size, method="bilinear",
+                        align_corners=align_corners)
+        full_logits = resize(lr_logits_fn(lr_img), size=(h, w),
+                             method="bilinear", align_corners=align_corners)
 
-    boxes = compute_slide_grid((h, w), crop, stride)
-    img_crops = extract_crops(img, boxes, crop)            # [G*B, ch, cw, 3]
-    ctx_crops = extract_crops(full_logits, boxes, crop)    # [G*B, ch, cw, C]
-    confidence = confident_mask(ctx_crops, threshold).mean(dim=(1, 2))
-    needs_refine = confidence < conf
+        boxes = compute_slide_grid((h, w), crop, stride)
+        img_crops = extract_crops(img, boxes, crop)        # [G*B, ch, cw, 3]
+        ctx_crops = extract_crops(full_logits, boxes, crop)  # [G*B, ch, cw, C]
+        confidence = confident_mask(ctx_crops, threshold).mean(dim=(1, 2))
+        needs_refine = confidence < conf
 
-    refined = hr_logits_fn(img_crops, ctx_crops)
-    sel = torch.where(needs_refine[:, None, None, None], refined, ctx_crops)
-    return accumulate_crops(sel, boxes, (h, w))
+    with span("vfmseg.refine"):
+        refined = hr_logits_fn(img_crops, ctx_crops)
+        sel = torch.where(needs_refine[:, None, None, None], refined,
+                          ctx_crops)
+        return accumulate_crops(sel, boxes, (h, w))

@@ -14,7 +14,9 @@ Port of vfmseg_tpu/models/segmentors/ms_vfm.py:29-136.
   host from the ``crop`` stream (``models/rng.py``): two integers the slice
   needs on the host anyway, so no device sync follows.
 * ``lr_forward`` / ``hr_forward``: the coarse and refine paths that the
-  two-stage slide engine (``eval/slide.py``) drives, the decoder's mask off.
+  two-stage slide engine (``eval/slide.py``) drives, the decoder's mask off;
+  each is a profiler range (``vfmseg.lr_forward``, ``vfmseg.hr_forward``,
+  ``utils/profiling.py`` ``span``).
 
 NHWC images in, NHWC logits at the input size out.
 """
@@ -32,6 +34,7 @@ from vfmseg_tpu_torch.models.segmentors.encoder_decoder import (
     backbone_outputs,
 )
 from vfmseg_tpu_torch.ops.resize import nearest_downsample_2x, resize
+from vfmseg_tpu_torch.utils.profiling import span
 
 
 class MsVFMSegmentor(nn.Module):
@@ -55,15 +58,17 @@ class MsVFMSegmentor(nn.Module):
     def lr_forward(self, img: torch.Tensor) -> torch.Tensor:
         """Coarse path: backbone + LinearHead logits resized to the image
         size (whole-inference semantics)."""
-        logits = self.decode_head(self._feats(img))
-        return resize(logits, size=img.shape[1:3], method="bilinear")
+        with span("vfmseg.lr_forward"):
+            logits = self.decode_head(self._feats(img))
+            return resize(logits, size=img.shape[1:3], method="bilinear")
 
     def hr_forward(self, img: torch.Tensor,
                    context_logits: torch.Tensor) -> torch.Tensor:
         """Refine path: backbone + VFMHead(context) logits resized to the
         image size, with the decoder's mask off."""
-        logits = self.aux_head(self._feats(img), context_logits)
-        return resize(logits, size=img.shape[1:3], method="bilinear")
+        with span("vfmseg.hr_forward"):
+            logits = self.aux_head(self._feats(img), context_logits)
+            return resize(logits, size=img.shape[1:3], method="bilinear")
 
     def crop_origin(self, h: int, w: int) -> Tuple[int, int]:
         """Top-left corner of the HR crop (reference get_crop_bbox): each

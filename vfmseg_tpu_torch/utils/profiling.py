@@ -5,23 +5,28 @@ Port of vfmseg_tpu/utils/profiling.py on PyTorch:
 * :func:`trace`: a ``torch.profiler`` trace of the enclosed code, CPU and
   (where there is one) CUDA activity, written as a Chrome trace
   (``trace.json``, open in Perfetto or ``chrome://tracing``) under
-  ``logdir``; the JAX helper writes a TensorBoard trace;
+  ``logdir``; the JAX helper writes a TensorBoard trace. The trace carries
+  the program's ranges (:func:`span`) beside the kernels they launched;
+* :func:`span`: a named range of the program in a running profiler's
+  trace, and one flag read when no profiler runs;
 * :func:`enable_nan_debugging`: ``torch.autograd.set_detect_anomaly``,
   which raises where a backward function returns NaN and names the
   forward op that made it. It checks the backward only: ``jax_debug_nans``
-  checks the output of every op, forward included;
-* :class:`StepTimer`: the steps/s and images/s meter, as in the JAX
-  package.
+  checks the output of every op, forward included.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
+
+# the context ``span`` hands out while no profiler runs
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,34 +41,23 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def span(name: str):
+    """A context manager that marks the enclosed code as the range ``name``
+    in the trace of a running ``torch.profiler`` profile, on the clock of
+    the kernels it launches; with no profiler running, a shared no-op
+    context, decided by one flag read.
+
+    The range is a function-scope record (category ``cpu_op`` in the Chrome
+    trace, like an operator), so it nests with the operators and runtime
+    calls it holds. It adds no device synchronisation. Never hold one open
+    across a ``yield``: the range would time the caller."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _OFF
+
+
 def enable_nan_debugging(enable: bool = True) -> None:
     """Turn autograd's anomaly detection on or off (NaN checks of the
     backward, with the forward op's trace). Slows training; for debugging
     only."""
     torch.autograd.set_detect_anomaly(enable, check_nan=True)
-
-
-class StepTimer:
-    """Streaming steps/sec + images/sec meter."""
-
-    def __init__(self, batch_size: int = 1, window: int = 50):
-        self.batch_size = batch_size
-        self.window = window
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def tick(self) -> Optional[dict]:
-        now = time.time()
-        if self._t0 is None:
-            self._t0 = now
-            return None
-        self._count += 1
-        if self._count % self.window:
-            return None
-        dt = now - self._t0
-        self._t0 = now
-        steps_per_sec = self.window / max(dt, 1e-9)
-        return {
-            "steps_per_sec": steps_per_sec,
-            "images_per_sec": steps_per_sec * self.batch_size,
-        }
