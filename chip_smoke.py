@@ -54,7 +54,10 @@ Phases, each printing one JSON line:
    the EVA02 path's shapes with its tables and at five cases off the path
    (odd heads, N 17, N 129, batch 1, v at a stride of its own), its
    rotation pass's workspace held bit for bit to the twin's rotation and
-   timed alone by the profiler, and the head-major attention
+   timed alone by the profiler, the SwiGLU gate-and-sub-LN kernel
+   (``SWIGLU_CASES``: the padded eval route's refine batch and stage 1, an
+   aligned width, fp32, a row past a block's registers) against its plain
+   twin, and the head-major attention
    (B5: forward with LSE, the fused backward for dq, dk and dv) at the
    EVA02 train path's shape over token-major strided views and at a ragged
    Nq != Nk case, which ``multi_head_attention`` must route to B5.
@@ -343,6 +346,10 @@ from vfmseg_tpu_torch.ops.attention import (
 )
 from vfmseg_tpu_torch.ops.deform_attn import sample_cuda, sample_plain
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda, layer_norm_plain
+from vfmseg_tpu_torch.ops.swiglu import (
+    swiglu_gate_ln_cuda,
+    swiglu_gate_ln_plain,
+)
 from vfmseg_tpu_torch.ops.resize import resize
 from vfmseg_tpu_torch.ops.rope import (
     apply_rope_permuted,
@@ -436,6 +443,7 @@ KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_relpos", "attention_relpos"),
                  ("window_blend", "window_blend_kernel"),
                  ("deform_sample", "deform_sample_kernel"),
+                 ("swiglu_gate_ln", "swiglu_gate_ln"),
                  ("layer_norm", "layer_norm")]
 
 
@@ -445,8 +453,9 @@ def _counts(**nonzero) -> dict:
 
 # Each path's launches per 1024x2048 image: stage-1 ViT (24 blocks; SAM 32),
 # refine ViT over all 18 crops in one batch (24 blocks; SAM 32), VFMHead
-# decoder (3 blocks, self- and cross-attention); DINOv2 and SAM blocks run 2
-# LayerNorms, EVA02 blocks 3 (norm1, norm2 and the SwiGLU's sub-LN); every
+# decoder (3 blocks, self- and cross-attention); DINOv2, SAM and EVA02
+# blocks run 2 LayerNorms, and EVA02's SwiGLU its gate and sub-LN in one
+# kernel (swiglu_gate_ln; its training route runs B1 for the sub-LN); every
 # SAM block, windowed or global, runs B7 once, or on the bias route
 # (sam_bias: compute.attn_impl = "pallas_bias") B5's bias forward once.
 # Mask2Former (m2f) slides 18 crops of 512 at stride 341 through one ViT
@@ -458,8 +467,8 @@ def _counts(**nonzero) -> dict:
 # and not under attention_qkv, as B5's backward counts its dq rounding.
 PER_IMAGE = {
     "dinov2": _counts(layer_norm=48 + 48 + 9, attention_qkv=24 + 24 + 6),
-    "eva02": _counts(layer_norm=72 + 72 + 9, attention_qkv_rope=24 + 24,
-                     attention_qkv=6),
+    "eva02": _counts(layer_norm=48 + 48 + 9, swiglu_gate_ln=24 + 24,
+                     attention_qkv_rope=24 + 24, attention_qkv=6),
     "sam": _counts(layer_norm=64 + 64 + 9, attention_relpos=32 + 32,
                    attention_qkv=6),
     "sam_bias": _counts(layer_norm=64 + 64 + 9,
@@ -689,6 +698,15 @@ LN_EVA02_CASES = [((18 * 1025, 2730), 1e-6, torch.bfloat16),
                   ((4 * 1025, 2730), 1e-6, torch.bfloat16),
                   ((3, 77, 341), 1e-6, torch.bfloat16),
                   ((4 * 1025, 2730), 1e-6, torch.float32)]
+# EVA02's SwiGLU gate and sub-LN, (rows, H, Hp, dtype): the padded eval
+# route at the refine batch and stage 1, an aligned width (EVA02-B's 2048),
+# fp32 (8 vectors a thread), a bf16 row past a block's registers (the
+# block-per-row kernel)
+SWIGLU_CASES = [(18 * 1025, 2730, 2736, torch.bfloat16),
+                (2049, 2730, 2736, torch.bfloat16),
+                (2049, 2048, 2048, torch.bfloat16),
+                (65, 2730, 2736, torch.float32),
+                (9, 9000, 9000, torch.bfloat16)]
 # Off the paths, (shape, eps, dtype, elements x starts past a 16-byte
 # boundary): the tail alone (C 7 < one vector), an odd width (every head
 # length in turn), one row, 2730 with x 2 and 6 bytes off (heads of 7 and 5
@@ -1048,6 +1066,7 @@ def phase_build() -> None:
          attention_relpos_ptxas=ptxas_by_kernel(log, "attention_relpos"),
          deform_sample_ptxas=ptxas_by_kernel(log, "deform_sample"),
          layer_norm_ptxas=ptxas_by_kernel(log, "layer_norm"),
+         swiglu_gate_ln_ptxas=ptxas_by_kernel(log, "swiglu_gate_ln"),
          rope_rotate_ptxas=ptxas_by_kernel(log, "rope_rotate"))
 
 
@@ -1090,6 +1109,44 @@ def check_layer_norm(randn, cases, phase: str) -> list:
                                  f"max abs err {max_abs}")
         rows.append(row)
     return rows
+
+
+def check_swiglu_gate_ln(randn) -> list:
+    """The gate-and-sub-LN kernel at ``SWIGLU_CASES`` against its plain twin
+    (fp32 from the same g) within LN_TOL, pad columns exactly zero; events
+    ms beside the twin's and the unpadded route's three library passes
+    (``F.silu``, the multiply, ``F.layer_norm`` on the [rows, H] halves)."""
+    rows_out = []
+    for rows, h, hp, dtype in SWIGLU_CASES:
+        atol, rtol = LN_TOL[dtype]
+        g = (randn(rows, 2 * hp) * 2).to(dtype)
+        w = randn(h) * 0.1 + 1.0
+        b = randn(h) * 0.1
+        got = swiglu_gate_ln_cuda(g, h, w, b, 1e-6)
+        want = swiglu_gate_ln_plain(g.float(), h, w, b, 1e-6)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        ok = bool((err <= atol + rtol * want.abs()).all()
+                  and not got[:, h:].any())
+        a, bh = g[:, :h], g[:, hp:hp + h]
+        wl, bl = w.to(dtype), b.to(dtype)
+        row = dict(shape=[rows, 2 * hp], hidden=h, dtype=str(dtype),
+                   max_abs_err=float(err.max()), ok=ok,
+                   ms=time_ms(lambda: swiglu_gate_ln_cuda(g, h, w, b, 1e-6)),
+                   plain_ms=time_ms(lambda: swiglu_gate_ln_plain(g, h, w, b,
+                                                                 1e-6)),
+                   library_ms=time_ms(lambda: F.layer_norm(
+                       F.silu(a) * bh, (h,), wl, bl, 1e-6)),
+                   library_call="F.layer_norm(F.silu(a) * b) on the halves",
+                   **bound(3 * rows * hp * g.element_size() + 2 * h * 4,
+                           20 * rows * h, "fp32"))
+        emit("kernel_swiglu_gate_ln", atol=atol, rtol=rtol, **row)
+        if not ok:
+            raise AssertionError(f"swiglu_gate_ln kernel disagrees at "
+                                 f"{row['shape']}: max abs err "
+                                 f"{row['max_abs_err']}")
+        rows_out.append(row)
+    return rows_out
 
 
 def _qkv_views(randn, b_, n, h, fused):
@@ -1521,9 +1578,11 @@ def phase_kernels_eva02(dev) -> list:
     ln_rows += check_layer_norm(randn, LN_OFF_PATH_CASES,
                                 "kernel_layer_norm_off_path")
     rope_rows = check_rope_attention(randn, dev)
+    swiglu_rows = check_swiglu_gate_ln(randn)
     hm_rows = check_headmajor(randn, dev)
     emit("kernels_eva02",
          layer_norm_2730_ms=[r["ms"] for r in ln_rows[:2]],
+         swiglu_gate_ln_ms=[r["ms"] for r in swiglu_rows[:2]],
          rope_ms=[r["ms"] for r in rope_rows],
          headmajor_ms=[dict(fwd=r["fwd_ms"], bwd=r["bwd_ms"])
                        for r in hm_rows])
@@ -1540,6 +1599,11 @@ def phase_kernels_eva02(dev) -> list:
                  library_device_ms=rope_rows[1]["library_device_ms"],
                  library_computes="attention without the rotation",
                  library_call="F.scaled_dot_product_attention"),
+        _summary("swiglu_gate_ln", "vfmseg_tpu_torch/csrc/swiglu_gate_ln.cu",
+                 "none: XLA's silu and multiply, then "
+                 "vfmseg_tpu/ops/norm.py:45 (_ln_forward)", swiglu_rows[0],
+                 max(r["max_abs_err"] for r in swiglu_rows),
+                 library_call=swiglu_rows[0]["library_call"]),
     ] + _train_summaries(hm_rows, B5_ENTRIES)
 
 

@@ -26,6 +26,10 @@ _F = ctypes.c_float
 # csrc/layer_norm.cu: x, weight, bias, y, rows, c, eps, dtype, stream
 LAYER_NORM = Kernel("layer_norm", "vfmseg_layer_norm",
                     [_P, _P, _P, _P, _I, _I, _F, _I, _P])
+# csrc/swiglu_gate_ln.cu: g ([rows, 2 hp]: a, pad, b, pad), weight, bias, y
+# ([rows, hp]), rows, h, hp, eps, dtype, stream
+SWIGLU_GATE_LN = Kernel("swiglu_gate_ln", "vfmseg_swiglu_gate_ln",
+                        [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P])
 # csrc/attention_qkv.cu: q, k, v, out, batch, n, heads, stride_b, stride_n,
 # scale, stream
 ATTENTION_QKV = Kernel("attention_qkv", "vfmseg_attention_qkv",
@@ -91,10 +95,10 @@ WINDOW_BLEND = Kernel("window_blend", "vfmseg_window_blend",
 DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 
-KERNELS = (LAYER_NORM, ATTENTION_QKV, ATTENTION_QKV_ROPE, ATTENTION_FWD_LSE,
-           ATTENTION_HM_FWD, ATTENTION_HM_BWD, ATTENTION_HM_FWD_D32,
-           ATTENTION_HM_BWD_D32, ATTENTION_HM_BIAS_FWD, ATTENTION_HM_BIAS_BWD,
-           ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
+KERNELS = (LAYER_NORM, SWIGLU_GATE_LN, ATTENTION_QKV, ATTENTION_QKV_ROPE,
+           ATTENTION_FWD_LSE, ATTENTION_HM_FWD, ATTENTION_HM_BWD,
+           ATTENTION_HM_FWD_D32, ATTENTION_HM_BWD_D32, ATTENTION_HM_BIAS_FWD,
+           ATTENTION_HM_BIAS_BWD, ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
 
 
 def launch_counts() -> Dict[str, int]:

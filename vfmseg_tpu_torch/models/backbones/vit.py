@@ -23,6 +23,9 @@ at ``out_indices``, and four block families:
   - *training* (vit.py:249-314): per-slot projections (LoRA sequential, with
     dropout), the rotation in PyTorch with the natural tables, and the
     head-major attention (B5 under autograd).
+
+  The SwiGLU picks its route the same way: in eval its hidden is padded to
+  16 bytes with zero weights (:class:`SwiGLUEva`).
 * CLIP (``attn_type="fused"``, ``ffn_act="quick_gelu"``; vit.py:59-68):
   DINOv2's fused attention, an MLP with QuickGELU ``x sigmoid(1.702 x)``, no
   LayerScale, and CLIP's stem: a bias-free patch embedding, a
@@ -94,6 +97,7 @@ from vfmseg_tpu_torch.ops.rope import (
     permuted_rope_tables,
     vit_rope_tables,
 )
+from vfmseg_tpu_torch.ops.swiglu import padded_width, swiglu_gate_ln
 from vfmseg_tpu_torch.ops.window import (
     decomposed_rel_pos_bias_hm,
     decomposed_rel_pos_terms_hm,
@@ -240,17 +244,61 @@ class Mlp(nn.Module):
 
 class SwiGLUEva(nn.Module):
     """EVA02's SwiGLU: silu(w1 x) * (w2 x) -> sub-LN -> w3 (vit.py:147-161);
-    no LoRA."""
+    no LoRA. Two routes, picked as :class:`SplitAttention` picks its own:
+
+    - *eval* (not training, no gradient wanted): the hidden padded to
+      ``padded_width(hidden)`` (EVA02-L's 2730 -> 2736) with zero weights,
+      w1 and w2 as one ``[2 Hp, E]`` product, the gate and the sub-LN in one
+      kernel that writes exact zeros in the pad (``ops/swiglu.py``), and w3
+      at K = Hp. The padded extents keep the GEMMs on cuBLAS's Hopper
+      kernels, which a 2730-wide leading dimension (5460 bytes) kept them
+      off; the zeros add nothing.
+    - *training*: the three layers and the sub-LN as they are, under
+      autograd.
+    """
 
     def __init__(self, dim: int, hidden: int, ln_eps: float,
                  dtype: torch.dtype):
         super().__init__()
+        self.hidden = hidden
+        self.dtype = dtype
         self.w1 = make_dense(dim, hidden, True, "w1", None, dtype)
         self.w2 = make_dense(dim, hidden, True, "w2", None, dtype)
         self.ffn_ln = LayerNorm(hidden, ln_eps, dtype)
         self.w3 = make_dense(hidden, dim, True, "w3", None, dtype)
+        self._padded: Optional[Tuple[torch.Tensor, ...]] = None
+        self._padded_key = None
+
+    def padded_weights(self) -> Tuple[torch.Tensor, ...]:
+        """The eval route's ``[2 Hp, E]`` w1|w2 weight and ``[2 Hp]`` bias
+        (w1's rows, zero rows, w2's rows, zero rows) and ``[E, Hp]`` w3
+        (zero columns past the hidden) with its bias, in the compute dtype.
+
+        Cached until a parameter of the three layers is written in place
+        (loading a state dict), moved, or the dtype changes."""
+        lins = (self.w1, self.w2, self.w3)
+        params = [p for lin in lins for p in lin.parameters()]
+        key = (self.dtype,) + tuple((p.device, p.data_ptr(), p._version)
+                                    for p in params)
+        if key != self._padded_key:
+            pad = padded_width(self.hidden) - self.hidden
+            with torch.no_grad():
+                w12 = torch.cat([F.pad(self.w1.weight, (0, 0, 0, pad)),
+                                 F.pad(self.w2.weight, (0, 0, 0, pad))])
+                b12 = torch.cat([F.pad(self.w1.bias, (0, pad)),
+                                 F.pad(self.w2.bias, (0, pad))])
+                self._padded = tuple(t.to(self.dtype).contiguous() for t in (
+                    w12, b12, F.pad(self.w3.weight, (0, pad)), self.w3.bias))
+            self._padded_key = key
+        return self._padded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and not _wants_grad(x, self):
+            w12, b12, w3, b3 = self.padded_weights()
+            g = F.linear(x.to(self.dtype), w12, b12)
+            ln = self.ffn_ln
+            return F.linear(swiglu_gate_ln(g, self.hidden, ln.weight, ln.bias,
+                                           ln.eps), w3, b3)
         return self.w3(self.ffn_ln(F.silu(self.w1(x)) * self.w2(x)))
 
 
