@@ -2,7 +2,10 @@
 ``span``) on the CPU: the dense per-image route exports its phases nested
 and in order, the compact stream names each group's phases by its ordinal
 and holds no range open while the caller runs, and with no profiler
-running ``span`` opens no range and the labels are bit-equal."""
+running ``span`` opens no range and the labels are bit-equal. The Rein +
+Mask2Former slide opens its backbone, pixel-decoder and mask-decoder
+ranges inside ``vfmseg.predict``, an MsVFM forward opens none of them, and
+the head's mask counters move only under a profiler."""
 
 import json
 
@@ -26,6 +29,22 @@ def tiny():
     img = torch.randn(1, 64, 128, 3,
                       generator=torch.Generator().manual_seed(1))
     return lambda: predict(model, img, (64, 128))
+
+
+@pytest.fixture(scope="module")
+def rein():
+    """The tiny Rein + Mask2Former slide (3 crops of a 64 x 128 image)."""
+    cfg = presets.config("smoke_tiny_rein_m2f")
+    torch.manual_seed(0)
+    model = build_segmentor(cfg["model"], device="cpu").eval()
+    predict = evaluator.make_shape_aware_predict_fn(model, cfg["test_cfg"])
+    img = torch.randn(1, 64, 128, 3,
+                      generator=torch.Generator().manual_seed(3))
+    return model, lambda: predict(model, img, (64, 128))
+
+
+M2F_PHASES = ("vfmseg.backbone", "vfmseg.pixel_decoder",
+              "vfmseg.mask_decoder")
 
 
 def _toy_engine():
@@ -127,3 +146,54 @@ def test_span_opens_nothing_without_a_profiler(tiny, route, monkeypatch):
     got = run()
     for g, w in zip(got, want) if route == "stream" else [(got, want)]:
         assert torch.equal(g, w)
+
+
+def test_rein_slide_opens_its_phases_inside_predict(rein, tmp_path):
+    """One slide ``predict``: ``vfmseg.predict`` holds the backbone, the
+    pixel decoder and the mask decoder in that order (the head's decoder,
+    then the semantic inference, both ``vfmseg.mask_decoder``), and the
+    head counted its masks: 3 decoder layers over 3 crops of 10 queries."""
+    model, run = rein
+    head = model.decode_head
+    rows, pairs = head.stat_rows, head.stat_pairs
+    with torch.profiler.profile(activities=CPU) as prof:
+        run()
+    got = _named(_ranges(prof, tmp_path), "vfmseg.")
+    assert [n for _, _, n in got] == [
+        "vfmseg.predict", "vfmseg.backbone", "vfmseg.pixel_decoder",
+        "vfmseg.mask_decoder", "vfmseg.mask_decoder"]
+    predict, backbone, pixel, decoder, semantic = got
+    assert all(_holds(predict, r) for r in got[1:])
+    assert backbone[1] <= pixel[0] and pixel[1] <= decoder[0]
+    assert decoder[1] <= semantic[0]
+    assert head.stat_rows - rows == 3 * 3 * 10
+    # the levels at 2 x 2, 4 x 4 and 8 x 8 keys
+    assert head.stat_pairs - pairs == 3 * 10 * (4 + 16 + 64)
+    assert 0 <= int(head.stat_hidden_pairs) <= head.stat_pairs
+    assert 0 <= int(head.stat_reset_rows) <= head.stat_rows
+
+
+def test_msvfm_forward_opens_no_m2f_range(tiny, tmp_path):
+    with torch.profiler.profile(activities=CPU) as prof:
+        tiny()
+    names = {n for _, _, n in _ranges(prof, tmp_path)}
+    assert not names & set(M2F_PHASES)
+
+
+def test_mask_counters_untouched_without_a_profiler(rein):
+    """With no profiler running the head counts nothing: the counters keep
+    their values (their tensors are the same objects) and the labels equal
+    those made under the profiler."""
+    model, run = rein
+    head = model.decode_head
+    with torch.profiler.profile(activities=CPU):
+        want = run()
+    before = (head.stat_hidden_pairs, head.stat_reset_rows, head.stat_pairs,
+              head.stat_rows)
+    got = run()
+    assert before[0] is not None
+    after = (head.stat_hidden_pairs, head.stat_reset_rows, head.stat_pairs,
+             head.stat_rows)
+    assert all(a is b for a, b in zip(after[:2], before[:2]))
+    assert after[2:] == before[2:]
+    assert torch.equal(got, want)

@@ -28,6 +28,15 @@ follow the flax tree
 
 LayerNorms run on B1 on CUDA tensors; the GEMMs and convolutions are
 PyTorch's.
+
+Profiler ranges (``utils/profiling.py`` ``span``): ``vfmseg.pixel_decoder``
+(the pixel decoder) and ``vfmseg.mask_decoder`` (the level inputs, the
+decoder layers with their masks, and the prediction). While a profiler runs
+the head also counts, as device tensors, the (query, key) pairs its
+cross-attention masks hide after the all-masked-row rule
+(``stat_hidden_pairs`` of ``stat_pairs``) and the rows that rule reset
+(``stat_reset_rows`` of ``stat_rows``); with none running it counts
+nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from vfmseg_tpu_torch.ops.attention import attention_plain
 from vfmseg_tpu_torch.ops.deform_attn import ms_deform_attn_core
 from vfmseg_tpu_torch.ops.norm import LayerNorm
 from vfmseg_tpu_torch.ops.resize import resize
+from vfmseg_tpu_torch.utils import profiling
 
 
 @functools.lru_cache(maxsize=64)
@@ -320,13 +330,15 @@ class Mask2FormerDecoderLayer(nn.Module):
         return self.norm3(self.ffn(query))
 
 
-def _attention_mask(logits: torch.Tensor) -> torch.Tensor:
-    """[B, Nq, h, w] mask logits -> [B, Nq, h*w] True where a query does not
-    attend (sigmoid < 0.5); a row masked everywhere attends everywhere
-    (rein_mask2former.py:71)."""
+def _attention_mask(logits: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, Nq, h, w] mask logits -> ([B, Nq, h*w] True where a query does
+    not attend (sigmoid < 0.5), [B, Nq, 1] True where a row was masked
+    everywhere and so attends everywhere (rein_mask2former.py:71))."""
     am = torch.sigmoid(logits.float()) < 0.5
     am = am.reshape(am.shape[0], am.shape[1], -1)
-    return am & ~am.all(dim=-1, keepdim=True)
+    reset = am.all(dim=-1, keepdim=True)
+    return am & ~reset, reset
 
 
 class Mask2FormerHead(nn.Module):
@@ -363,6 +375,25 @@ class Mask2FormerHead(nn.Module):
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer{i}", Mask2FormerDecoderLayer(
                 c, num_heads, dtype=dtype))
+        # the masks' counters, kept only while a profiler runs
+        self.stat_hidden_pairs: Optional[torch.Tensor] = None
+        self.stat_reset_rows: Optional[torch.Tensor] = None
+        self.stat_pairs = 0
+        self.stat_rows = 0
+
+    def _mask(self, logits: torch.Tensor) -> torch.Tensor:
+        """The cross-attention mask of ``logits`` (:func:`_attention_mask`),
+        counted while a profiler runs."""
+        mask, reset = _attention_mask(logits)
+        if profiling.active():
+            hidden, resets = mask.sum(), reset.sum()
+            if self.stat_hidden_pairs is not None:
+                hidden = hidden + self.stat_hidden_pairs
+                resets = resets + self.stat_reset_rows
+            self.stat_hidden_pairs, self.stat_reset_rows = hidden, resets
+            self.stat_pairs += mask.numel()
+            self.stat_rows += reset.numel()
+        return mask
 
     def forward(self, feats: Sequence[torch.Tensor],
                 queries: Optional[torch.Tensor] = None, train: bool = False):
@@ -375,8 +406,16 @@ class Mask2FormerHead(nn.Module):
         if self.rein_queries and queries is None:
             raise ValueError("a head with rein_queries needs the backbone's "
                              "queries")
-        b = feats[0].shape[0]
-        mask_features, memories = self.pixel_decoder(feats)
+        with profiling.span("vfmseg.pixel_decoder"):
+            mask_features, memories = self.pixel_decoder(feats)
+        with profiling.span("vfmseg.mask_decoder"):
+            return self._decode(mask_features, memories, queries, train)
+
+    def _decode(self, mask_features: torch.Tensor,
+                memories: Sequence[torch.Tensor],
+                queries: Optional[torch.Tensor], train: bool):
+        """The decoder over the pixel decoder's outputs; as ``forward``."""
+        b = mask_features.shape[0]
         inputs, poses, shapes = [], [], []
         for i in range(self.num_levels):
             m = memories[i]
@@ -414,7 +453,7 @@ class Mask2FormerHead(nn.Module):
                 cls_preds.append(cls_pred)
                 mask_preds.append(mask_pred)
                 target = shapes[i % self.num_levels]
-                attn_mask = _attention_mask(resize(
+                attn_mask = self._mask(resize(
                     mask_pred.permute(0, 2, 3, 1), size=target,
                     method="bilinear").permute(0, 3, 1, 2))
             return cls_preds, mask_preds
@@ -427,8 +466,8 @@ class Mask2FormerHead(nn.Module):
 
         def attn_mask_at(qf, lvl):
             membed = self.mask_embed(self.decoder_norm(qf))
-            return _attention_mask(torch.einsum("bqc,bhwc->bqhw", membed,
-                                                feats_lvl[lvl]))
+            return self._mask(torch.einsum("bqc,bhwc->bqhw", membed,
+                                           feats_lvl[lvl]))
 
         attn_mask = attn_mask_at(query_feat, 0)
         for i in range(self.num_decoder_layers):

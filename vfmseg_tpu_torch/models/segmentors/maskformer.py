@@ -14,6 +14,11 @@ vector where there is one (rein_mask2former.py:26-30).
   stream. A frozen backbone runs in the segmentor's
   mode (the JAX ``__call__`` runs it with ``train=True``) without a graph,
   its maps and queries detached.
+
+Profiler ranges (``utils/profiling.py`` ``span``): ``vfmseg.backbone``
+around the backbone (with Rein, its adapters and queries), and
+``vfmseg.mask_decoder`` around the semantic inference, the phase the head's
+decoder range also names.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from vfmseg_tpu_torch.models.heads.m2f_loss import mask2former_loss
 from vfmseg_tpu_torch.models.heads.mask2former import semantic_inference
 from vfmseg_tpu_torch.models.segmentors.encoder_decoder import EncoderDecoder
 from vfmseg_tpu_torch.parallel import mesh
+from vfmseg_tpu_torch.utils.profiling import span
 
 
 class MaskFormerSegmentor(EncoderDecoder):
@@ -47,12 +53,14 @@ class MaskFormerSegmentor(EncoderDecoder):
         [B, H, W] (255 ignored), the multi-stage loss dict, every loss
         scaled by the mean of ``pixel_weight`` where given (a per-pixel
         weight has no direct analogue in set prediction)."""
-        feats, queries = self.features(img)
+        with span("vfmseg.backbone"):
+            feats, queries = self.features(img)
         cls_preds, mask_preds = self.decode_head(feats, queries,
                                                  train=labels is not None)
         if labels is None:
-            return semantic_inference(cls_preds[-1], mask_preds[-1],
-                                      self.num_classes)
+            with span("vfmseg.mask_decoder"):
+                return semantic_inference(cls_preds[-1], mask_preds[-1],
+                                          self.num_classes)
         losses = mask2former_loss(cls_preds, mask_preds, labels,
                                   num_classes=self.num_classes,
                                   num_points=self.num_points)

@@ -8,7 +8,8 @@ Port of vfmseg_tpu/utils/profiling.py on PyTorch:
   ``logdir``; the JAX helper writes a TensorBoard trace. The trace carries
   the program's ranges (:func:`span`) beside the kernels they launched;
 * :func:`span`: a named range of the program in a running profiler's
-  trace, and one flag read when no profiler runs;
+  trace, and one flag read when no profiler runs; :func:`active` reads the
+  same flag for counters kept only while a profiler runs;
 * :func:`enable_nan_debugging`: ``torch.autograd.set_detect_anomaly``,
   which raises where a backward function returns NaN and names the
   forward op that made it. It checks the backward only: ``jax_debug_nans``
@@ -54,6 +55,12 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return _RecordFunctionFast(name)
     return _OFF
+
+
+def active() -> bool:
+    """Whether a ``torch.profiler`` profile is running (the flag
+    :func:`span` reads)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def enable_nan_debugging(enable: bool = True) -> None:
