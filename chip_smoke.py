@@ -89,7 +89,11 @@ Phases, each printing one JSON line:
    (5 channels in fp32 and bf16, 64 channels, 36 channels on a value 8
    bytes off a 16-byte boundary in bf16 and fp32: every access width),
    coordinates partly outside, against ``sample_plain`` in fp32, with
-   ``F.grid_sample`` as the yardstick.
+   ``F.grid_sample`` as the yardstick. kernel_deform_attn: the fused
+   deformable core (``csrc/deform_attn.cu``) at one encoder layer of
+   Rein's slide in bf16 and fp32, a train batch and nine cases off the path
+   (``DEFORM_ATTN_CASES``), against ``ms_deform_attn_plain`` in fp32, with
+   the B8 chain it replaced on the eval route as the yardstick.
 7. main_path / eva02_main_path / sam_main_path: each model at full width
    with seeded weights in bf16, built on the card, through ``predict`` on 3
    synthetic 1024x2048 images; launch counts per kernel, asserted per image
@@ -102,7 +106,8 @@ Phases, each printing one JSON line:
    against the synchronised wall time of unprofiled images.
    The same three phases and those of 9-11 run for SAM on the bias route
    (sam_bias_*: ``compute.attn_impl = "pallas_bias"``), and main_path,
-   card_vs_cpu, main_breakdown (with B8's share) and an eval_cli loop for
+   card_vs_cpu, main_breakdown (with the fused deformable core's share) and
+   an eval_cli loop for
    ``dg_lora_dinov2_mask2former`` (m2f_*: the slide predictor at 512 / 341,
    18 crops per image; card vs CPU on a 512x1024 image, 3 crops).
 9. train_path / eva02_train_path / sam_train_path: each model at full
@@ -157,8 +162,8 @@ Phases, each printing one JSON line:
    pyramid, the ReinMask2FormerHead fed the Rein queries) at full width
    in bf16: 3 synthetic 1024x2048 images through the slide predictor (512
    / 341, 18 crops an image; launches asserted per image: 97 LN, 24 B2,
-   18 B8), card vs CPU on a 512x1024 image at Mask2Former's limits, a
-   profiled image with B8's share at the pyramid. rein_train_path /
+   6 fused deformable cores, no B8), card vs CPU on a 512x1024 image at Mask2Former's limits, a
+   profiled image with the deformable core's share. rein_train_path /
    rein_train_breakdown: 8 steps at bs 2, 512^2 through train_loop
    (checkpoints at 4 and 8, a fresh state restored from 8; launches per
    step asserted, ``PER_STEP["rein"]``; every frozen ViT weight bit-equal
@@ -226,8 +231,9 @@ Phases, each printing one JSON line:
 23. uda_m2f / uda_m2f_calibrated / uda_m2f_breakdown:
    ``uda_rein_dinov2_mask2former_512x512`` (two sequential student passes,
    the set loss scaled by the mean pixel weight): UDA_M2F_STEPS DACS steps
-   through train_loop with the same checks, the teacher's launches (B8 at
-   the Rein pyramid) reported apart, a profiled step.
+   through train_loop with the same checks, the teacher's launches (its
+   no-grad pixel decoder on the fused deformable core) reported apart, a
+   profiled step.
 24. uda_hrda / uda_hrda_calibrated: ``uda_rein_dinov2_hrda_1024x1024``
    (two sequential passes, the HR crop's weight cut from its box):
    UDA_HRDA_STEPS DACS steps with the same checks.
@@ -315,6 +321,7 @@ from vfmseg_tpu_torch.kernels.time_qkv_fwd import (
 from vfmseg_tpu_torch.kernels.time_relpos import SHAPES as RELPOS_SHAPES
 from vfmseg_tpu_torch.models import rng
 from vfmseg_tpu_torch.models.heads import m2f_loss
+from vfmseg_tpu_torch.models.heads.mask2former import _reference_points
 from vfmseg_tpu_torch.models.build import (
     build_segmentor,
     compute_attn_impl,
@@ -344,7 +351,13 @@ from vfmseg_tpu_torch.ops.attention import (
     attention_relpos_hm,
     multi_head_attention,
 )
-from vfmseg_tpu_torch.ops.deform_attn import sample_cuda, sample_plain
+from vfmseg_tpu_torch.ops.deform_attn import (
+    ms_deform_attn_cuda,
+    ms_deform_attn_levels,
+    ms_deform_attn_plain,
+    sample_cuda,
+    sample_plain,
+)
 from vfmseg_tpu_torch.ops.norm import layer_norm_cuda, layer_norm_plain
 from vfmseg_tpu_torch.ops.swiglu import (
     swiglu_gate_ln_cuda,
@@ -442,6 +455,7 @@ KERNEL_GROUPS = [("attention_hm_bias_fwd", "attention_hm_fwd_kernel<80, 1>"),
                  ("attention_fwd_lse", "attention_qkv_kernel<true>"),
                  ("attention_relpos", "attention_relpos"),
                  ("window_blend", "window_blend_kernel"),
+                 ("deform_attn", "deform_sample_kernel_fused"),
                  ("deform_sample", "deform_sample_kernel"),
                  ("swiglu_gate_ln", "swiglu_gate_ln"),
                  ("layer_norm", "layer_norm")]
@@ -460,7 +474,8 @@ def _counts(**nonzero) -> dict:
 # (sam_bias: compute.attn_impl = "pallas_bias") B5's bias forward once.
 # Mask2Former (m2f) slides 18 crops of 512 at stride 341 through one ViT
 # batch (24 blocks: 48 LN, 24 B2); its pixel decoder runs 6 layers of 2 LN
-# and 3 levels of B8 each, its decoder 9 layers of 3 LN plus the decoder
+# and one fused deformable core (deform_attn, no gradient wanted) each, its
+# decoder 9 layers of 3 LN plus the decoder
 # norm 10 times (the 9 attention masks and the last prediction); its masked
 # attention is plain PyTorch math. B2-RoPE's entry launches its rotation
 # pass and then B2's kernel: the pair counts once, under attention_qkv_rope,
@@ -474,11 +489,11 @@ PER_IMAGE = {
     "sam_bias": _counts(layer_norm=64 + 64 + 9,
                         attention_hm_bias_fwd=32 + 32, attention_qkv=6),
     "m2f": _counts(layer_norm=48 + 6 * 2 + 9 * 3 + 10, attention_qkv=24,
-                   deform_sample=6 * 3),
+                   deform_attn=6),
     # the Rein model's slide eval: the same kernels as m2f (the adapter and
     # the pyramid's resizes are PyTorch's GEMMs and F.interpolate)
     "rein": _counts(layer_norm=48 + 6 * 2 + 9 * 3 + 10, attention_qkv=24,
-                    deform_sample=6 * 3),
+                    deform_attn=6),
     # LoRA CLIP-L in the MsVFM scheme: DINOv2's kernels, each ViT call one
     # LayerNorm more (ln_pre)
     "clip": _counts(layer_norm=49 + 49 + 9, attention_qkv=24 + 24 + 6),
@@ -486,7 +501,7 @@ PER_IMAGE = {
     # over the 18 crops (49 LN, 24 B2; the FPN's norms are GroupNorm and
     # BatchNorm), the head as in m2f
     "rein_clip_m2f": _counts(layer_norm=49 + 6 * 2 + 9 * 3 + 10,
-                             attention_qkv=24, deform_sample=6 * 3),
+                             attention_qkv=24, deform_attn=6),
     # HRDA's slide eval (1024 windows at stride 682: 3 windows): one ViT
     # call over the 3 windows' LR views (512^2) and one over their 27 HR
     # crops (512 at stride 256); its two heads have no LayerNorm
@@ -569,7 +584,7 @@ PER_STEP = {
                              attention_fwd_lse=23, attention_hm_bwd=23),
     "uda_m2f": _counts(layer_norm=97 + 2 * 97, attention_qkv=24 + 2,
                        attention_fwd_lse=2 * 23, attention_hm_bwd=2 * 23,
-                       deform_sample=18 + 2 * 18),
+                       deform_attn=6, deform_sample=2 * 18),
     "uda_hrda": _counts(layer_norm=2 * 48 + 2 * 2 * 48,
                         attention_qkv=2 * 24 + 2 * 2,
                         attention_fwd_lse=2 * 2 * 23,
@@ -794,6 +809,44 @@ DEFORM_MISALIGNED = (5, 9, 11, 36, 333)
 # once to bf16 at the end (|err| <= 2^-9 |ref|; 2^-8 leaves room for the
 # fp32 sums' order), and in fp32 only the order of 7 fp32 operations differs
 DEFORM_TOL = {torch.bfloat16: (1e-6, 2.0 ** -8), torch.float32: (1e-5, 1e-6)}
+# The fused deformable core (csrc/deform_attn.cu) at Rein's slide: one
+# encoder layer over 18 crops, 8 heads of 32, levels 16^2/32^2/64^2, 4
+# points, 5376 queries (the levels' pixels, their centres as reference
+# points), in bf16 (the path) and fp32; a train batch of 2 crops; then off
+# the path: 1 level and 1 point, 4 levels, head dims 8, 64 and 4, a head of
+# 5 channels in 3 heads (one element an access), a value 8 bytes off a
+# 16-byte boundary, levels x points = 32, and 16 heads. Off the path the
+# queries are fewer than the tokens and their reference points random.
+# (label, B, Nq, level shapes, heads, d, points, dtype, value's offset in
+# elements)
+REIN_LEVELS = ((16, 16), (32, 32), (64, 64))
+DEFORM_ATTN_CASES = [
+    ("rein_slide", 18, 5376, REIN_LEVELS, 8, 32, 4, torch.bfloat16, 0),
+    ("rein_slide_fp32", 18, 5376, REIN_LEVELS, 8, 32, 4, torch.float32, 0),
+    ("rein_train_batch", 2, 5376, REIN_LEVELS, 8, 32, 4, torch.bfloat16, 0),
+    ("off_path_1level_1point", 3, 333, ((5, 7),), 8, 32, 1,
+     torch.bfloat16, 0),
+    ("off_path_4levels", 2, 101, ((3, 4), (6, 8), (12, 16), (24, 32)), 8,
+     32, 4, torch.bfloat16, 0),
+    ("off_path_d8", 2, 77, ((4, 4), (8, 8), (16, 16)), 8, 8, 4,
+     torch.bfloat16, 0),
+    ("off_path_d64_fp32", 2, 77, ((4, 4), (8, 8), (16, 16)), 4, 64, 4,
+     torch.float32, 0),
+    ("off_path_d4", 2, 50, ((4, 4), (8, 8), (16, 16)), 8, 4, 4,
+     torch.bfloat16, 0),
+    ("off_path_d5", 2, 50, ((4, 4), (8, 8)), 3, 5, 2, torch.bfloat16, 0),
+    ("off_path_misaligned", 2, 90, ((4, 4), (8, 8), (16, 16)), 8, 32, 4,
+     torch.bfloat16, 4),
+    ("off_path_32_samples", 1, 40, ((6, 6), (3, 3)), 1, 32, 16,
+     torch.float32, 0),
+    ("off_path_16heads", 2, 60, ((3, 4), (6, 8), (12, 16), (24, 32)), 16,
+     16, 4, torch.bfloat16, 0),
+]
+# the fused core against its twin in fp32 on the same inputs: in bf16 the
+# output's one rounding (2^-9 of it) and sums in another order, in fp32
+# sums in another order
+DEFORM_ATTN_TOL = {torch.bfloat16: (1e-5, 2.0 ** -8),
+                   torch.float32: (1e-5, 1e-5)}
 # LSE: fp32 sums in another order, fast exp/log against exp/log
 LSE_ATOL = 1e-3
 # dq/dk/dv, as max abs error over max |reference|: P and dS round to bf16
@@ -2041,16 +2094,103 @@ def check_deform_sample(dev) -> list:
     return rows
 
 
+def _deform_attn_inputs(dev, b_, nq, shapes, heads, d, points, dtype, seed,
+                        skip):
+    """Seeded arguments of ``ms_deform_attn_cuda``: the value (``skip``
+    elements past its storage's start), offsets of a few pixels with every
+    seventh query's forty times as far (whole samples off the planes),
+    logits, and the reference points: the levels' pixel centres where the
+    queries are the tokens, else random."""
+    gen = torch.Generator().manual_seed(seed)
+    lp = len(shapes) * points
+    nv = sum(h * w for h, w in shapes)
+    value = torch.randn(b_ * nv * heads * d + skip, generator=gen)
+    value = value.to(dev, dtype)[skip:].view(b_, nv, heads * d)
+    off = torch.randn(b_, nq, heads * lp * 2, generator=gen) * 3
+    off[:, ::7] *= 40
+    logits = torch.randn(b_, nq, heads * lp, generator=gen) * 2
+    if nq == nv:
+        ref_x, ref_y = _reference_points(shapes, dev)
+    else:
+        ref_x, ref_y = (torch.rand(nq, generator=gen).to(dev)
+                        for _ in range(2))
+    return value, off.to(dev, dtype), logits.to(dev, dtype), ref_x, ref_y
+
+
+def check_deform_attn(dev) -> list:
+    """The fused deformable core (``csrc/deform_attn.cu``) against
+    ``ms_deform_attn_plain`` in fp32 on the same inputs at
+    ``DEFORM_ATTN_CASES``, each call counted once under ``deform_attn``.
+    Beside it the plain twin's time and the chain the eval route ran before
+    it, from the same projections' outputs (``ms_deform_attn_levels``: B8 a
+    level, the samples' copies, the batched gemv, the level sums)."""
+    rows = []
+    for seed, (label, b_, nq, shapes, heads, d, points, dtype,
+               skip) in enumerate(DEFORM_ATTN_CASES):
+        args = _deform_attn_inputs(dev, b_, nq, shapes, heads, d, points,
+                                   dtype, SEED + 23 + seed, skip)
+        value = args[0]
+        before = kernels.DEFORM_ATTN.launches
+        got = ms_deform_attn_cuda(*args, shapes, heads, points).float()
+        launched = kernels.DEFORM_ATTN.launches - before
+        want = ms_deform_attn_plain(*(t.float() for t in args), shapes,
+                                    heads, points)
+        torch.cuda.synchronize()
+        atol, rtol = DEFORM_ATTN_TOL[dtype]
+        err = (got - want).abs()
+        ok = bool((err <= atol + rtol * want.abs()).all()) and launched == 1
+        levels, start = [], 0
+        for h, w in shapes:
+            levels.append(value[:, start:start + h * w].reshape(b_, h, w, -1))
+            start += h * w
+
+        def chain():
+            with torch.no_grad():
+                return ms_deform_attn_levels(levels, *args[1:], heads,
+                                             points)
+
+        item = value.element_size()
+        samples = b_ * nq * heads * len(shapes) * points
+        row = dict(
+            path=label, shape=dict(batch=b_, queries=nq,
+                                   levels=[list(s) for s in shapes],
+                                   heads=heads, head_dim=d, points=points),
+            dtype=str(dtype), max_abs_err=float(err.max()), ok=ok,
+            launches=launched,
+            ms=time_ms(lambda: ms_deform_attn_cuda(*args, shapes, heads,
+                                                   points)),
+            plain_ms=time_ms(lambda: ms_deform_attn_plain(
+                *args, shapes, heads, points)),
+            chain_ms=time_ms(chain), library_ms=None,
+            library_call="none: PyTorch has no deformable attention",
+            # value, offsets, logits and reference points read once, the
+            # output written once; ~9 fp32 operations a channel of a sample
+            # (the taps' lerps and the weighted sum)
+            **bound(sum(t.numel() * t.element_size() for t in args)
+                    + b_ * nq * heads * d * item, 9 * samples * d, "fp32"))
+        emit("kernel_deform_attn", atol=atol, rtol=rtol, **row)
+        if not ok:
+            raise AssertionError(f"the fused deformable core disagrees at "
+                                 f"{label}: {row}")
+        rows.append(row)
+        del args, value, got, want, err, levels
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels_bias_deform(dev) -> list:
-    """B5's bias entries at SAM's bias route's shapes and B8 at
-    Mask2Former's; returns their summary rows."""
+    """B5's bias entries at SAM's bias route's shapes, B8 at Mask2Former's
+    and the fused deformable core at Rein's slide; returns their summary
+    rows."""
     randn = _randn(np.random.RandomState(SEED + 29), dev)
     bias_rows = check_headmajor_bias(randn, dev)
     deform_rows = check_deform_sample(dev)
+    fused_rows = check_deform_attn(dev)
     emit("kernels_bias_deform",
          hm_bias_ms={r["path"]: dict(fwd=r["fwd_ms"], bwd=r["bwd_ms"])
                      for r in bias_rows},
-         deform_sample_ms={r["path"]: r["ms"] for r in deform_rows})
+         deform_sample_ms={r["path"]: r["ms"] for r in deform_rows},
+         deform_attn_ms={r["path"]: r["ms"] for r in fused_rows})
     # the summaries time the train step's global blocks (B5-bias) and the
     # eval shape in bf16 (B8); every shape's numbers are in by_path
     train_global = next(r for r in bias_rows if r["path"] == "train_global")
@@ -2079,7 +2219,18 @@ def phase_kernels_bias_deform(dev) -> list:
     deform["by_path"] = {r["path"]: {key: r[key] for key in (
         "shape", "samples", "dtype", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by")} for r in deform_rows}
-    return summary + [deform]
+    # the fused core's summary times one encoder layer at Rein's slide in
+    # bf16, with the chain it replaced on the eval route
+    fused = _summary("deform_attn", "vfmseg_tpu_torch/csrc/deform_attn.cu",
+                     "vfmseg_tpu/ops/deform_attn.py:231 with the Pallas "
+                     "sampler at :134", fused_rows[0],
+                     max(r["max_abs_err"] for r in fused_rows),
+                     library_call=fused_rows[0]["library_call"],
+                     chain_ms=fused_rows[0]["chain_ms"])
+    fused["by_path"] = {r["path"]: {key: r[key] for key in (
+        "shape", "dtype", "ms", "plain_ms", "chain_ms", "bound_ms",
+        "bound_by")} for r in fused_rows}
+    return summary + [deform, fused]
 
 
 def calibrate_logit_scale(model, engine, groups, target: float) -> tuple:
@@ -3296,8 +3447,9 @@ def sam_bias_config() -> dict:
 
 def run_m2f_paths(dev) -> dict:
     """dg_lora_dinov2_mask2former's slide eval at full width: 3 images
-    through the predictor, card vs CPU, a profiled image (B8's share of the
-    device time), and the eval CLI's loop."""
+    through the predictor, card vs CPU, a profiled image (the fused
+    deformable core's share of the device time), and the eval CLI's
+    loop."""
     t0 = time.perf_counter()
     cfg = mask2former_config()
     model, counts = phase_main_path(dev, cfg, "m2f")
@@ -3312,7 +3464,8 @@ def run_m2f_paths(dev) -> dict:
 
 def run_rein_paths(dev) -> dict:
     """dg_rein_dinov2_mask2former at full width: the slide eval of 3
-    images, card vs CPU, a profiled image (B8's share at the pyramid); 8
+    images, card vs CPU, a profiled image (the fused deformable core's
+    share at the pyramid); 8
     train steps at bs 2, 512^2 (checkpoints at 4 and 8, a fresh state
     restored), a profiled step, and one step card vs CPU at 256^2."""
     t0 = time.perf_counter()
@@ -3742,7 +3895,8 @@ def phase_uda_train(dev, cfg, label: str, steps: int) -> tuple:
 def run_uda_m2f(dev) -> dict:
     """uda_rein_dinov2_mask2former_512x512 (sequential student passes, the
     set loss scaled by the mean pixel weight; B8 at the Rein pyramid's
-    train shapes): UDA_M2F_STEPS DACS steps, a profiled step (phases
+    train shapes, the teacher's pixel decoder on the fused deformable
+    core): UDA_M2F_STEPS DACS steps, a profiled step (phases
     uda_m2f*)."""
     t0 = time.perf_counter()
     cfg = config(UDA_M2F_CONFIG)

@@ -44,106 +44,25 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "deform_common.cuh"
+
 namespace {
+
+using vfmseg_deform::Bits;
+using vfmseg_deform::lerp;
+using vfmseg_deform::load_tap;
+using vfmseg_deform::Raw;
+using vfmseg_deform::Taps;
+using vfmseg_deform::taps;
+using vfmseg_deform::Vec;
 
 constexpr int kThreads = 256;
 // Blocks a SM: a thread holds one sample's four taps, and occupancy, not
 // more samples a thread, hides the loads' latency (four samples a thread at
 // two blocks a SM ran slower at the eval level)
 constexpr int kMinBlocks = 5;
-
-// A raw access of kBytes.
-template <int kBytes>
-struct Raw;
-template <>
-struct Raw<16> {
-  using U = uint4;
-};
-template <>
-struct Raw<8> {
-  using U = uint2;
-};
-template <>
-struct Raw<4> {
-  using U = unsigned int;
-};
-template <>
-struct Raw<2> {
-  using U = unsigned short;
-};
-
-// An element's bits: fp32 as itself, bf16 as its 16 bits.
-template <typename T>
-struct Bits {
-  using E = float;
-  static __device__ __forceinline__ float to_float(float v) { return v; }
-  static __device__ __forceinline__ float from_float(float v) { return v; }
-};
-template <>
-struct Bits<__nv_bfloat16> {
-  using E = unsigned short;
-  static __device__ __forceinline__ float to_float(unsigned short v) {
-    return __uint_as_float(static_cast<unsigned int>(v) << 16);
-  }
-  static __device__ __forceinline__ unsigned short from_float(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16(v));
-  }
-};
-
-// kBytes of T as raw bits and as elements.
-template <typename T, int kBytes>
-union Vec {
-  static constexpr int kElems = kBytes / static_cast<int>(sizeof(T));
-  typename Raw<kBytes>::U raw;
-  typename Bits<T>::E e[kElems];
-};
-
-template <typename T, int kBytes>
-__device__ __forceinline__ Vec<T, kBytes> load_tap(const T* p, bool inside) {
-  Vec<T, kBytes> v;
-  v.raw = typename Raw<kBytes>::U();
-  if (inside) v.raw = __ldg(reinterpret_cast<const typename Raw<kBytes>::U*>(p));
-  return v;
-}
-
-// One sample's geometry: the tap rows' first element, the lerp weights and
-// which taps lie inside the plane.
-template <typename T>
-struct Taps {
-  const T* r00;
-  float fx, fy;
-  bool i00, i01, i10, i11;
-};
-
-// The taps of the sample at normalised (xn, yn) of batch row b.
-template <typename T>
-__device__ __forceinline__ Taps<T> taps(const T* value, float xn, float yn, int64_t b, int h,
-                                        int w, int c) {
-  Taps<T> tp;
-  const float x = xn * static_cast<float>(w) - 0.5f;
-  const float y = yn * static_cast<float>(h) - 0.5f;
-  const float xf = floorf(x);
-  const float yf = floorf(y);
-  tp.fx = x - xf;
-  tp.fy = y - yf;
-  // which taps lie inside the plane, decided in fp32 so that coordinates far
-  // outside never reach an integer conversion
-  const bool in_x0 = xf >= 0.f && xf <= static_cast<float>(w - 1);
-  const bool in_x1 = xf >= -1.f && xf <= static_cast<float>(w - 2);
-  const bool in_y0 = yf >= 0.f && yf <= static_cast<float>(h - 1);
-  const bool in_y1 = yf >= -1.f && yf <= static_cast<float>(h - 2);
-  const int x0 = (in_x0 || in_x1) ? static_cast<int>(xf) : 0;
-  const int y0 = (in_y0 || in_y1) ? static_cast<int>(yf) : 0;
-  tp.r00 = value + (b * h + y0) * static_cast<int64_t>(w) * c + static_cast<int64_t>(x0) * c;
-  tp.i00 = in_y0 && in_x0;
-  tp.i01 = in_y0 && in_x1;
-  tp.i10 = in_y1 && in_x0;
-  tp.i11 = in_y1 && in_x1;
-  return tp;
-}
 
 // Persistent blocks: block k takes the k-th of gridDim.x contiguous runs of
 // block rows (`rows` samples each), so a block's samples share a plane
@@ -180,7 +99,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       ny = yn[s + rows];
     }
     if (s >= samples) continue;
-    const Taps<T> tp = taps(value, x, y, s / n, h, w, c);
+    const Taps<T> tp = taps(value + s / n * h * row_elems, x, y, h, w, c);
     for (int vi = slice; vi < tps; vi += lanes) {
       const int ch = vi * kElems;
       const T* r0 = tp.r00 + ch;
@@ -191,27 +110,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       Vec<T, kVec> o;
 #pragma unroll
       for (int e = 0; e < kElems; ++e) {
-        using B = Bits<T>;
-        const float top = B::to_float(v00.e[e]) * (1.f - tp.fx) + B::to_float(v01.e[e]) * tp.fx;
-        const float bot = B::to_float(v10.e[e]) * (1.f - tp.fx) + B::to_float(v11.e[e]) * tp.fx;
-        o.e[e] = B::from_float(top * (1.f - tp.fy) + bot * tp.fy);
+        o.e[e] = Bits<T>::from_float(lerp(v00, v01, v10, v11, tp.fx, tp.fy, e));
       }
       *reinterpret_cast<typename Raw<kVec>::U*>(out + s * c + ch) = o.raw;
     }
   }
-}
-
-// The widest access (16, 8, 4 bytes, or one element) that divides a sample's
-// row of channels and both pointers' alignment.
-int vec_bytes(const void* value, const void* out, int c, int item) {
-  const int64_t row = static_cast<int64_t>(c) * item;
-  for (int vb = 16; vb > item; vb /= 2) {
-    if (row % vb == 0 && reinterpret_cast<uintptr_t>(value) % vb == 0 &&
-        reinterpret_cast<uintptr_t>(out) % vb == 0) {
-      return vb;
-    }
-  }
-  return item;
 }
 
 template <typename T, int kVec>
@@ -255,14 +158,14 @@ extern "C" int vfmseg_deform_sample(const void* value, const void* xn, const voi
   const float* x = static_cast<const float*>(xn);
   const float* y = static_cast<const float*>(yn);
   if (dtype == 0) {
-    switch (vec_bytes(value, out, c, 4)) {
+    switch (vfmseg_deform::vec_bytes(value, out, c, 4)) {
       case 16: return launch<float, 16>(value, x, y, out, samples, n, h, w, c, st);
       case 8: return launch<float, 8>(value, x, y, out, samples, n, h, w, c, st);
       default: return launch<float, 4>(value, x, y, out, samples, n, h, w, c, st);
     }
   }
   if (dtype == 1) {
-    switch (vec_bytes(value, out, c, 2)) {
+    switch (vfmseg_deform::vec_bytes(value, out, c, 2)) {
       case 16: return launch<__nv_bfloat16, 16>(value, x, y, out, samples, n, h, w, c, st);
       case 8: return launch<__nv_bfloat16, 8>(value, x, y, out, samples, n, h, w, c, st);
       case 4: return launch<__nv_bfloat16, 4>(value, x, y, out, samples, n, h, w, c, st);

@@ -94,11 +94,18 @@ WINDOW_BLEND = Kernel("window_blend", "vfmseg_window_blend",
 # fp32, 1 bf16), stream
 DEFORM_SAMPLE = Kernel("deform_sample", "vfmseg_deform_sample",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+# csrc/deform_attn.cu: value, offsets, logits, ref_x, ref_y, out, geometry
+# (host int32 [levels, 3]: h, w, first token), inv (host fp32 [levels, 2]:
+# 1 / w, 1 / h), batch, nq, nv, heads, head_dim, levels, points, dtype (0
+# fp32, 1 bf16), stream
+DEFORM_ATTN = Kernel("deform_attn", "vfmseg_deform_attn",
+                     [_P] * 8 + [_I] * 8 + [_P])
 
 KERNELS = (LAYER_NORM, SWIGLU_GATE_LN, ATTENTION_QKV, ATTENTION_QKV_ROPE,
            ATTENTION_FWD_LSE, ATTENTION_HM_FWD, ATTENTION_HM_BWD,
            ATTENTION_HM_FWD_D32, ATTENTION_HM_BWD_D32, ATTENTION_HM_BIAS_FWD,
-           ATTENTION_HM_BIAS_BWD, ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE)
+           ATTENTION_HM_BIAS_BWD, ATTENTION_RELPOS, WINDOW_BLEND, DEFORM_SAMPLE,
+           DEFORM_ATTN)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
 """Device time of the deformable sampler (B8) at the pixel decoder's eval
-level.
+level, and of the fused core (``csrc/deform_attn.cu``) at Rein's slide.
 
 Usage, from the root of a checkout with a CUDA card:
 ``python3 -m vfmseg_tpu_torch.kernels.time_deform``
@@ -23,6 +23,23 @@ so some taps fall outside the plane):
   rate;
 * ``max_abs_err``: against ``sample_plain`` in fp32.
 
+For the fused core, one encoder layer at Rein's slide (``FUSED``: 18 crops,
+8 heads of 32, levels 16^2, 32^2 and 64^2, 4 points, 5376 queries) in bf16
+and fp32, from seeded GEMM outputs (offsets of a few pixels, some far
+outside) and the pixel decoder's reference points (``fused_inputs``):
+
+* ``ms``, ``device_ms``, ``device_ms_by_kernel``: as above, for one
+  ``ms_deform_attn_cuda`` call;
+* ``bound_ms``: the value, offsets, logits and reference points read once
+  and the output written once over 3.35 TB/s (0.155 GB a layer in bf16);
+* ``plain_ms``: CUDA events around the plain twin;
+* ``chain_ms``, ``chain_device_ms``, ``chain_device_ms_by_kernel``: the
+  training route from the same projections' outputs under ``no_grad``
+  (``ms_deform_attn_levels``: the layouts, softmax and locations, B8 a
+  level, the samples' copies, the batched gemv and the level sums), which
+  the eval route ran before the fused core;
+* ``max_abs_err``: against the twin in fp32.
+
 The script imports the package of the checkout it runs in, so running it in
 two checkouts on one card (parent, change, change, parent) compares their
 kernels. It prints the card's nvidia-smi name and power limit, then one
@@ -38,10 +55,19 @@ import torch
 import torch.nn.functional as F
 
 from vfmseg_tpu_torch.kernels.time_hm_bwd import device_ms, median_ms
-from vfmseg_tpu_torch.ops.deform_attn import sample_cuda, sample_plain
+from vfmseg_tpu_torch.models.heads.mask2former import _reference_points
+from vfmseg_tpu_torch.ops.deform_attn import (
+    ms_deform_attn_cuda,
+    ms_deform_attn_levels,
+    ms_deform_attn_plain,
+    sample_cuda,
+    sample_plain,
+)
 
 # (B, H, W, C, N) of B8 at the pixel decoder's eval level
 SHAPE = (144, 32, 32, 32, 12288)
+# (B, levels, heads, d, points) of the fused core at Rein's slide
+FUSED = (18, ((16, 16), (32, 32), (64, 64)), 8, 32, 4)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -75,6 +101,66 @@ def time_case(dtype, dev) -> dict:
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
+def fused_inputs(dtype, dev) -> tuple:
+    """One encoder layer's seeded GEMM outputs at ``FUSED``, the arguments
+    of ``ms_deform_attn_cuda``: the value, offsets of a few pixels (every
+    seventh query's forty times as far, so whole samples fall off the
+    planes), logits, and the pixel decoder's reference points (each level's
+    pixel centres in raster order, so neighbouring queries sample
+    neighbouring places)."""
+    b, shapes, heads, d, points = FUSED
+    nq = sum(h * w for h, w in shapes)
+    lp = len(shapes) * points
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    value = torch.randn((b, nq, heads * d), generator=gen).to(dev, dtype)
+    off = torch.randn((b, nq, heads * lp * 2), generator=gen) * 3
+    off[:, ::7] *= 40
+    offsets = off.to(dev, dtype)
+    logits = (torch.randn((b, nq, heads * lp), generator=gen) * 2).to(
+        dev, dtype)
+    ref_x, ref_y = _reference_points(shapes, dev)
+    return value, offsets, logits, ref_x, ref_y, shapes, heads, points
+
+
+def time_fused(dtype, dev) -> dict:
+    b, shapes, heads, d, points = FUSED
+    nq = sum(h * w for h, w in shapes)
+    args = fused_inputs(dtype, dev)
+    value, offsets, logits, ref_x, ref_y = args[:5]
+    want = ms_deform_attn_plain(*(t.float() for t in args[:3]), *args[3:])
+    err = float((ms_deform_attn_cuda(*args).float() - want).abs().max())
+    del want
+    levels, start = [], 0
+    for h, w in shapes:
+        levels.append(value[:, start:start + h * w].reshape(b, h, w, -1))
+        start += h * w
+
+    def ours():
+        return ms_deform_attn_cuda(*args)
+
+    def chain():
+        with torch.no_grad():
+            return ms_deform_attn_levels(
+                levels, offsets, logits, ref_x, ref_y, heads, points)
+
+    def plain():
+        return ms_deform_attn_plain(*args)
+
+    moved = sum(t.numel() * t.element_size() for t in args[:5]) + (
+        value.numel() * value.element_size())
+    dev_ours, dev_chain = device_ms(ours), device_ms(chain)
+    return dict(case="fused", batch=b, levels=[list(s) for s in shapes],
+                heads=heads, head_dim=d, points=points, queries=nq,
+                dtype=str(dtype), max_abs_err=err, ms=median_ms(ours),
+                device_ms=dev_ours["device_ms"],
+                device_ms_by_kernel=dev_ours["device_ms_by_kernel"],
+                plain_ms=median_ms(plain), chain_ms=median_ms(chain),
+                chain_device_ms=dev_chain["device_ms"],
+                chain_device_ms_by_kernel=dev_chain["device_ms_by_kernel"],
+                bound_gb=moved / 1e9, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is false")
@@ -83,9 +169,10 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    for dtype in (torch.bfloat16, torch.float32):
-        print(json.dumps(time_case(dtype, dev)), flush=True)
-        torch.cuda.empty_cache()
+    for case in (time_fused, time_case):
+        for dtype in (torch.bfloat16, torch.float32):
+            print(json.dumps(case(dtype, dev)), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Mask2Former decode head: the pixel decoder on B8, the masked decoder, and
-the semantic post-processing.
+"""Mask2Former decode head: the deformable pixel decoder, the masked decoder,
+and the semantic post-processing.
 
 Port of vfmseg_tpu/models/heads/mask2former.py:42-476: the learned
 ``query_embed`` is the positional query, or with ``rein_queries``
@@ -11,8 +11,9 @@ follow the flax tree
 
 * :func:`sine_positional_encoding`: the DETR sine table (mmdet
   SinePositionalEncoding, normalised), the port's own numpy copy.
-* :class:`MSDeformAttention`: multi-scale deformable attention, its
-  sampling on B8 through ``ops/deform_attn.py``.
+* :class:`MSDeformAttention`: multi-scale deformable attention through
+  ``ops/deform_attn.py``: the fused core's kernel where nothing needs a
+  gradient, B8 level by level under autograd.
 * :class:`MSDeformAttnPixelDecoder`: 6 post-norm deformable encoder layers
   over the three lowest-resolution maps, then the FPN lateral for the mask
   features.
@@ -52,7 +53,11 @@ from torch import nn
 
 from vfmseg_tpu_torch.models.common import Conv2d, Dense, GroupNorm
 from vfmseg_tpu_torch.ops.attention import attention_plain
-from vfmseg_tpu_torch.ops.deform_attn import ms_deform_attn_core
+from vfmseg_tpu_torch.ops.deform_attn import (
+    fused_supported,
+    ms_deform_attn,
+    ms_deform_attn_levels,
+)
 from vfmseg_tpu_torch.ops.norm import LayerNorm
 from vfmseg_tpu_torch.ops.resize import resize
 from vfmseg_tpu_torch.utils import profiling
@@ -113,7 +118,14 @@ class MSDeformAttention(nn.Module):
     """Multi-scale deformable attention (mmcv semantics). Both projections
     that read the query (``sampling_offsets``, ``attention_weights``) are
     plain linears; the JAX init zeroes their kernels, the port's seeded init
-    (``weights.init_params``) does not, so samples depend on the query."""
+    (``weights.init_params``) does not, so samples depend on the query.
+
+    Two routes, chosen by what the call needs: where nothing needs a
+    gradient (grad mode off, or neither the inputs nor the parameters
+    require one) and the kernel takes the head, level and point counts, the
+    fused core (``ops/deform_attn.py`` ``ms_deform_attn``) reads the three
+    projections' outputs as they are; otherwise B8 samples level by level
+    (``ms_deform_attn_levels``) under autograd."""
 
     def __init__(self, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 3, num_points: int = 4,
@@ -129,29 +141,28 @@ class MSDeformAttention(nn.Module):
             c, num_heads * num_levels * num_points, dtype=dtype)
         self.output_proj = Dense(c, c, dtype=dtype)
 
-    def forward(self, query: torch.Tensor, value_list: Sequence[torch.Tensor],
-                ref_x: torch.Tensor, ref_y: torch.Tensor) -> torch.Tensor:
-        """query: [B, Nq, C]; value_list: per level [B, H, W, C]; ref_x /
-        ref_y: [Nq] normalised reference coordinates."""
-        b, nq, c = query.shape
+    def _wants_grad(self, query: torch.Tensor, value: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (
+            query.requires_grad or value.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+
+    def forward(self, query: torch.Tensor, value: torch.Tensor,
+                shapes: Sequence[Tuple[int, int]], ref_x: torch.Tensor,
+                ref_y: torch.Tensor) -> torch.Tensor:
+        """query: [B, Nq, C]; value: [B, sum(H*W), C], the levels' maps of
+        ``shapes`` back to back; ref_x / ref_y: [Nq] normalised reference
+        coordinates."""
         h_, l_, p_ = self.num_heads, self.num_levels, self.num_points
-        d = c // h_
-        values = [self.value_proj(v).reshape(v.shape[:3] + (h_, d))
-                  for v in value_list]
-        # every coordinate and weight tensor keeps Nq as its last dimension
-        offsets = self.sampling_offsets(query).transpose(1, 2).reshape(
-            b, h_, l_, p_, 2, nq)
-        attn = self.attention_weights(query).transpose(1, 2).reshape(
-            b, h_, l_ * p_, nq)
-        attn = torch.softmax(attn, dim=2).reshape(b, h_, l_, p_, nq)
-        # fp32 locations: the reference point plus the offset in units of
-        # each level's pixels (1/W, 1/H)
-        off = offsets.float()
-        loc_x, loc_y = (torch.stack(
-            [ref + off[:, :, lvl, :, axis] * np.float32(1.0 / v.shape[2 - axis])
-             for lvl, v in enumerate(value_list)], dim=2)
-            for axis, ref in ((0, ref_x), (1, ref_y)))
-        out = ms_deform_attn_core(values, loc_x, loc_y, attn)
+        if not self._wants_grad(query, value) and fused_supported(l_, p_):
+            out = ms_deform_attn(self.value_proj(value),
+                                 self.sampling_offsets(query),
+                                 self.attention_weights(query), ref_x, ref_y,
+                                 shapes, h_, p_)
+            return self.output_proj(out)
+        values = [self.value_proj(v) for v in _split_levels(value, shapes)]
+        out = ms_deform_attn_levels(values, self.sampling_offsets(query),
+                                    self.attention_weights(query), ref_x,
+                                    ref_y, h_, p_)
         return self.output_proj(out)
 
 
@@ -216,8 +227,7 @@ class DeformableEncoderLayer(nn.Module):
 
     def forward(self, x, pos, shapes, ref_x, ref_y):
         # the value is the token stream itself, split into its level maps
-        attn_out = self.self_attn(x + pos, _split_levels(x, shapes), ref_x,
-                                  ref_y)
+        attn_out = self.self_attn(x + pos, x, shapes, ref_x, ref_y)
         x = self.norm1(x + attn_out)
         return self.norm2(self.ffn(x))
 

@@ -17,19 +17,30 @@ and zero padding, per-head softmaxed weights over the levels and points.
   recomputes through the plain version under autograd, as the JAX VJP
   recomputes through its matmul formulation (the two agree in fp32).
 * :func:`ms_deform_attn_core` samples every level once with the heads folded
-  into the batch, then weights the samples and sums over levels and points.
+  into the batch, then weights the samples and sums over levels and points;
+  :func:`ms_deform_attn_levels` brings the projections' outputs to it. The
+  training route, whose backward goes through :class:`DeformSample`.
+* :func:`ms_deform_attn` is the whole core where nothing needs a gradient,
+  from the projections' outputs as they are: the softmax of the attention
+  logits, the locations, every sample and the weighted sum over levels and
+  points, kept in fp32 and rounded once. On CUDA tensors it launches
+  ``csrc/deform_attn.cu`` (:func:`ms_deform_attn_cuda`), on CPU tensors it
+  runs :func:`ms_deform_attn_plain`, the same arithmetic in plain PyTorch.
 
 Layouts are the JAX package's: a level's value ``[B, H, W, C]`` (NHWC),
-coordinates as separate ``[B, N]`` x and y arrays.
+coordinates as separate ``[B, N]`` x and y arrays; the fused core takes the
+value token stream ``[B, sum(H W), C]`` with the levels back to back.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
-from vfmseg_tpu_torch.kernels import DEFORM_SAMPLE
+from vfmseg_tpu_torch.kernels import DEFORM_ATTN, DEFORM_SAMPLE
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -133,3 +144,139 @@ def ms_deform_attn_core(value_list: Sequence[torch.Tensor],
         o = torch.einsum("bhpnd,bhpn->bnhd", sampled, wts)
         out = o if out is None else out + o
     return out.reshape(b, nq, heads * d)
+
+
+def ms_deform_attn_levels(values: Sequence[torch.Tensor],
+                          offsets: torch.Tensor, logits: torch.Tensor,
+                          ref_x: torch.Tensor, ref_y: torch.Tensor,
+                          heads: int, points: int) -> torch.Tensor:
+    """The training route from the projections' outputs: values per level
+    ``[B, H, W, heads*d]``; offsets, logits, ref_x and ref_y as
+    :func:`ms_deform_attn` takes them. The softmax in the logits' dtype,
+    fp32 locations laid out with Nq last, then :func:`ms_deform_attn_core`.
+    Returns ``[B, Nq, heads*d]`` in the values' dtype."""
+    b, nq, _ = offsets.shape
+    levels, d = len(values), values[0].shape[-1] // heads
+    vals = [v.reshape(v.shape[:3] + (heads, d)) for v in values]
+    # every coordinate and weight tensor keeps Nq as its last dimension
+    off = offsets.transpose(1, 2).reshape(b, heads, levels, points, 2,
+                                          nq).float()
+    attn = logits.transpose(1, 2).reshape(b, heads, levels * points, nq)
+    attn = torch.softmax(attn, dim=2).reshape(b, heads, levels, points, nq)
+    # fp32 locations: the reference point plus the offset in units of each
+    # level's pixels (1/W, 1/H)
+    loc_x, loc_y = (torch.stack(
+        [ref + off[:, :, lvl, :, axis] * np.float32(1.0 / v.shape[2 - axis])
+         for lvl, v in enumerate(vals)], dim=2)
+        for axis, ref in ((0, ref_x), (1, ref_y)))
+    return ms_deform_attn_core(vals, loc_x, loc_y, attn)
+
+
+def fused_supported(levels: int, points: int) -> bool:
+    """Whether ``csrc/deform_attn.cu`` takes these counts: 1 to 4 levels and
+    levels x points up to 32 (a query's softmax in a warp's lanes)."""
+    return 1 <= levels <= 4 and points >= 1 and levels * points <= 32
+
+
+def ms_deform_attn_plain(value: torch.Tensor, offsets: torch.Tensor,
+                         logits: torch.Tensor, ref_x: torch.Tensor,
+                         ref_y: torch.Tensor,
+                         shapes: Sequence[Tuple[int, int]], heads: int,
+                         points: int) -> torch.Tensor:
+    """The fused core's plain twin: value ``[B, Nv, heads*d]`` with the
+    levels' ``shapes`` back to back; offsets ``[B, Nq, heads*L*P*2]`` and
+    logits ``[B, Nq, heads*L*P]`` in (head, level, point, axis) order;
+    ref_x, ref_y fp32 ``[Nq]``. The softmax, locations (the offset times
+    the fp32 ``1 / W``, then the reference point added), samples and the
+    sum over levels and points in fp32; returns ``[B, Nq, heads*d]``
+    rounded once to the value's dtype."""
+    b, nv, c = value.shape
+    nq = offsets.shape[1]
+    levels, d = len(shapes), c // heads
+    off = offsets.float().reshape(b, nq, heads, levels, points, 2)
+    wts = torch.softmax(logits.float().reshape(b, nq, heads, levels * points),
+                        dim=-1).reshape(b, nq, heads, levels, points)
+    v = value.float()
+    out, start = None, 0
+    for lvl, (h, w) in enumerate(shapes):
+        plane = v[:, start:start + h * w].reshape(b, h, w, heads, d).permute(
+            0, 3, 1, 2, 4).reshape(b * heads, h, w, d)
+        # [B, Nq, heads, P] -> [B heads, P Nq], as B8's batch rows
+        xn, yn = ((ref[:, None, None] + off[:, :, :, lvl, :, axis]
+                   * np.float32(1.0 / size)).permute(0, 2, 3, 1).reshape(
+                       b * heads, points * nq)
+                  for axis, ref, size in ((0, ref_x, w), (1, ref_y, h)))
+        sampled = sample_plain(plane, xn, yn).reshape(b, heads, points, nq, d)
+        o = torch.einsum("bhpnd,bnhp->bnhd", sampled, wts[:, :, :, lvl])
+        out = o if out is None else out + o
+        start += h * w
+    return out.reshape(b, nq, c).to(value.dtype)
+
+
+def ms_deform_attn_cuda(value: torch.Tensor, offsets: torch.Tensor,
+                        logits: torch.Tensor, ref_x: torch.Tensor,
+                        ref_y: torch.Tensor,
+                        shapes: Sequence[Tuple[int, int]], heads: int,
+                        points: int) -> torch.Tensor:
+    """Launch ``csrc/deform_attn.cu`` on contiguous CUDA tensors laid out
+    as :func:`ms_deform_attn_plain` takes them (value, offsets and logits
+    all fp32 or all bf16). Returns a new contiguous ``[B, Nq, heads*d]``
+    tensor in the value's dtype."""
+    fn = "ms_deform_attn_cuda"
+    levels = len(shapes)
+    if not fused_supported(levels, points):
+        raise ValueError(f"{fn}: fused_supported refuses "
+                         f"{levels} levels of {points} points")
+    if value.dim() != 3 or value.dtype not in _DTYPES:
+        raise ValueError(f"{fn} takes an fp32 or bf16 [B, Nv, C] value, got "
+                         f"{value.dtype} {tuple(value.shape)}")
+    b, nv, c = value.shape
+    nq = offsets.shape[1] if offsets.dim() == 3 else -1
+    lp = levels * points
+    want = {"offsets": (offsets, value.dtype, (b, nq, heads * lp * 2)),
+            "logits": (logits, value.dtype, (b, nq, heads * lp)),
+            "ref_x": (ref_x, torch.float32, (nq,)),
+            "ref_y": (ref_y, torch.float32, (nq,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{fn} needs {name} of {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for t in (value, offsets, logits, ref_x, ref_y):
+        if not t.is_cuda or t.device != value.device:
+            raise ValueError(f"{fn} needs CUDA tensors on one card, got one "
+                             f"on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn} needs contiguous tensors")
+    if c % heads or sum(h * w for h, w in shapes) != nv:
+        raise ValueError(f"{fn}: {c} channels over {heads} heads, levels "
+                         f"{tuple(shapes)} for {nv} value tokens")
+    if max(b * nq, value.numel(), offsets.numel()) >= 2**31:
+        raise ValueError(f"{fn}: {b} x {nq} queries exceed the launch limits")
+    out = torch.empty((b, nq, c), dtype=value.dtype, device=value.device)
+    if out.numel() == 0:
+        return out
+    geometry, inv, start = [], [], 0
+    for h, w in shapes:
+        geometry += [h, w, start]
+        inv += [np.float32(1.0 / w), np.float32(1.0 / h)]
+        start += h * w
+    DEFORM_ATTN(value.data_ptr(), offsets.data_ptr(), logits.data_ptr(),
+                ref_x.data_ptr(), ref_y.data_ptr(), out.data_ptr(),
+                (ctypes.c_int * len(geometry))(*geometry),
+                (ctypes.c_float * len(inv))(*inv), b, nq, nv, heads,
+                c // heads, levels, points, _DTYPES[value.dtype],
+                torch.cuda.current_stream(value.device).cuda_stream)
+    return out
+
+
+def ms_deform_attn(value: torch.Tensor, offsets: torch.Tensor,
+                   logits: torch.Tensor, ref_x: torch.Tensor,
+                   ref_y: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                   heads: int, points: int) -> torch.Tensor:
+    """The fused core (no gradient): the kernel on CUDA tensors, the plain
+    twin on CPU tensors."""
+    if value.is_cuda:
+        return ms_deform_attn_cuda(value, offsets, logits, ref_x, ref_y,
+                                   shapes, heads, points)
+    return ms_deform_attn_plain(value, offsets, logits, ref_x, ref_y, shapes,
+                                heads, points)
